@@ -1,26 +1,43 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's placement pipeline on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the placement pipeline
+and the hymba-1.5b serving path.
 
     python3 chip_smoke.py                      # every phase, as CI runs it
     python3 chip_smoke.py --phases build,kernels
 
 Phases, each printed on a line of its own:
 
-1. build      — compile the CUDA kernels from ``src/repro_torch/csrc``.
-2. kernels    — hold each kernel against its plain PyTorch version on the
-                card at the pipeline's shapes (exact match required) and
-                time kernel, plain version and the bound of the work.
-3. fit-stress — ``Simulator(64, 50).run(lmbr_stress_workload(seed=0), lmbr,
-                seed=0, max_moves=1200)`` on the card with the dense peel
-                and the span_gain kernel pinned; the summary and member
-                matrix must equal the same call on the CPU bit for bit, and
-                every kernel must have launched.
-4. fit-paper  — the same fit and CPU cross-check on the largest fig9
-                circuit (ibm10-like, 69 429 nodes, 35 partitions, capacity
-                ceil(n/20), max_moves 600).
+1. build       — compile the six CUDA kernels from ``src/repro_torch/csrc``.
+2. kernels     — hold each kernel against its plain PyTorch version on the
+                 card and time kernel, plain version, library call (where
+                 one PyTorch call computes the same function) and the
+                 bound of the work: the placement kernels at the
+                 pipeline's shapes (exact match required), flash_attention,
+                 decode_attention and ssd_scan at hymba-1.5b's serving
+                 shapes in bf16 and f32 (within 2e-2 / 2e-4).
+3. fit-stress  — ``Simulator(64, 50).run(lmbr_stress_workload(seed=0), lmbr,
+                 seed=0, max_moves=1200)`` on the card with the dense peel
+                 and the span_gain kernel pinned; the summary and member
+                 matrix must equal the same call on the CPU bit for bit, and
+                 every placement kernel must have launched.
+4. fit-paper   — the same fit and CPU cross-check on the largest fig9
+                 circuit (ibm10-like, 69 429 nodes, 35 partitions, capacity
+                 ceil(n/20), max_moves 600).
+5. serve       — ``repro_torch.launch.serve`` on hymba-1.5b at full width
+                 and depth (32 layers, bf16, random weights from seed 0):
+                 16 requests in batches of 8, prompt 2048, 64 greedy decode
+                 steps; finite logits, prefill tokens/s, decode ms/step,
+                 peak memory, and each model kernel's launch count, which
+                 must be 32 x 2 (flash, ssd) and 32 x 64 x 2 (decode).
+6. serve-check — hymba-1.5b at full width and 4 layers (global, window,
+                 window, global) in f32 with TF32 off, prompt 1536: the
+                 kernel route against the plain route on the card (logits
+                 within 1e-3) and teacher-forced decode after prefill
+                 against the cache-free forward (within 2e-3).
 
 ``--profile`` runs each fit once more under torch.profiler and the
-package's tracer and prints where its time goes.
+package's tracer, and one serving batch (prefill, 8 decode steps) under
+torch.profiler, and prints where the time goes.
 
 Then: the card's name and power limit (nvidia-smi), one JSON line with
 every kernel's numbers, and the device line.  Any failed check raises and
@@ -43,15 +60,18 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12       # H100 SXM non-tensor fp32, NVIDIA data sheet
-PHASES = ("build", "kernels", "fit-stress", "fit-paper")
+BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores, data sheet
+PHASES = ("build", "kernels", "fit-stress", "fit-paper", "serve",
+          "serve-check")
 PAPER_NODES = 69429          # ibm10, the largest fig9 circuit
 # summary keys that record wall time or which backend ran
 BACKEND_KEYS = {"placement_s", "fit_peel", "fit_cover_engine"}
 
 
-def _bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+def _bound_ms(nbytes: float, ops: float,
+              peak: float = FP32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / FP32_OPS_PER_S
+    t_ops = ops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -245,6 +265,358 @@ def phase_kernels(np, torch, dev):
     return rows
 
 
+# hymba-1.5b serving shapes: batch 8, 25 query / 5 kv heads of 64, a 2048-
+# token prompt and 64 decode steps (cache 2112), 50 SSM heads of 64,
+# state 16, chunk 256
+SERVE = dict(batch=8, requests=16, prefill_len=2048, decode_len=64)
+TOL = dict(rtol=2e-2, atol=2e-2)      # bf16 storage, as tests/test_kernels.py
+TOL32 = dict(rtol=2e-4, atol=2e-4)    # f32
+
+
+def _close(torch, got, want, tol) -> bool:
+    return all(bool(torch.allclose(g.float(), w.float(), **tol))
+               for g, w in zip(got, want))
+
+
+def phase_model_kernels(np, torch, dev):
+    """flash_attention, decode_attention and ssd_scan against their plain
+    versions at the serving path's shapes, in bf16 and f32, with kernel,
+    plain and library times and the bound of the work."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_plain)
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain)
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    B, H, K, D = SERVE["batch"], 25, 5, 64
+    S = SERVE["prefill_len"]
+    Tc = S + SERVE["decode_len"]
+    rows = {"flash_attention": [], "decode_attention": [], "ssd_scan": []}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    for dtype, peak, tol in ((torch.bfloat16, BF16_OPS_PER_S, TOL),
+                             (torch.float32, FP32_OPS_PER_S, TOL32)):
+        esz = torch.finfo(dtype).bits // 8
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        # flash_attention: prefill, causal, global and window-1024 layers
+        q = randn(B, S, H, D).to(dtype)
+        k, v = randn(B, S, K, D).to(dtype), randn(B, S, K, D).to(dtype)
+        qT, kT, vT = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        for window in (None, 1024):
+            got = flash_attention(q, k, v, window=window)
+            want = flash_attention_plain(q, k, v, window=window)
+            torch.cuda.synchronize()
+            err = _max_abs([got], [want])
+            _require(_close(torch, [got], [want], tol),
+                     f"flash_attention {tag} window={window}: max|diff| {err}")
+            qi = torch.arange(S, device=dev)[:, None]
+            kj = torch.arange(S, device=dev)[None, :]
+            mask = kj <= qi
+            if window is not None:
+                mask &= kj > qi - window
+            pairs = float(mask.sum())
+            nbytes = (2 * B * S * H * D + 2 * B * S * K * D) * esz
+            bound, by = _bound_ms(nbytes, 4.0 * D * pairs * B * H, peak)
+            rows["flash_attention"].append(dict(
+                shape=f"B{B}.S{S}.H{H}.K{K}.D{D}.{tag}.w{window}",
+                max_abs_err=err,
+                ms=_cuda_ms(torch, lambda: flash_attention(
+                    q, k, v, window=window), 5),
+                plain_ms=_cuda_ms(torch, lambda: flash_attention_plain(
+                    q, k, v, window=window), 2),
+                library_ms=_cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qT, kT, vT, attn_mask=mask, enable_gqa=True), 5),
+                bound_ms=bound, bound_by=by))
+        del q, k, v, qT, kT, vT
+
+        # decode_attention: one step in the middle of decode (2080 of the
+        # 2112 slots filled), global and window-1024 layers
+        fill = S + SERVE["decode_len"] // 2
+        q = randn(B, H, D).to(dtype)
+        k, v = randn(B, Tc, K, D).to(dtype), randn(B, Tc, K, D).to(dtype)
+        slot = torch.arange(Tc, device=dev, dtype=torch.int32)
+        kv_pos = torch.where(slot < fill, slot, -1)[None].expand(B, Tc)
+        kv_pos = kv_pos.contiguous()
+        q_pos = torch.full((B,), fill - 1, dtype=torch.int32, device=dev)
+        qT, kT, vT = (q[:, :, None], k.transpose(1, 2).contiguous(),
+                      v.transpose(1, 2).contiguous())
+        for window in (None, 1024):
+            got = decode_attention(q, k, v, kv_pos, q_pos, window=window)
+            want = decode_attention_plain(q, k, v, kv_pos, q_pos,
+                                          window=window)
+            torch.cuda.synchronize()
+            err = _max_abs([got], [want])
+            _require(_close(torch, [got], [want], tol),
+                     f"decode_attention {tag} window={window}: "
+                     f"max|diff| {err}")
+            vis = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+            if window is not None:
+                vis &= kv_pos > q_pos[:, None] - window
+            nvis = float(vis.sum())
+            nbytes = (nvis * K * D * 2 * esz + B * Tc * 4 + B * 4
+                      + 2 * B * H * D * esz)
+            bound, by = _bound_ms(nbytes, 4.0 * D * (H // K) * K * nvis, peak)
+            mask = vis[:, None, None, :]
+            rows["decode_attention"].append(dict(
+                shape=f"B{B}.T{Tc}.fill{fill}.H{H}.K{K}.D{D}.{tag}.w{window}",
+                max_abs_err=err,
+                ms=_cuda_ms(torch, lambda: decode_attention(
+                    q, k, v, kv_pos, q_pos, window=window), 50),
+                plain_ms=_cuda_ms(torch, lambda: decode_attention_plain(
+                    q, k, v, kv_pos, q_pos, window=window), 10),
+                library_ms=_cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    qT, kT, vT, attn_mask=mask, enable_gqa=True), 50),
+                bound_ms=bound, bound_by=by))
+        del q, k, v, qT, kT, vT
+
+        # ssd_scan: prefill of the SSM branch from a nonzero state
+        NH, P, N, L = 50, 64, 16, 256
+        x = randn(B, S, NH, P).to(dtype)
+        dt = F.softplus(randn(B, S, NH) - 1.0)
+        a = -torch.exp(randn(NH, scale=0.3))
+        bm, cm = randn(B, S, N, scale=0.3), randn(B, S, N, scale=0.3)
+        h0 = randn(B, NH, P, N, scale=0.1)
+        got = ssd_scan(x, dt, a, bm, cm, chunk=L, h0=h0)
+        want = ssd_scan_plain(x, dt, a, bm, cm, chunk=L, h0=h0)
+        torch.cuda.synchronize()
+        err = _max_abs(got, want)
+        _require(_close(torch, got, want, TOL32),
+                 f"ssd_scan {tag}: max|diff| {err}")
+        nch = -(-S // L)
+        ops = B * NH * nch * (L * (L + 1) / 2 * 2 * (N + P) + 4 * L * P * N)
+        nbytes = (B * S * NH * P * (esz + 4) + B * S * NH * 4 + NH * 4
+                  + 2 * B * S * N * 4 + 2 * B * NH * P * N * 4)
+        bound, by = _bound_ms(nbytes, ops, FP32_OPS_PER_S)
+        rows["ssd_scan"].append(dict(
+            shape=f"B{B}.S{S}.H{NH}.P{P}.N{N}.L{L}.{tag}", max_abs_err=err,
+            ms=_cuda_ms(torch, lambda: ssd_scan(x, dt, a, bm, cm, chunk=L,
+                                                h0=h0), 5),
+            plain_ms=_cuda_ms(torch, lambda: ssd_scan_plain(
+                x, dt, a, bm, cm, chunk=L, h0=h0), 2),
+            library_ms=None, bound_ms=bound, bound_by=by))
+        del x, dt, bm, cm, h0
+
+    out = {}
+    for name, shapes in rows.items():
+        # the row of the line: bf16, the global (window-free) layer first
+        out[name] = dict(shapes[0], shapes=shapes)
+        for row in shapes:
+            print(f"  {name} {json.dumps(row)}")
+    print("kernels (model): " + "; ".join(
+        f"{n} max|diff|={r['max_abs_err']:g} ms={r['ms']:.4f} "
+        f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f}"
+        for n, r in out.items()), flush=True)
+    return out
+
+
+def phase_serve(torch, kernels, dev):
+    """The full-width, full-depth hymba-1.5b serving run through
+    ``repro_torch.launch.serve``: 16 requests in batches of 8, prompt 2048,
+    64 greedy decode steps, bf16, random weights from seed 0."""
+    from repro_torch.launch.serve import load_model, serve
+
+    t0 = time.perf_counter()
+    cfg, params = load_model("hymba-1.5b", device=dev, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nparams = sum(t.numel() for t in _leaves(params))
+    # warm-up (cuBLAS handles, allocator), outside the measured run
+    serve(cfg, params, requests=1, batch=1, prefill_len=16, decode_len=2)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(kernels)
+    res = serve(cfg, params, **SERVE)
+    launches = _counts(kernels)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    L, nb = cfg.num_layers, res["batches"]
+    want = {"flash_attention": L * nb,
+            "decode_attention": L * SERVE["decode_len"] * nb,
+            "ssd_scan": L * nb}
+    for name, n in want.items():
+        _require(launches[name] == n,
+                 f"serve: {name} launched {launches[name]} times, want {n}")
+    _require(bool(torch.isfinite(res["logits"]).all()),
+             "serve: non-finite logits")
+    _require(res["logits"].shape == (SERVE["batch"], cfg.vocab_size),
+             "serve: logits shape")
+    prefill_tps = res["prefill_tokens"] / res["prefill_s"]
+    decode_ms = res["decode_s"] * 1e3 / (nb * SERVE["decode_len"])
+    print(f"serve: hymba-1.5b layers={L} d_model={cfg.d_model} "
+          f"params={nparams} bf16 init_s={init_s:.2f} "
+          f"requests={SERVE['requests']} batch={SERVE['batch']} "
+          f"prefill_len={SERVE['prefill_len']} "
+          f"decode_len={SERVE['decode_len']} prefill_s={res['prefill_s']:.3f} "
+          f"prefill_tok_per_s={prefill_tps:.1f} decode_s={res['decode_s']:.3f} "
+          f"decode_ms_per_step={decode_ms:.3f} peak_mem_gb={peak_gb:.3f} "
+          f"launches={ {n: launches[n] for n in want} }", flush=True)
+    return dict(launches=launches, prefill_tok_per_s=prefill_tps,
+                decode_ms_per_step=decode_ms, peak_mem_gb=peak_gb)
+
+
+def phase_serve_profile(np, torch, dev):
+    """One serving batch once more under torch.profiler: the prefill, then
+    8 decode steps, each with its device busy time, idle share and device
+    time by kernel group.  Numbers are under the profiler (its per-op cost
+    inflates the host-bound decode's wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.serve import load_model
+    from repro_torch.models import decode_step, prefill
+
+    cfg, params = load_model("hymba-1.5b", device=dev, seed=0)
+    B, S, n_dec = SERVE["batch"], SERVE["prefill_len"], 8
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S))).to(dev)
+    state = {}
+
+    def run_prefill():
+        state["logits"], state["cache"] = prefill(
+            cfg, params, {"tokens": tokens}, max_len=S + SERVE["decode_len"])
+
+    def run_decode():
+        tok = state["logits"].argmax(-1)[:, None]
+        for t in range(n_dec):
+            pos = torch.full((B, 1), S + t, dtype=torch.int32, device=dev)
+            logits, state["cache"] = decode_step(cfg, params, state["cache"],
+                                                 tok, pos)
+            tok = logits.argmax(-1)[:, None]
+
+    groups = (("flash_attention", ("flash_attention",)),
+              ("decode_attention", ("decode_split", "decode_combine")),
+              ("ssd_scan", ("ssd_scan",)),
+              ("gemm", ("gemm", "gemv", "nvjet", "xmma", "cutlass")))
+    for label, fn in (("prefill", run_prefill), ("decode x8", run_decode)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total]
+        if not rows:
+            print(f"profile serve {label}: wall_s={wall:.3f} device time not "
+                  "measured (the profiler saw no device activity)")
+            continue
+        busy = sum(e.self_device_time_total for e in rows) / 1e6
+        by_group = {g: 0.0 for g, _ in groups}
+        by_group["other"] = 0.0
+        for e in rows:
+            name = e.key.lower()
+            g = next((g for g, keys in groups
+                      if any(k in name for k in keys)), "other")
+            by_group[g] += e.self_device_time_total / 1e6
+        print(f"profile serve {label}: wall_s={wall:.3f} "
+              f"device_launches={sum(e.count for e in rows)} "
+              f"device_busy_s={busy:.4f} device_idle_share="
+              f"{1 - busy / wall:.4f} device_s_by_group="
+              f"{ {g: round(v, 4) for g, v in by_group.items()} }",
+              flush=True)
+        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"  {e.key[:70]!r} count={e.count} "
+                  f"device_ms={e.self_device_time_total / 1e3:.3f}")
+    del params, state
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _route_run(torch, cfg, params, tokens, n_prefill):
+    """Cache-free forward logits, prefill's last logits and teacher-forced
+    decode logits of one route."""
+    from repro_torch.models import decode_step, forward, prefill
+
+    full, _ = forward(cfg, params, tokens)
+    last, cache = prefill(cfg, params, {"tokens": tokens[:, :n_prefill]},
+                          max_len=tokens.shape[1])
+    steps = []
+    for t in range(n_prefill, tokens.shape[1]):
+        pos = torch.full((tokens.shape[0], 1), t, dtype=torch.int32,
+                         device=tokens.device)
+        logits, cache = decode_step(cfg, params, cache, tokens[:, t:t + 1],
+                                    pos)
+        steps.append(logits)
+    torch.cuda.synchronize()
+    return full, last, torch.stack(steps, dim=1)
+
+
+def phase_serve_check(np, torch, kernels, dev):
+    """hymba-1.5b at full width and 4 layers (global, window, window,
+    global; window 1024) in f32, prompt 1536: the kernel route against the
+    plain route on the card (logits within 1e-3), and teacher-forced decode
+    after prefill against the cache-free forward (within 2e-3).  TF32 is
+    off for both matmul and cuDNN, so f32 products run in full f32."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention_plain
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_plain
+    from repro_torch.launch.serve import load_model
+    from repro_torch.models import attention, layer_windows, ssm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, params = load_model("hymba-1.5b", device=dev, seed=1, num_layers=4,
+                             dtype="float32")
+    wins = layer_windows(cfg)
+    _require(wins == [None, 1024, 1024, None], f"serve-check windows {wins}")
+    B, S, n_prefill = 2, 1536, 1528
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
+
+    _zero_counts(kernels)
+    kern = _route_run(torch, cfg, params, tokens, n_prefill)
+    kern_launches = _counts(kernels)
+    for name in ("flash_attention", "decode_attention", "ssd_scan"):
+        _require(kern_launches[name] > 0,
+                 f"serve-check: kernel route never launched {name}")
+    patched = [(attention, "flash_attention", flash_attention_plain),
+               (attention, "decode_attention", decode_attention_plain),
+               (ssm, "ssd_scan", ssd_scan_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+    _zero_counts(kernels)
+    try:
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+        plain = _route_run(torch, cfg, params, tokens, n_prefill)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    _require(all(n == 0 for n in _counts(kernels).values()),
+             "serve-check: the plain route launched a kernel")
+    route_err = _max_abs(kern, plain)
+    _require(_close(torch, kern, plain, dict(rtol=1e-3, atol=1e-3)),
+             f"serve-check: kernel vs plain route max|diff| {route_err}")
+    full, last, steps = kern
+    tf_err = _max_abs([last, steps],
+                      [full[:, n_prefill - 1], full[:, n_prefill:]])
+    _require(_close(torch, [last, steps],
+                    [full[:, n_prefill - 1], full[:, n_prefill:]],
+                    dict(rtol=2e-3, atol=2e-3)),
+             f"serve-check: decode vs forward max|diff| {tf_err}")
+    _require(all(bool(torch.isfinite(t).all()) for t in kern),
+             "serve-check: non-finite logits")
+    print(f"serve-check: hymba-1.5b full width, layers=4 windows={wins} f32 "
+          f"tf32=off batch={B} prompt={S} prefill={n_prefill} "
+          f"decode={S - n_prefill} kernel_vs_plain_max_abs={route_err:.3e} "
+          f"(tol 1e-3) decode_vs_forward_max_abs={tf_err:.3e} (tol 2e-3) "
+          f"max_abs_logit={float(full.abs().max()):.4f} "
+          f"launches={kern_launches}", flush=True)
+
+
 def _zero_counts(kernels):
     for fn in kernels.values():
         fn.launches = 0
@@ -352,8 +724,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="after each fit phase, run it once more under "
-                    "torch.profiler and print where the time goes")
+                    help="after each fit phase and the serve phase, run "
+                    "it once more under torch.profiler and print where the "
+                    "time goes")
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -376,25 +749,34 @@ def main(argv=None) -> int:
     from repro_torch.core import ispd_like_workload, lmbr_stress_workload
     from repro_torch.core import LMBR_STRESS_DEFAULTS as STRESS
     from repro_torch.kernels.cover_rounds.ops import cover_rounds
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.lockstep_peel.ops import lockstep_peel
     from repro_torch.kernels.span_gain.ops import span_gains
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
     dev = torch.device("cuda")
     print(f"device: {torch.cuda.get_device_name(0)} torch={torch.__version__} "
           f"cuda={torch.version.cuda}", flush=True)
-    kernels = {"span_gain": span_gains, "cover_rounds": cover_rounds,
-               "lockstep_peel": lockstep_peel}
+    fit_kernels = {"span_gain": span_gains, "cover_rounds": cover_rounds,
+                   "lockstep_peel": lockstep_peel}
+    model_kernels = {"flash_attention": flash_attention,
+                     "decode_attention": decode_attention,
+                     "ssd_scan": ssd_scan}
+    kernels = {**fit_kernels, **model_kernels}
     rows = {}
-    stress = None
+    launches = {}
     if "build" in phases:
         phase_build(_build)
     if "kernels" in phases:
         rows = phase_kernels(np, torch, dev)
+        rows.update(phase_model_kernels(np, torch, dev))
     if "fit-stress" in phases:
         hg = lmbr_stress_workload(seed=0).hypergraph
-        stress = phase_fit(np, torch, kernels, "fit-stress", hg,
+        stress = phase_fit(np, torch, fit_kernels, "fit-stress", hg,
                            STRESS["num_partitions"], STRESS["capacity"],
                            STRESS["max_moves"], cpu_check=True)
+        launches.update(stress["launches"])
         if args.profile:
             phase_profile(torch, "fit-stress", hg, STRESS["num_partitions"],
                           STRESS["capacity"], STRESS["max_moves"])
@@ -403,10 +785,17 @@ def main(argv=None) -> int:
         hg = ispd_like_workload(num_nodes=n_nodes, seed=9).hypergraph
         label = f"fit-paper(n={n_nodes})"
         cap = int(math.ceil(n_nodes / 20))
-        phase_fit(np, torch, kernels, label, hg, 35, cap, 600,
+        phase_fit(np, torch, fit_kernels, label, hg, 35, cap, 600,
                   cpu_check=True)
         if args.profile:
             phase_profile(torch, label, hg, 35, cap, 600)
+    if "serve" in phases:
+        served = phase_serve(torch, kernels, dev)
+        launches.update({n: served["launches"][n] for n in model_kernels})
+        if args.profile:
+            phase_serve_profile(np, torch, dev)
+    if "serve-check" in phases:
+        phase_serve_check(np, torch, kernels, dev)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -419,16 +808,22 @@ def main(argv=None) -> int:
                          "src/repro/core/setcover.py:338"),
         "lockstep_peel": ("src/repro_torch/csrc/lockstep_peel.cu",
                           "src/repro/kernels/lockstep_peel/kernel.py:89"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:94"),
+        "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                             "src/repro/kernels/decode_attention/kernel.py:77"),
+        "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                     "src/repro/kernels/ssd_scan/kernel.py:71"),
     }
     report = []
     for name, (source, tpu) in replaces.items():
         row = rows.get(name, {})
         report.append(dict(
             name=name, route="cuda", source=source, replaces=tpu,
-            launches=stress["launches"][name] if stress else None,
+            launches=launches.get(name),
             max_abs_err=row.get("max_abs_err"), ms=row.get("ms"),
             plain_ms=row.get("plain_ms"), bound_ms=row.get("bound_ms"),
-            bound_by=row.get("bound_by"), library_ms=None,
+            bound_by=row.get("bound_by"), library_ms=row.get("library_ms"),
         ))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,8 @@ from pathlib import Path
 
 __all__ = ["build", "lib", "check", "BUILD_INFO"]
 
-SOURCES = ("span_gain.cu", "cover_rounds.cu", "lockstep_peel.cu")
+SOURCES = ("span_gain.cu", "cover_rounds.cu", "lockstep_peel.cu",
+           "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -45,6 +46,9 @@ _SIGNATURES = {
                               _P], _I),
     "lockstep_peel_state_bytes": ([_I, _I], _LL),
     "lockstep_peel_smem_cap": ([], _I),
+    "flash_attention_launch": ([_P] * 4 + [_I] * 10 + [_P], _I),
+    "decode_attention_launch": ([_P] * 7 + [_I] * 8 + [_P], _I),
+    "ssd_scan_launch": ([_P] * 8 + [_I] * 8 + [_P], _I),
     "repro_torch_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,0 +1,12 @@
+"""Model configurations of the port (plain data, no torch)."""
+
+from .base import (  # noqa: F401
+    MLAConfig,
+    ModelConfig,
+    MoEConfig,
+    SSMConfig,
+    get_config,
+    list_configs,
+    reduce_config,
+    register,
+)

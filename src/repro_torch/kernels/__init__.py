@@ -1,9 +1,15 @@
-"""Hand-written CUDA kernels of the placement pipeline, each with its plain
-PyTorch version and a launch counter:
+"""Hand-written CUDA kernels, each with its plain PyTorch version and a
+launch counter.  The placement pipeline's:
 
-  span_gain      — gain matrix of one greedy cover round
-  cover_rounds   — every greedy round of a word-count bucket
-  lockstep_peel  — the dense Algorithm-5 peel of LMBR
+  span_gain         — gain matrix of one greedy cover round
+  cover_rounds      — every greedy round of a word-count bucket
+  lockstep_peel     — the dense Algorithm-5 peel of LMBR
+
+and the model stack's (the hymba serving path):
+
+  flash_attention   — causal / sliding-window GQA prefill attention
+  decode_attention  — one-token GQA flash-decode over a KV cache
+  ssd_scan          — the Mamba2 SSD chunk scan from a carried state
 
 A wrapper runs the plain version for CPU tensors and launches the kernel
 for CUDA tensors (or raises); it never falls back from one to the other.

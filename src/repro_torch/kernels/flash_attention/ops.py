@@ -1,0 +1,99 @@
+"""flash_attention: causal / sliding-window GQA prefill attention.
+
+Model layout at the wrapper, as the reference's ``ops.py`` takes it:
+q (B, S, H, D), k / v (B, T, K, D) with H = K * G; query i and key j sit
+at positions i and j.  A key is visible to a query when ``j <= i``
+(causal) and ``j > i - window`` (window given).  Scores are
+``q . k * D**-0.5`` in fp32; masked scores are ``NEG_INF``; the row max is
+clamped at -1e4 (so a fully masked row gives zeros, never exp(0)) and the
+divisor at 1e-30, as the reference kernel does.  Output (B, S, H, D) in
+q's dtype.
+
+* ``flash_attention_plain`` — the plain PyTorch version: the same masked,
+  clamped softmax, one batch row at a time.
+* ``flash_attention`` — the wrapper: plain version for CPU tensors, the
+  CUDA kernel (``csrc/flash_attention.cu``) for CUDA tensors.
+  ``flash_attention.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ... import _build
+from .. import check_same_device, launch_args
+
+__all__ = ["flash_attention", "flash_attention_plain", "NEG_INF"]
+
+NEG_INF = -1e30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (32, 64)
+
+
+def _mask(s: int, t: int, causal: bool, window, device) -> torch.Tensor:
+    qpos = torch.arange(s, device=device)[:, None]
+    kpos = torch.arange(t, device=device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def flash_attention_plain(q, k, v, *, causal: bool = True, window=None):
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    mask = _mask(s, t, causal, window, q.device)
+    out = torch.empty_like(q)
+    for i in range(b):
+        qf = q[i].float().transpose(0, 1)                         # (H, S, D)
+        kf = k[i].float().transpose(0, 1).repeat_interleave(g, 0)  # (H, T, D)
+        vf = v[i].float().transpose(0, 1).repeat_interleave(g, 0)
+        sc = torch.matmul(qf, kf.transpose(1, 2)) * (d ** -0.5)
+        sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+        m = sc.amax(dim=-1, keepdim=True).clamp_min(-1e4)
+        p = torch.exp(sc - m)
+        o = torch.matmul(p, vf) / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        out[i] = o.transpose(0, 1).to(q.dtype)
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None) -> torch.Tensor:
+    """Attention of q (B, S, H, D) over k / v (B, T, K, D), positions
+    0..S-1 and 0..T-1; f32 or bf16, one dtype for all three."""
+    dev = check_same_device(q, k, v)
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError("q must be (B, S, H, D) and k, v (B, T, K, D)")
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or kh == 0 or h % kh:
+        raise ValueError(f"q {tuple(q.shape)} does not match k "
+                         f"{tuple(k.shape)} (H must be a multiple of K)")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention takes f32 or bf16 q, k, v of one "
+                        "dtype")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be positive, got {window}")
+    if dev.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head_dim in {_HEAD_DIMS}, "
+                         f"got {d}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    index, stream = launch_args(dev)
+    err = _build.lib().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        b, s, t, h, kh, d, int(causal), window or 0, _DTYPES[q.dtype],
+        index, stream,
+    )
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

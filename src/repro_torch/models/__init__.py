@@ -1,0 +1,11 @@
+"""The model stack of the port: the hybrid (hymba) serving path."""
+
+from .convert import params_from_jax  # noqa: F401
+from .model import (  # noqa: F401
+    decode_step,
+    forward,
+    init_cache,
+    init_params,
+    layer_windows,
+    prefill,
+)

@@ -12,10 +12,10 @@ and the plain PyTorch version on CPU tensors:
 * one-token decode with a cache: ``decode_attention`` over the cache.
 
 Any other case (a prefill into a non-empty cache, positions other than
-0..S-1 without a cache) raises; serving never makes one.
-``chunked_attention`` is the reference's model-level oracle (online
-softmax over KV chunks, positions from arrays), kept for the tests.
-MLA is not ported (ROADMAP Queue 1 item 12).
+0..S-1 without a cache) raises; serving never makes one.  The kernels'
+plain versions are the port's model-level oracle; the tests hold them
+against the reference's ``chunked_attention``.  MLA is not ported
+(ROADMAP Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -23,47 +23,10 @@ from __future__ import annotations
 import torch
 
 from ..kernels.decode_attention.ops import decode_attention
-from ..kernels.flash_attention.ops import NEG_INF, flash_attention
+from ..kernels.flash_attention.ops import flash_attention
 from .layers import apply_rope, dense_init
 
-__all__ = ["chunked_attention", "init_gqa", "gqa_qkv", "gqa_attention",
-           "init_gqa_cache"]
-
-
-def chunked_attention(q, k, v, q_positions, kv_positions, causal=True,
-                      window=None, chunk=512, softmax_scale=None):
-    """Online-softmax attention over KV chunks (the reference's
-    ``chunked_attention``).  kv_positions -1 marks an invalid slot.
-    Returns (B, S, H, Dv) in q's dtype."""
-    b, s, h, d = q.shape
-    t, kheads = k.shape[1], k.shape[2]
-    dv = v.shape[-1]
-    g = h // kheads
-    scale = softmax_scale if softmax_scale is not None else d ** -0.5
-    qg = q.reshape(b, s, kheads, g, d).float()
-    m = torch.full((b, s, kheads, g), NEG_INF, device=q.device)
-    l = torch.zeros((b, s, kheads, g), device=q.device)
-    acc = torch.zeros((b, s, kheads, g, dv), device=q.device)
-    for c0 in range(0, t, chunk):
-        kci = k[:, c0:c0 + chunk].float()
-        vci = v[:, c0:c0 + chunk].float()
-        pci = kv_positions[:, c0:c0 + chunk]
-        s_ij = torch.einsum("bskgd,btkd->bskgt", qg, kci) * scale
-        valid = (pci[:, None, :] >= 0)
-        if causal:
-            valid = valid & (pci[:, None, :] <= q_positions[:, :, None])
-        if window is not None:
-            valid = valid & (pci[:, None, :] > q_positions[:, :, None] - window)
-        s_ij = torch.where(valid[:, :, None, None, :], s_ij,
-                           torch.full_like(s_ij, NEG_INF))
-        m_new = torch.maximum(m, s_ij.amax(dim=-1)).clamp_min(-1e4)
-        p = torch.exp(s_ij - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bskgt,btkd->bskgd", p, vci)
-        m = m_new
-    out = acc / l[..., None].clamp_min(1e-30)
-    return out.reshape(b, s, h, dv).to(q.dtype)
+__all__ = ["init_gqa", "gqa_qkv", "gqa_attention", "init_gqa_cache"]
 
 
 # ------------------------------------------------------------------- GQA

@@ -61,7 +61,7 @@ def _param_device(params) -> torch.device:
 def init_cache(cfg, batch: int, max_len: int, *, window_only: bool = False,
                device=None):
     """window_only=True sizes window-layer caches at the window width (ring
-    buffers) instead of ``max_len``."""
+    buffers that one-token decode fills from empty) instead of ``max_len``."""
     dev = device_mod.resolve(device)
     dtype = _torch_dtype(cfg)
     layers = [
@@ -102,15 +102,15 @@ def forward(cfg, params, tokens, *, positions=None, cache=None):
     return unembed(_head(params), h), new_cache
 
 
-def prefill(cfg, params, batch, *, max_len=None, window_only=False):
+def prefill(cfg, params, batch, *, max_len=None):
     """Run the whole prompt ``batch["tokens"]`` (B, S), building the serving
-    cache.  Returns (last-token logits (B, V), cache).  Only the last
-    position is unembedded: the reference computes every position's logits
-    and keeps the last, which is the same numbers."""
+    cache with ``max_len`` slots in every layer.  Returns (last-token logits
+    (B, V), cache).  Only the last position is unembedded: the reference
+    computes every position's logits and keeps the last, which is the same
+    numbers."""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    cache = init_cache(cfg, b, max_len or s, window_only=window_only,
-                       device=_param_device(params))
+    cache = init_cache(cfg, b, max_len or s, device=_param_device(params))
     h, cache = _hidden(cfg, params, tokens, None, cache)
     return unembed(_head(params), h[:, -1]), cache
 

@@ -14,10 +14,9 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd_scan.ops import ssd_scan
-from ..kernels.ssd_scan.ops import ssd_scan_plain as ssd_chunked
 from .layers import apply_norm, dense_init
 
-__all__ = ["init_mamba2", "apply_mamba2", "init_ssm_cache", "ssd_chunked"]
+__all__ = ["init_mamba2", "apply_mamba2", "init_ssm_cache"]
 
 
 def _ssm_dims(cfg):

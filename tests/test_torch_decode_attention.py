@@ -1,7 +1,9 @@
 """decode_attention: the port's plain PyTorch version (what the wrapper runs
 on CPU tensors) against the JAX package's Pallas flash-decode kernel in
-interpret mode and its pure-jnp oracle, on the same seeded inputs, within
-the reference's kernel tolerances (2e-4 in f32, 2e-2 in bf16)."""
+interpret mode, its pure-jnp oracle and the reference model's
+``chunked_attention`` (one query over a cache with empty slots), on the same
+seeded inputs, within the reference's kernel tolerances (2e-4 in f32, 2e-2
+in bf16)."""
 
 import numpy as np
 import pytest
@@ -9,6 +11,7 @@ import torch
 
 from repro.kernels.decode_attention.kernel import decode_attention as ref_kernel
 from repro.kernels.decode_attention.ref import decode_attention_ref
+from repro.models.attention import chunked_attention as ref_chunked
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       decode_attention_plain)
 
@@ -86,6 +89,22 @@ def test_ragged_cache_and_per_row_positions(window):
     got = _port(arrs, torch.float32, window=window)
     want = decode_attention_ref(*_ref_args(arrs, jnp.float32), window=window)
     np.testing.assert_allclose(got, np.asarray(want), **TOL32)
+
+
+@pytest.mark.parametrize("window", [None, 40])
+def test_plain_matches_reference_chunked_attention(window):
+    # the reference model attends a decode step over the whole cache with
+    # chunked_attention; empty slots sit at position -1
+    b, h, kh, t, d, fill = 2, 10, 2, 160, 32, 130
+    q, k, v, kv_pos, q_pos = _inputs(b, h, kh, t, d, fill, seed=7)
+    want = ref_chunked(jnp.asarray(q)[:, None], jnp.asarray(k),
+                       jnp.asarray(v), jnp.asarray(q_pos)[:, None],
+                       jnp.asarray(kv_pos), causal=True, window=window,
+                       chunk=64)[:, 0]
+    got = decode_attention_plain(*(torch.from_numpy(a)
+                                   for a in (q, k, v, kv_pos, q_pos)),
+                                 window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL32)
 
 
 def test_empty_cache_gives_zeros():

@@ -15,7 +15,6 @@ from repro.kernels.ssd_scan.kernel import ssd_scan as ref_kernel
 from repro.kernels.ssd_scan.ref import ssd_scan_ref
 from repro.models.ssm import ssd_chunked as ref_chunked
 from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
-from repro_torch.models.ssm import ssd_chunked
 
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
@@ -89,10 +88,6 @@ def test_padding_leaves_the_state_unchanged():
     y64, h64 = ssd_scan(*t[:5], chunk=64, h0=t[5])
     np.testing.assert_allclose(h32.numpy(), h64.numpy(), **TOL32)
     np.testing.assert_allclose(y32.numpy(), y64.numpy(), **TOL32)
-
-
-def test_model_alias_is_the_plain_version():
-    assert ssd_chunked is ssd_scan_plain
 
 
 def test_cpu_tensors_run_the_plain_version():

@@ -7,7 +7,9 @@ and the hymba-1.5b serving path.
 
 Phases, each printed on a line of its own:
 
-1. build       — compile the six CUDA kernels from ``src/repro_torch/csrc``.
+1. build       — compile the six CUDA kernels from ``src/repro_torch/csrc``;
+                 the line gives the registers and spills of the tensor-core
+                 (wgmma) instance of flash_attention.
 2. kernels     — hold each kernel against its plain PyTorch version on the
                  card and time kernel, plain version, library call (where
                  one PyTorch call computes the same function) and the
@@ -18,7 +20,9 @@ Phases, each printed on a line of its own:
                  differing from the plain version in under 1% of the
                  elements) and f32 (within 2e-4); each check must also
                  reject a wrong variant (no window mask, a truncating
-                 bf16 store).
+                 bf16 store).  flash_attention in bf16 (the wgmma instance)
+                 is also checked at serve-check's prefill length, S = T =
+                 1528 (batch 2), which no tile size divides.
 3. fit-stress  — ``Simulator(64, 50).run(lmbr_stress_workload(seed=0), lmbr,
                  seed=0, max_moves=1200)`` on the card with the dense peel
                  and the span_gain kernel pinned; the summary and member
@@ -32,7 +36,8 @@ Phases, each printed on a line of its own:
                  16 requests in batches of 8, prompt 2048, 64 greedy decode
                  steps; finite logits, prefill tokens/s, decode ms/step,
                  peak memory, and each model kernel's launch count, which
-                 must be 32 x 2 (flash, ssd) and 32 x 64 x 2 (decode).
+                 must be 32 x 2 (flash, ssd) and 32 x 64 x 2 (decode), every
+                 flash launch on the tensor-core (wgmma) instance.
 6. serve-check — hymba-1.5b at full width and 4 layers (global, window,
                  window, global) in f32 with TF32 off, prompt 1536: the
                  kernel route against the plain route on the card (logits
@@ -54,6 +59,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -159,13 +165,40 @@ def _peel_inputs(np, torch, rng, G, K, U, dev):
 
 
 # ------------------------------------------------------------------ phases
+def _ptxas_entries(report: str) -> list[dict]:
+    """Each kernel entry of a ``ptxas -v`` report: its source, mangled name,
+    registers and spill bytes."""
+    out, source, entry, spills = [], None, None, (0, 0)
+    for line in report.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            entry, spills = m.group(1), (0, 0)
+        if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        if (m := re.search(r"Used (\d+) registers", line)) and entry:
+            out.append(dict(source=source, entry=entry,
+                            registers=int(m.group(1)),
+                            spill_stores=spills[0], spill_loads=spills[1]))
+            entry = None
+    return out
+
+
 def phase_build(_build):
     so = _build.build(force=True)
-    print(f"build: {_build.BUILD_INFO['seconds']:.2f} s -> {Path(so).name}",
-          flush=True)
-    for line in _build.BUILD_INFO["ptxas"].splitlines():
-        if "registers" in line or line.startswith("=="):
-            print(f"  {line.strip()}")
+    entries = _ptxas_entries(_build.BUILD_INFO["ptxas"])
+    tc = [e for e in entries if "flash_attention_wgmma_kernel" in e["entry"]]
+    _require(len(tc) == 1, "build: no ptxas report of the tensor-core "
+             "flash_attention instance")
+    print(f"build: {_build.BUILD_INFO['seconds']:.2f} s -> {Path(so).name} "
+          f"flash_attention wgmma instance: registers={tc[0]['registers']} "
+          f"spill_stores={tc[0]['spill_stores']} "
+          f"spill_loads={tc[0]['spill_loads']}", flush=True)
+    for e in entries:
+        print(f"  {e['source']} {e['entry'][:60]} registers={e['registers']} "
+              f"spill_stores={e['spill_stores']} "
+              f"spill_loads={e['spill_loads']}")
 
 
 def phase_kernels(np, torch, dev):
@@ -315,6 +348,53 @@ def _attention_check(torch, label, dtype, got, want, plain32, unmasked):
     return out
 
 
+def _flash_rows(torch, randn, dev, dtype, peak, B, S, H, K, D):
+    """flash_attention at (B, S = T, H, K, D) in the global and window-1024
+    layers: the check against the plain version and the times."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_plain, instance)
+
+    esz = torch.finfo(dtype).bits // 8
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    q = randn(B, S, H, D).to(dtype)
+    k, v = randn(B, S, K, D).to(dtype), randn(B, S, K, D).to(dtype)
+    qT, kT, vT = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    wants, rows = {}, []
+    for window in (None, 1024):
+        got = flash_attention(q, k, v, window=window)
+        wants[window] = want = flash_attention_plain(q, k, v, window=window)
+        plain32 = (flash_attention_plain(q.float(), k.float(), v.float(),
+                                         window=window)
+                   if dtype == torch.bfloat16 else None)
+        torch.cuda.synchronize()
+        check = _attention_check(
+            torch, f"flash_attention {tag} S={S} window={window}", dtype, got,
+            want, plain32, wants[None] if window else None)
+        del got, plain32
+        qi = torch.arange(S, device=dev)[:, None]
+        kj = torch.arange(S, device=dev)[None, :]
+        mask = kj <= qi
+        if window is not None:
+            mask &= kj > qi - window
+        pairs = float(mask.sum())
+        nbytes = (2 * B * S * H * D + 2 * B * S * K * D) * esz
+        bound, by = _bound_ms(nbytes, 4.0 * D * pairs * B * H, peak)
+        rows.append(dict(
+            shape=f"B{B}.S{S}.H{H}.K{K}.D{D}.{tag}.w{window}",
+            instance=instance(dtype, D),
+            **check,
+            ms=_cuda_ms(torch, lambda: flash_attention(
+                q, k, v, window=window), 5),
+            plain_ms=_cuda_ms(torch, lambda: flash_attention_plain(
+                q, k, v, window=window), 2),
+            library_ms=_cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                qT, kT, vT, attn_mask=mask, enable_gqa=True), 5),
+            bound_ms=bound, bound_by=by))
+    return rows
+
+
 def phase_model_kernels(np, torch, dev):
     """flash_attention, decode_attention and ssd_scan against their plain
     versions at the serving path's shapes, in bf16 and f32, with kernel,
@@ -323,8 +403,6 @@ def phase_model_kernels(np, torch, dev):
 
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, decode_attention_plain)
-    from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_plain)
     from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
 
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -336,45 +414,22 @@ def phase_model_kernels(np, torch, dev):
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
+    gen_ragged = torch.Generator(device=dev).manual_seed(13)
+
+    def randn_ragged(*shape):
+        return torch.randn(shape, generator=gen_ragged, device=dev)
+
     for dtype, peak in ((torch.bfloat16, BF16_OPS_PER_S),
                         (torch.float32, FP32_OPS_PER_S)):
         esz = torch.finfo(dtype).bits // 8
         tag = "bf16" if dtype == torch.bfloat16 else "f32"
-        # flash_attention: prefill, causal, global and window-1024 layers
-        q = randn(B, S, H, D).to(dtype)
-        k, v = randn(B, S, K, D).to(dtype), randn(B, S, K, D).to(dtype)
-        qT, kT, vT = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        wants = {}
-        for window in (None, 1024):
-            got = flash_attention(q, k, v, window=window)
-            wants[window] = want = flash_attention_plain(q, k, v,
-                                                         window=window)
-            plain32 = (flash_attention_plain(q.float(), k.float(), v.float(),
-                                             window=window)
-                       if dtype == torch.bfloat16 else None)
-            torch.cuda.synchronize()
-            check = _attention_check(
-                torch, f"flash_attention {tag} window={window}", dtype, got,
-                want, plain32, wants[None] if window else None)
-            del got, plain32
-            qi = torch.arange(S, device=dev)[:, None]
-            kj = torch.arange(S, device=dev)[None, :]
-            mask = kj <= qi
-            if window is not None:
-                mask &= kj > qi - window
-            pairs = float(mask.sum())
-            nbytes = (2 * B * S * H * D + 2 * B * S * K * D) * esz
-            bound, by = _bound_ms(nbytes, 4.0 * D * pairs * B * H, peak)
-            rows["flash_attention"].append(dict(
-                shape=f"B{B}.S{S}.H{H}.K{K}.D{D}.{tag}.w{window}", **check,
-                ms=_cuda_ms(torch, lambda: flash_attention(
-                    q, k, v, window=window), 5),
-                plain_ms=_cuda_ms(torch, lambda: flash_attention_plain(
-                    q, k, v, window=window), 2),
-                library_ms=_cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qT, kT, vT, attn_mask=mask, enable_gqa=True), 5),
-                bound_ms=bound, bound_by=by))
-        del q, k, v, qT, kT, vT, wants, want
+        # flash_attention: prefill, causal, global and window-1024 layers;
+        # in bf16 also serve-check's prefill length, a multiple of neither
+        # the 64-key tile nor the 128-row block
+        shapes = ((B, S, randn), (2, 1528, randn_ragged))
+        for fb, fs, rnd in shapes if tag == "bf16" else shapes[:1]:
+            rows["flash_attention"] += _flash_rows(
+                torch, rnd, dev, dtype, peak, fb, fs, H, K, D)
 
         # decode_attention: one step in the middle of decode (2080 of the
         # 2112 slots filled), global and window-1024 layers
@@ -454,7 +509,8 @@ def phase_model_kernels(np, torch, dev):
         for row in shapes:
             print(f"  {name} {json.dumps(row)}")
     print("kernels (model): " + "; ".join(
-        f"{n} max|diff|={r['max_abs_err']:g} ms={r['ms']:.4f} "
+        f"{n}{'[' + r['instance'] + ']' if 'instance' in r else ''} "
+        f"max|diff|={r['max_abs_err']:g} ms={r['ms']:.4f} "
         f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f}"
         for n, r in out.items()), flush=True)
     return out
@@ -477,6 +533,7 @@ def phase_serve(torch, kernels, dev):
     _zero_counts(kernels)
     res = serve(cfg, params, **SERVE)
     launches = _counts(kernels)
+    flash_instances = dict(kernels["flash_attention"].instance_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     L, nb = cfg.num_layers, res["batches"]
     want = {"flash_attention": L * nb,
@@ -485,6 +542,9 @@ def phase_serve(torch, kernels, dev):
     for name, n in want.items():
         _require(launches[name] == n,
                  f"serve: {name} launched {launches[name]} times, want {n}")
+    _require(flash_instances == {"wgmma": L * nb, "fma": 0},
+             f"serve: flash_attention instances {flash_instances}, want "
+             f"every launch on the tensor-core (wgmma) instance")
     _require(bool(torch.isfinite(res["logits"]).all()),
              "serve: non-finite logits")
     _require(res["logits"].shape == (SERVE["batch"], cfg.vocab_size),
@@ -498,8 +558,10 @@ def phase_serve(torch, kernels, dev):
           f"decode_len={SERVE['decode_len']} prefill_s={res['prefill_s']:.3f} "
           f"prefill_tok_per_s={prefill_tps:.1f} decode_s={res['decode_s']:.3f} "
           f"decode_ms_per_step={decode_ms:.3f} peak_mem_gb={peak_gb:.3f} "
-          f"launches={ {n: launches[n] for n in want} }", flush=True)
-    return dict(launches=launches, prefill_tok_per_s=prefill_tps,
+          f"launches={ {n: launches[n] for n in want} } "
+          f"flash_attention_instances={flash_instances}", flush=True)
+    return dict(launches=launches, flash_instances=flash_instances,
+                prefill_tok_per_s=prefill_tps,
                 decode_ms_per_step=decode_ms, peak_mem_gb=peak_gb)
 
 
@@ -666,6 +728,8 @@ def phase_serve_check(np, torch, kernels, dev):
 def _zero_counts(kernels):
     for fn in kernels.values():
         fn.launches = 0
+        for inst in getattr(fn, "instance_launches", {}):
+            fn.instance_launches[inst] = 0
 
 
 def _counts(kernels):
@@ -812,6 +876,7 @@ def main(argv=None) -> int:
     kernels = {**fit_kernels, **model_kernels}
     rows = {}
     launches = {}
+    flash_instances = None
     if "build" in phases:
         phase_build(_build)
     if "kernels" in phases:
@@ -838,6 +903,7 @@ def main(argv=None) -> int:
     if "serve" in phases:
         served = phase_serve(torch, kernels, dev)
         launches.update({n: served["launches"][n] for n in model_kernels})
+        flash_instances = served["flash_instances"]
         if args.profile:
             phase_serve_profile(np, torch, dev)
     if "serve-check" in phases:
@@ -871,6 +937,10 @@ def main(argv=None) -> int:
             plain_ms=row.get("plain_ms"), bound_ms=row.get("bound_ms"),
             bound_by=row.get("bound_by"), library_ms=row.get("library_ms"),
         ))
+        if name == "flash_attention":
+            # ms is the instance's that the serving path runs
+            report[-1].update(instance=row.get("instance"),
+                              instance_launches=flash_instances)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,26 +12,60 @@
 // running max is clamped at -1e4, so a row with nothing visible yet keeps
 // p == 0.  Inputs and output are in the model layout, q (B, S, H, D) and
 // k / v (B, T, K, D), read in place (no transposes): one query row is D
-// contiguous elements, so is one key row.  f32 or bf16 storage, fp32 math.
+// contiguous elements, so is one key row.  fp32 math, output rounded to
+// nearest in the storage type.  Two instances:
+//
+// * bf16 with D = 64 (every launch of the hymba serving path):
+//   flash_attention_wgmma_kernel, both products on the tensor cores;
+// * f32 (D 32, 64) and bf16 with D = 32: flash_attention_kernel, both
+//   products as fp32 FMAs on the CUDA cores.
 //
 // What bounds it on an H100: operations.  At the serving path's shapes
 // (B 8, H 25, S = T 2048, D 64) the visible (i, j) pairs need 4 D flops
-// each, ~1e11 flops per call against ~0.1 GB of q, k, v and out.  This
-// first kernel runs them on the CUDA cores in fp32 (67 TFLOP/s), not on
-// the tensor cores (989 TFLOP/s bf16): a later PR moves the two products
-// to wgmma.  What the design does about the operations it has: one thread
-// per query row keeps the row's q and its accumulator (2 D floats) in
-// registers; a block of 64 rows stages each 32-key tile of K and V in
-// shared memory once and every thread reads it as a broadcast, so each
-// key costs 2 D register FMAs and D / 2 broadcast 16-byte loads.  KV tiles
-// that the causal or window mask removes for the whole block are never
-// loaded (the loop runs over [q0 - window + 1, last row] only).  GQA reads
-// kv head h / G directly, so K and V are never replicated.  The ragged
-// last query tile and the ragged last key tile are masked in the kernel,
-// so any S and T run (the TPU kernel needs multiples of its block).
+// each, ~1e11 flops per call against ~0.1 GB of q, k, v and out, far above
+// the card's ~295 bf16 flops per byte of device memory.
+//
+// Tensor-core instance.  One block of two warpgroups takes 128 query rows
+// of one (batch, head); each warpgroup owns 64 rows, the M of one
+// wgmma.m64n64k16.  Blocks walk the query tiles heaviest first (the last
+// causal tiles see the most keys).  The Q tile (16 KB) is loaded once; K
+// and V tiles of 64 keys x 64 (8 KB each) go through a two-stage ring
+// filled by 16-byte cp.async copies while the previous tile is computed.
+// Every tile is stored in the 128-byte swizzle that the wgmma shared-memory
+// descriptors read; ragged rows are zero-filled (cp.async src-size 0).
+// S = Q K^T is four k16 steps with both operands in shared memory (a key
+// row is D-contiguous, so K is K-major for B).  The products of bf16 inputs
+// are exact in fp32.  The online softmax runs on the fp32 accumulator
+// fragment: each row's 64 values sit in one quad of threads, so a row max
+// is two xor shuffles; the accurate expf is used, as in the reference.
+// O += P V takes A from registers: for 16-bit inputs the fp32 accumulator
+// fragment of S has the layout of the A fragment.  P is split as
+// P = bf16(P) + bf16(P - bf16(P)) and both halves go through the tensor
+// cores (eight k16 steps per tile): a single bf16 P changes about 38% of
+// the bf16 outputs against the fp32-P reference, the split about 0.2%
+// (tests/test_torch_flash_attention.py emulates both).  V is D-contiguous,
+// i.e. MN-major for B, and is read with the B-transpose bit.  The block
+// loads the key tiles over [q0 - window + 1, last row], the first one
+// starting at the multiple of 64 at or below q0 - window + 1, so tile
+// edges meet the warpgroups' 64-row edges; a tile that the causal or
+// window mask removes for a whole warpgroup is skipped by it, and the
+// element mask runs only on tiles that cross the diagonal, the window
+// edge or the end of the keys.  GQA reads kv head
+// h / G in place; the G query heads that share it hit L2.
+//
+// CUDA-core instance.  One thread per query row keeps the row's q and its
+// accumulator (2 D floats) in registers; a block of 64 rows stages each
+// 32-key tile of K and V in shared memory once and every thread reads it
+// as a broadcast, so each key costs 2 D register FMAs and D / 2 broadcast
+// 16-byte loads.  KV tiles that the causal or window mask removes for the
+// whole block are never loaded (the loop runs over [q0 - window + 1, last
+// row] only).  The ragged last query tile and the ragged last key tile are
+// masked in the kernel, so any S and T run (the TPU kernel needs multiples
+// of its block).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -165,10 +199,334 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+// ------------------------------------------- tensor-core instance (bf16, D 64)
+constexpr int kTcRows = 128;           // query rows per block, 64 per warpgroup
+constexpr int kTcKeys = 64;            // keys per K / V tile
+constexpr int kTcD = 64;
+constexpr int kTcThreads = 256;        // two warpgroups
+constexpr int kTileBytes = 64 * kTcD * 2;   // 64 rows of 128 bytes
+// Q (two warpgroup tiles) + two stages of K and V, and room to align the
+// base to 1024 bytes, the period of the 128-byte swizzle
+constexpr int kTcSmem = 1024 + 2 * kTileBytes + 2 * 2 * kTileBytes;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16-byte chunk c (0..7) of row r of a tile of 128-byte rows whose base is
+// 1024-aligned, in the 128-byte swizzle
+__device__ __forceinline__ uint32_t swizzled(uint32_t tile, int r, int c) {
+  return tile + r * 128 + ((c ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// make this thread's cp.async writes visible to the async proxy (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor of a tile of 128-byte rows in the
+// 128-byte swizzle: start address >> 4, leading offset 1 (unused when one
+// swizzle row spans the operand's 64 elements), stride 1024 bytes between
+// groups of 8 rows, layout type 1 (128-byte swizzle) in bits 62-63
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it
+__device__ __forceinline__ void fence_regs(float (&r)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+#define WGMMA_D32                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31}"
+#define WGMMA_D32_OPERANDS(d)                                               \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+
+// d (64 x 64, fp32) (+)= A (64 x 16, K-major in shared memory) .
+// B (16 x 64, K-major in shared memory)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_D32_OPERANDS(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) += A (64 x 16, bf16 fragment in registers) .
+// B (16 x 64, MN-major in shared memory: the transpose bit is set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
+                                         uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WGMMA_D32_OPERANDS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// Accumulator fragment of a 64 x 64 wgmma tile (fp32), for thread lt of
+// the warpgroup, warp w = lt / 32, lane l: d[4 j + 2 half + c] holds row
+// 16 w + l / 4 + 8 half, column 8 j + 2 (l % 4) + c.  Two blocks per SM
+// (128 registers a thread, no spills), so that one warpgroup's softmax
+// overlaps another's products: on an H100 SXM at 700 W, 0.66 ms against
+// 0.87 ms with one block per SM (168 registers) at the serving shape.
+__global__ void __launch_bounds__(kTcThreads, 2)
+    flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                                 const __nv_bfloat16* __restrict__ k,
+                                 const __nv_bfloat16* __restrict__ v,
+                                 __nv_bfloat16* __restrict__ out, int S,
+                                 int Tk, int H, int K, int causal, int window,
+                                 float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sq = base;                      // 128 rows of Q
+  const uint32_t skv = base + 2 * kTileBytes;    // stage s: K, then V
+
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;
+  const int lane = tid & 31;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = h / (H / K);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcRows;  // heaviest first
+  const int q_last = min(q0 + kTcRows, S) - 1;
+  const int kv_end = causal ? min(Tk, q_last + 1) : Tk;
+  const int kv_begin =
+      (window > 0 ? max(0, q0 - window + 1) : 0) & ~(kTcKeys - 1);
+  const int ntiles =
+      kv_end > kv_begin ? (kv_end - kv_begin + kTcKeys - 1) / kTcKeys : 0;
+
+  const long long q_stride = (long long)H * kTcD;
+  const long long kv_stride = (long long)K * kTcD;
+  const __nv_bfloat16* qb = q + (long long)b * S * q_stride + h * kTcD;
+  const __nv_bfloat16* kb = k + (long long)b * Tk * kv_stride + kh * kTcD;
+  const __nv_bfloat16* vb = v + (long long)b * Tk * kv_stride + kh * kTcD;
+
+  for (int e = tid; e < kTcRows * 8; e += kTcThreads) {
+    const int r = e >> 3, c = e & 7;
+    const bool ok = q0 + r < S;
+    cp_async16(swizzled(sq, r, c), qb + (ok ? q0 + r : 0) * q_stride + c * 8,
+               ok);
+  }
+  auto load_kv = [&](int n) {
+    const int t0 = kv_begin + n * kTcKeys;
+    const uint32_t sk = skv + (n & 1) * 2 * kTileBytes;
+    for (int e = tid; e < kTcKeys * 8; e += kTcThreads) {
+      const int r = e >> 3, c = e & 7;
+      const bool ok = t0 + r < kv_end;
+      const long long off = (ok ? t0 + r : 0) * kv_stride + c * 8;
+      cp_async16(swizzled(sk, r, c), kb + off, ok);
+      cp_async16(swizzled(sk + kTileBytes, r, c), vb + off, ok);
+    }
+  };
+  if (ntiles > 0) load_kv(0);
+  cp_async_commit();
+
+  // this warpgroup's rows, and this thread's two rows and first column
+  const int r_lo = q0 + wg * 64;
+  const int r_hi = r_lo + 63;
+  const bool live = r_lo < S;
+  const int row0 = r_lo + warp * 16 + (lane >> 2);
+  const int row1 = row0 + 8;
+  const int col = 2 * (lane & 3);
+  const uint64_t q_desc = sw128_desc(sq + wg * kTileBytes);
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  for (int n = 0; n < ntiles; ++n) {
+    // tile n has landed, and every warpgroup is done with tile n - 1,
+    // whose stage the next copies overwrite
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();
+    if (n + 1 < ntiles) load_kv(n + 1);
+    cp_async_commit();
+
+    const int t0 = kv_begin + n * kTcKeys;
+    const int t1 = t0 + kTcKeys - 1;
+    if (!live || (causal && t0 > r_hi) ||
+        (window > 0 && t1 <= r_lo - window))
+      continue;  // the mask removes the whole tile for these 64 rows
+    const bool masked = t1 >= kv_end || (causal && t1 > r_lo) ||
+                        (window > 0 && t0 <= r_hi - window);
+    const uint32_t sk = skv + (n & 1) * 2 * kTileBytes;
+    const uint64_t k_desc = sw128_desc(sk);
+    const uint64_t v_desc = sw128_desc(sk + kTileBytes);
+
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcD / 16; ++kk)  // 16 elements = 32 bytes a step
+      wgmma_ss(s, q_desc + 2 * kk, k_desc + 2 * kk, kk > 0);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float& a0 = s[4 * j + c];
+        float& a1 = s[4 * j + 2 + c];
+        a0 *= scale;
+        a1 *= scale;
+        if (masked) {
+          const int t = t0 + 8 * j + col + c;
+          const bool in = t < kv_end;
+          if (!(in && (!causal || t <= row0) &&
+                (window <= 0 || t > row0 - window)))
+            a0 = kNegInf;
+          if (!(in && (!causal || t <= row1) &&
+                (window <= 0 || t > row1 - window)))
+            a1 = kNegInf;
+        }
+        mx0 = fmaxf(mx0, a0);
+        mx1 = fmaxf(mx1, a1);
+      }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    mx0 = fmaxf(mx0, -1e4f);  // masked-tile guard, as the reference
+    mx1 = fmaxf(mx1, -1e4f);
+    const float corr0 = expf(m0 - mx0);
+    const float corr1 = expf(m1 - mx1);
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        s[4 * j + c] = expf(s[4 * j + c] - mx0);
+        s[4 * j + 2 + c] = expf(s[4 * j + 2 + c] - mx1);
+        sum0 += s[4 * j + c];
+        sum1 += s[4 * j + 2 + c];
+        o[4 * j + c] *= corr0;
+        o[4 * j + 2 + c] *= corr1;
+      }
+    }
+    l0 = l0 * corr0 + sum0;  // this thread's 16 columns; the quad sums later
+    l1 = l1 * corr1 + sum1;
+    m0 = mx0;
+    m1 = mx1;
+
+    // A fragment of k step kk: register r holds row 8 (r & 1) + l / 4,
+    // columns 16 kk + 8 (r >> 1) + 2 (l % 4) + {0, 1}, which are the
+    // accumulator's d[4 j + 2 (r & 1) + {0, 1}] with j = 2 kk + (r >> 1)
+    uint32_t p_hi[16], p_lo[16];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 4 * (2 * kk + (r >> 1)) + 2 * (r & 1);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(s[i], s[i + 1]);
+        const float2 hf = __bfloat1622float2(hi);
+        p_hi[4 * kk + r] = bf16x2_bits(hi);
+        p_lo[4 * kk + r] =
+            bf16x2_bits(__floats2bfloat162_rn(s[i] - hf.x, s[i + 1] - hf.y));
+      }
+    }
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)  // 16 keys = 2048 bytes of V a step
+      wgmma_rs(o, p_hi + 4 * kk, v_desc + 128 * kk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs(o, p_lo + 4 * kk, v_desc + 128 * kk);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+  }
+  cp_async_wait_all();
+  if (!live) return;
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = fmaxf(l0, 1e-30f);
+  const float inv1 = fmaxf(l1, 1e-30f);
+  __nv_bfloat16* ob = out + (long long)b * S * q_stride + h * kTcD + col;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (row0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * q_stride + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j] / inv0, o[4 * j + 1] / inv0);
+    if (row1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row1 * q_stride + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2] / inv1, o[4 * j + 3] / inv1);
+  }
+}
+
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* out, int B, int S, int Tk, int H, int K,
+                         int causal, int window, cudaStream_t stream) {
+  // 16-byte copies and 4-byte stores
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
+    return cudaErrorMisalignedAddress;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_wgmma_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((S + kTcRows - 1) / kTcRows, H, B);
+  flash_attention_wgmma_kernel<<<grid, kTcThreads, kTcSmem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, Tk, H, K, causal,
+      window, 1.0f / sqrtf((float)kTcD));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  D must be 32 or 64 (the wrapper
-// checks); anything else returns cudaErrorInvalidValue.
+// checks); anything else returns cudaErrorInvalidValue.  bf16 with D 64
+// runs the tensor-core instance, which needs 16-byte aligned pointers.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
                                       int Tk, int H, int K, int D, int causal,
@@ -189,7 +547,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return (int)launch<__nv_bfloat16, 32>(q, k, v, out, B, S, Tk, H, K,
                                           causal, window, st);
   if (dtype == 1 && D == 64)
-    return (int)launch<__nv_bfloat16, 64>(q, k, v, out, B, S, Tk, H, K,
-                                          causal, window, st);
+    return (int)launch_wgmma(q, k, v, out, B, S, Tk, H, K, causal, window,
+                             st);
   return (int)cudaErrorInvalidValue;
 }

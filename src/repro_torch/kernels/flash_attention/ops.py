@@ -13,7 +13,11 @@ q's dtype.
   clamped softmax, one batch row at a time.
 * ``flash_attention`` — the wrapper: plain version for CPU tensors, the
   CUDA kernel (``csrc/flash_attention.cu``) for CUDA tensors.
-  ``flash_attention.launches`` counts kernel launches.
+  ``flash_attention.launches`` counts kernel launches, and
+  ``flash_attention.instance_launches`` splits them by the kernel's two
+  instances: ``"wgmma"`` (bf16 with head_dim 64, both products on the
+  tensor cores) and ``"fma"`` (f32, and bf16 with head_dim 32, on the CUDA
+  cores).
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ import torch
 from ... import _build
 from .. import check_same_device, launch_args
 
-__all__ = ["flash_attention", "flash_attention_plain", "NEG_INF"]
+__all__ = ["flash_attention", "flash_attention_plain", "instance",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -93,7 +98,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     )
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.instance_launches[instance(q.dtype, d)] += 1
     return out
 
 
+def instance(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel instance that a launch on these inputs runs (the dispatch
+    of ``flash_attention_launch``)."""
+    return "wgmma" if dtype == torch.bfloat16 and head_dim == 64 else "fma"
+
+
 flash_attention.launches = 0
+flash_attention.instance_launches = {"wgmma": 0, "fma": 0}

@@ -12,8 +12,9 @@ import torch
 from repro.kernels.flash_attention.kernel import flash_attention as ref_kernel
 from repro.kernels.flash_attention.ref import flash_attention_ref
 from repro.models.attention import chunked_attention as ref_chunked
-from repro_torch.kernels.flash_attention.ops import (flash_attention,
-                                                     flash_attention_plain)
+from repro_torch.kernels.flash_attention.ops import (NEG_INF, flash_attention,
+                                                     flash_attention_plain,
+                                                     instance)
 
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
@@ -97,9 +98,21 @@ def test_plain_matches_reference_chunked_attention(window):
 def test_cpu_tensors_run_the_plain_version():
     args = [torch.from_numpy(a) for a in _inputs(1, 4, 2, 40, 40, 32, 0)]
     before = flash_attention.launches
+    by_instance = dict(flash_attention.instance_launches)
     assert torch.equal(flash_attention(*args, window=16),
                        flash_attention_plain(*args, window=16))
     assert flash_attention.launches == before
+    assert flash_attention.instance_launches == by_instance
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 32, "fma"),
+    (torch.float32, 64, "fma"), (torch.float32, 32, "fma")])
+def test_instance_follows_the_kernel_dispatch(dtype, d, want):
+    # flash_attention_launch sends bf16 with head_dim 64 to the tensor-core
+    # instance and everything else to the CUDA-core one
+    assert instance(dtype, d) == want
+    assert set(flash_attention.instance_launches) == {"wgmma", "fma"}
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -113,3 +126,87 @@ def test_wrapper_rejects_bad_inputs():
         flash_attention(q, k.bfloat16(), v)
     with pytest.raises(ValueError):
         flash_attention(q, k, v, window=0)
+
+
+# The bf16 D-64 CUDA instance runs both products on the tensor cores
+# (csrc/flash_attention.cu, flash_attention_wgmma_kernel): scores in fp32
+# from bf16 q and k, an online softmax over 64-key tiles, and P V with the
+# fp32 softmax weights split as P = bf16(P) + bf16(P - bf16(P)), two bf16
+# products summed in fp32.  The card check (chip_smoke.py) holds a bf16
+# output to one bf16 ulp of the plain version (rtol 2^-7, atol 1e-5) with
+# at most 1% of the elements differing.  This emulates that arithmetic on
+# the CPU and shows that the split meets the rule and a single bf16 P does
+# not, so the kernel's design is settled before it runs on the card.
+BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
+BF16_DIFF_SHARE = 0.01
+TILE = 64
+
+
+def _emulate_tensor_core_kernel(q, k, v, *, window, weights):
+    """q (B, S, H, D), k / v (B, T, K, D) bf16 -> bf16, causal, 64-key
+    tiles from key 0, with the softmax weights P of the PV product kept in
+    fp32 (``weights="fp32"``, the CUDA-core instance), split hi/lo in bf16
+    (``"split"``, the tensor-core instance) or rounded once to bf16
+    (``"bf16"``).  A tile that the mask removes for a row leaves that row's
+    state as it was, so running every tile is the kernel's skipping loop."""
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    qf = q.float().transpose(1, 2)                                # (B, H, S, D)
+    kf = k.float().transpose(1, 2).repeat_interleave(h // kh, 1)  # (B, H, T, D)
+    vf = v.float().transpose(1, 2).repeat_interleave(h // kh, 1)
+    qpos = torch.arange(s)[:, None]
+    m = torch.full((b, h, s, 1), NEG_INF)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, d))
+    for t0 in range(0, t, TILE):
+        kpos = torch.arange(t0, min(t0 + TILE, t))[None, :]
+        ok = kpos <= qpos
+        if window is not None:
+            ok &= kpos > qpos - window
+        sc = torch.matmul(qf, kf[:, :, t0:t0 + TILE].transpose(2, 3)) * d ** -0.5
+        sc = torch.where(ok, sc, torch.full_like(sc, NEG_INF))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True)).clamp_min(-1e4)
+        corr = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        vt = vf[:, :, t0:t0 + TILE]
+        if weights == "fp32":
+            pv = torch.matmul(p, vt)
+        else:
+            p_hi = p.bfloat16().float()
+            pv = torch.matmul(p_hi, vt)
+            if weights == "split":
+                pv = pv + torch.matmul((p - p_hi).bfloat16().float(), vt)
+        acc = acc * corr + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30)
+    return out.transpose(1, 2).bfloat16()
+
+
+def _bf16_rule(got, want):
+    """(allclose under the card's bf16 tolerance, share of differing
+    elements) of two bf16 outputs."""
+    close = bool(torch.allclose(got.float(), want.float(), **BF16_TOL))
+    return close, float((got != want).float().mean())
+
+
+@pytest.mark.parametrize("s,window", [(512, None), (512, 128),
+                                      (2048, None), (2048, 1024)])
+def test_split_softmax_weights_meet_the_card_bf16_rule(s, window):
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _inputs(1, 5, 1, s, s, 64, seed=21))
+    want = flash_attention_plain(q, k, v, window=window)
+    shares = {}
+    for weights in ("fp32", "split", "bf16"):
+        got = _emulate_tensor_core_kernel(q, k, v, window=window,
+                                          weights=weights)
+        close, shares[weights] = _bf16_rule(got, want)
+        if weights != "bf16":
+            assert close, (weights, float((got.float() - want.float())
+                                          .abs().max()))
+            assert shares[weights] <= BF16_DIFF_SHARE, (weights, shares)
+    # one bf16 P loses the weights' low bits, which the rule sees
+    assert shares["bf16"] > BF16_DIFF_SHARE, shares
+    assert shares["bf16"] > 10 * shares["split"], shares
+    print(f"S={s} window={window} share of differing bf16 outputs: "
+          f"{shares}")

@@ -9,7 +9,8 @@ Phases, each printed on a line of its own:
 
 1. build       — compile the six CUDA kernels from ``src/repro_torch/csrc``;
                  the line gives the registers and spills of the tensor-core
-                 (wgmma) instance of flash_attention.
+                 (wgmma) instance of flash_attention and of the serving
+                 path's decode_attention instance (bf16, G 5).
 2. kernels     — hold each kernel against its plain PyTorch version on the
                  card and time kernel, plain version, library call (where
                  one PyTorch call computes the same function) and the
@@ -23,6 +24,13 @@ Phases, each printed on a line of its own:
                  bf16 store).  flash_attention in bf16 (the wgmma instance)
                  is also checked at serve-check's prefill length, S = T =
                  1528 (batch 2), which no tile size divides.
+                 decode_attention is also checked, by the same rule, over a
+                 wrapped ring buffer with empty slots and per-row q_pos
+                 (window None and 40), at D 32 with G 1 and D 128 with G 8,
+                 at batch 1, and at serve's warm-up step (18 slots, one
+                 split, q at an odd offset); its serving rows add
+                 ``device_ms``, the profiler's device time per call, for the
+                 kernel and SDPA.
 3. fit-stress  — ``Simulator(64, 50).run(lmbr_stress_workload(seed=0), lmbr,
                  seed=0, max_moves=1200)`` on the card with the dense peel
                  and the span_gain kernel pinned; the summary and member
@@ -97,6 +105,30 @@ def _cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(torch, fn, iters: int) -> float | None:
+    """Device time per call: the profiler's self device time of every
+    kernel that ``iters`` calls of ``fn`` launch, over ``iters`` (None when
+    the profiler saw no device activity).  Unlike ``_cuda_ms`` it leaves out
+    the host's share of a call that the device waits for."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+    return total / 1e3 / iters if total else None
+
+
+def _fmt_ms(x) -> str:
+    return "not_measured" if x is None else f"{x:.4f}"
 
 
 def _max_abs(got, want) -> float:
@@ -191,10 +223,18 @@ def phase_build(_build):
     tc = [e for e in entries if "flash_attention_wgmma_kernel" in e["entry"]]
     _require(len(tc) == 1, "build: no ptxas report of the tensor-core "
              "flash_attention instance")
+    # the decode instance of the serving path: bf16, G = 5
+    dec = [e for e in entries
+           if "decode_attention_kernelI13__nv_bfloat16Li5E" in e["entry"]]
+    _require(len(dec) == 1, "build: no ptxas report of the bf16 G 5 "
+             "decode_attention instance")
     print(f"build: {_build.BUILD_INFO['seconds']:.2f} s -> {Path(so).name} "
           f"flash_attention wgmma instance: registers={tc[0]['registers']} "
           f"spill_stores={tc[0]['spill_stores']} "
-          f"spill_loads={tc[0]['spill_loads']}", flush=True)
+          f"spill_loads={tc[0]['spill_loads']}; decode_attention bf16 G 5 "
+          f"instance: registers={dec[0]['registers']} "
+          f"spill_stores={dec[0]['spill_stores']} "
+          f"spill_loads={dec[0]['spill_loads']}", flush=True)
     for e in entries:
         print(f"  {e['source']} {e['entry'][:60]} registers={e['registers']} "
               f"spill_stores={e['spill_stores']} "
@@ -395,6 +435,84 @@ def _flash_rows(torch, randn, dev, dtype, peak, B, S, H, K, D):
     return rows
 
 
+def _decode_domain_rows(torch, dev, dtype):
+    """decode_attention beyond the serving shape, through the same check:
+    (a) a ring buffer that wrapped (positions out of slot order), empty
+    slots, one row with nothing visible, per-row q_pos, T no multiple of
+    the 64-slot chunks the splits take; (b) the same with a window of 40,
+    under one chunk; (c) D 32 with G 1 and D 128 with G 8; (d) batch 1 at
+    the serving cache, global and window 1024; and serve's warm-up step,
+    batch 1 with 17 of 18 slots filled (one split), windows none, 8 and
+    1024, its q a view at an odd element offset (only k and v must be
+    16-byte aligned)."""
+    from repro_torch.kernels.decode_attention.ops import (
+        CHUNK, decode_attention, decode_attention_plain, resident_blocks,
+        split_plan)
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    # fill: slots 0 .. fill - 1 hold positions 0 .. fill - 1; None: a ring
+    cases = (  # label, B, H, K, D, T, fill, windows
+        ("ring", 8, 25, 5, 64, 1000, None, (None, 40)),
+        ("D32.G1", 2, 4, 4, 32, 777, None, (None, 40)),
+        ("D128.G8", 2, 16, 2, 128, 1500, None, (None, 40)),
+        ("batch1", 1, 25, 5, 64, 2112, 2080, (None, 1024)),
+        ("warmup", 1, 25, 5, 64, 18, 17, (None, 8, 1024)),
+    )
+    rows = []
+    for label, B, H, K, D, T, fill, windows in cases:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        if label == "warmup":
+            q = randn(B * H * D + 1).to(dtype)[1:].view(B, H, D)
+            _require(q.data_ptr() % 16 != 0, "decode warmup: q is aligned")
+        else:
+            q = randn(B, H, D).to(dtype)
+        k, v = randn(B, T, K, D).to(dtype), randn(B, T, K, D).to(dtype)
+        slot = torch.arange(T, device=dev, dtype=torch.int32)
+        if fill is None:
+            roll = torch.tensor([0, 17, 150, 611, 3, 999, 500, 64][:B],
+                                device=dev, dtype=torch.int32)
+            kv_pos = ((slot[None] - roll[:, None]) % T).to(torch.int32)
+            kv_pos[min(2, B - 1), :30] = -1
+            if B > 3:
+                kv_pos[3] = -1
+            q_pos = torch.randint(60, T, (B,), generator=gen, device=dev,
+                                  dtype=torch.int32)
+        else:
+            kv_pos = torch.where(slot < fill, slot, -1)[None].expand(B, T)
+            q_pos = torch.full((B,), fill - 1, dtype=torch.int32, device=dev)
+        kv_pos = kv_pos.contiguous()
+        ns = split_plan(B, K, T, resident_blocks(
+            torch.cuda.current_device(), H // K))
+        if fill is None:
+            _require(T % CHUNK != 0, f"decode {label}: T {T} is a multiple "
+                     f"of the {CHUNK}-slot chunk the splits are cut into")
+        wants = {}
+        for window in windows:
+            got = decode_attention(q, k, v, kv_pos, q_pos, window=window)
+            wants[window] = want = decode_attention_plain(
+                q, k, v, kv_pos, q_pos, window=window)
+            plain32 = (decode_attention_plain(q.float(), k.float(),
+                                              v.float(), kv_pos, q_pos,
+                                              window=window)
+                       if dtype == torch.bfloat16 else None)
+            torch.cuda.synchronize()
+            # the no-window variant is a wrong kernel only where the window
+            # hides a slot that is otherwise visible (not so at warm-up's
+            # 1024)
+            seen = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+            hides = window is not None and bool(
+                (seen & (kv_pos <= q_pos[:, None] - window)).any())
+            check = _attention_check(
+                torch, f"decode_attention {label} {tag} window={window}",
+                dtype, got, want, plain32, wants[None] if hides else None)
+            rows.append(dict(shape=f"{label}.B{B}.T{T}.H{H}.K{K}.D{D}.{tag}"
+                             f".w{window}", splits=ns, **check))
+    return rows
+
+
 def phase_model_kernels(np, torch, dev):
     """flash_attention, decode_attention and ssd_scan against their plain
     versions at the serving path's shapes, in bf16 and f32, with kernel,
@@ -463,17 +581,26 @@ def phase_model_kernels(np, torch, dev):
                       + 2 * B * H * D * esz)
             bound, by = _bound_ms(nbytes, 4.0 * D * (H // K) * K * nvis, peak)
             mask = vis[:, None, None, :]
+
+            def kern():
+                return decode_attention(q, k, v, kv_pos, q_pos, window=window)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qT, kT, vT, attn_mask=mask, enable_gqa=True)
+
             rows["decode_attention"].append(dict(
                 shape=f"B{B}.T{Tc}.fill{fill}.H{H}.K{K}.D{D}.{tag}.w{window}",
                 **check,
-                ms=_cuda_ms(torch, lambda: decode_attention(
-                    q, k, v, kv_pos, q_pos, window=window), 50),
+                ms=_cuda_ms(torch, kern, 50),
+                device_ms=_device_ms(torch, kern, 50),
                 plain_ms=_cuda_ms(torch, lambda: decode_attention_plain(
                     q, k, v, kv_pos, q_pos, window=window), 10),
-                library_ms=_cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qT, kT, vT, attn_mask=mask, enable_gqa=True), 50),
+                library_ms=_cuda_ms(torch, sdpa, 50),
+                library_device_ms=_device_ms(torch, sdpa, 50),
                 bound_ms=bound, bound_by=by))
         del q, k, v, qT, kT, vT, wants, want
+        rows["decode_attention"] += _decode_domain_rows(torch, dev, dtype)
 
         # ssd_scan: prefill of the SSM branch from a nonzero state
         NH, P, N, L = 50, 64, 16, 256
@@ -512,6 +639,10 @@ def phase_model_kernels(np, torch, dev):
         f"{n}{'[' + r['instance'] + ']' if 'instance' in r else ''} "
         f"max|diff|={r['max_abs_err']:g} ms={r['ms']:.4f} "
         f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f}"
+        + ("" if "device_ms" not in r else
+           f" device_ms={_fmt_ms(r['device_ms'])} library_ms="
+           f"{_fmt_ms(r['library_ms'])} library_device_ms="
+           f"{_fmt_ms(r['library_device_ms'])}")
         for n, r in out.items()), flush=True)
     return out
 
@@ -595,7 +726,7 @@ def phase_serve_profile(np, torch, dev):
             tok = logits.argmax(-1)[:, None]
 
     groups = (("flash_attention", ("flash_attention",)),
-              ("decode_attention", ("decode_split", "decode_combine")),
+              ("decode_attention", ("decode_attention",)),
               ("ssd_scan", ("ssd_scan",)),
               ("gemm", ("gemm", "gemv", "nvjet", "xmma", "cutlass")))
     for label, fn in (("prefill", run_prefill), ("decode x8", run_decode)):
@@ -936,6 +1067,8 @@ def main(argv=None) -> int:
             max_abs_err=row.get("max_abs_err"), ms=row.get("ms"),
             plain_ms=row.get("plain_ms"), bound_ms=row.get("bound_ms"),
             bound_by=row.get("bound_by"), library_ms=row.get("library_ms"),
+            device_ms=row.get("device_ms"),
+            library_device_ms=row.get("library_device_ms"),
         ))
         if name == "flash_attention":
             # ms is the instance's that the serving path runs

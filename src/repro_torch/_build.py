@@ -47,7 +47,8 @@ _SIGNATURES = {
     "lockstep_peel_state_bytes": ([_I, _I], _LL),
     "lockstep_peel_smem_cap": ([], _I),
     "flash_attention_launch": ([_P] * 4 + [_I] * 10 + [_P], _I),
-    "decode_attention_launch": ([_P] * 7 + [_I] * 8 + [_P], _I),
+    "decode_attention_launch": ([_P] * 8 + [_I] * 9 + [_P], _I),
+    "decode_attention_blocks_per_sm": ([_I], _I),
     "ssd_scan_launch": ([_P] * 8 + [_I] * 8 + [_P], _I),
     "repro_torch_error_string": ([_I], ctypes.c_char_p),
 }

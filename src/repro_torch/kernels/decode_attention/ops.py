@@ -12,23 +12,63 @@ dtype.
 * ``decode_attention_plain`` — the plain PyTorch version.
 * ``decode_attention`` — the wrapper: plain version for CPU tensors, the
   CUDA kernel (``csrc/decode_attention.cu``) for CUDA tensors.
-  ``decode_attention.launches`` counts wrapper launches (one launch is the
-  kernel's split pass and its combine pass).
+  ``decode_attention.launches`` counts kernel launches (one per call: the
+  splits and their merge run in one launch).
+* ``split_plan`` — how the kernel cuts the cache into splits, one block
+  each per (split, kv head, batch row); ``resident_blocks`` — the wave it
+  fills on a card.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from ... import _build
 from .. import check_same_device, launch_args
 
-__all__ = ["decode_attention", "decode_attention_plain"]
+__all__ = ["decode_attention", "decode_attention_plain", "resident_blocks",
+           "split_plan"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KEYS_PER_SPLIT = 128      # must equal kKeys in csrc/decode_attention.cu
+CHUNK = 64                # must equal kChunk in csrc/decode_attention.cu
+MAX_CHUNKS = 32           # chunks per split: kMaxSplit / kChunk
 MAX_GROUP = 8             # must equal kMaxG
+# (device index, stream) -> the kernel's int32 arrival counters, one per
+# (batch row, kv head); each launch leaves them at zero again
+_COUNTERS: dict = {}
+
+
+def split_plan(b: int, kh: int, t: int, resident: int) -> int:
+    """Blocks (splits) per (batch row, kv head) for a cache of ``t`` slots.
+    The cache is cut into 64-slot chunks and split s takes chunks s, s + ns,
+    s + 2 ns, ..., so a window's visible chunks spread over every split.
+    As many splits as one wave of ``resident`` blocks (the card's SMs times
+    the blocks per SM that the kernel's launch bounds ask for) holds over
+    the ``b * kh`` pairs, at most one per chunk and at least enough that no
+    split takes more than 32 chunks."""
+    chunks = -(-t // CHUNK)
+    want = max(1, resident // (b * kh))
+    return max(-(-chunks // MAX_CHUNKS), min(chunks, want))
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(index: int, g: int) -> int:
+    """Blocks of the kernel's G instance that one wave holds on card
+    ``index``, the blocks per SM taken from the kernel itself."""
+    return (torch.cuda.get_device_properties(index).multi_processor_count
+            * _build.lib().decode_attention_blocks_per_sm(g))
+
+
+def _counters(dev: torch.device, index: int, stream: int,
+              n: int) -> torch.Tensor:
+    buf = _COUNTERS.get((index, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=dev)
+        _COUNTERS[(index, stream)] = buf
+    return buf
 
 
 def decode_attention_plain(q, k, v, kv_pos, q_pos, *, window=None):
@@ -80,13 +120,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    ns = max(1, -(-t // KEYS_PER_SPLIT))    # blocks along the cache
-    part = torch.empty((b, kh, ns, g, d + 2), dtype=torch.float32, device=dev)
     index, stream = launch_args(dev)
+    ns = split_plan(b, kh, t, resident_blocks(index, g))
+    part = torch.empty((b, kh, ns, g, d + 4), dtype=torch.float32, device=dev)
+    count = _counters(dev, index, stream, b * kh)
     err = _build.lib().decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(),
-        q_pos.data_ptr(), part.data_ptr(), out.data_ptr(),
-        b, t, h, kh, d, window or 0, _DTYPES[q.dtype], index, stream,
+        q_pos.data_ptr(), part.data_ptr(), count.data_ptr(), out.data_ptr(),
+        b, t, h, kh, d, window or 0, ns, _DTYPES[q.dtype], index, stream,
     )
     _build.check(err, "decode_attention")
     decode_attention.launches += 1

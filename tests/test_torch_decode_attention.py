@@ -5,6 +5,8 @@ interpret mode, its pure-jnp oracle and the reference model's
 seeded inputs, within the reference's kernel tolerances (2e-4 in f32, 2e-2
 in bf16)."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -12,8 +14,12 @@ import torch
 from repro.kernels.decode_attention.kernel import decode_attention as ref_kernel
 from repro.kernels.decode_attention.ref import decode_attention_ref
 from repro.models.attention import chunked_attention as ref_chunked
-from repro_torch.kernels.decode_attention.ops import (decode_attention,
-                                                      decode_attention_plain)
+from repro_torch import _build
+from repro_torch.kernels.decode_attention.ops import (CHUNK, MAX_CHUNKS,
+                                                      MAX_GROUP,
+                                                      decode_attention,
+                                                      decode_attention_plain,
+                                                      split_plan)
 
 jax = pytest.importorskip("jax")
 jnp = jax.numpy
@@ -135,3 +141,101 @@ def test_wrapper_rejects_bad_inputs():
         decode_attention(q[:, :3], k, v, kv_pos, q_pos)
     with pytest.raises(TypeError):
         decode_attention(q.bfloat16(), k, v, kv_pos, q_pos)
+
+
+# --------------------------------------------------------------- the splits
+# an H100's 132 SMs at the kernel's three resident blocks per SM (G <= 5)
+# and two (G > 5)
+@pytest.mark.parametrize("args,want", [
+    ((8, 5, 2112, 396), 9),       # hymba-1.5b serving: 360 blocks, one wave
+    ((1, 5, 2112, 396), 33),      # batch 1: a chunk each
+    ((8, 5, 50, 396), 1),         # T smaller than one 64-slot chunk
+    ((1, 5, 18, 396), 1),         # serve's warm-up step
+    ((2, 2, 1500, 264), 24),      # G 8
+    ((64, 8, 32768, 396), 16),    # no split may take more than 32 chunks
+], ids=["serve", "batch1", "short", "short-batch1", "G8", "long"])
+def test_split_plan_pins_the_kernel_grid(args, want):
+    assert split_plan(*args) == want
+
+
+@pytest.mark.parametrize("b,kh,resident", [(1, 1, 396), (8, 5, 396),
+                                           (4, 2, 264), (64, 8, 396)])
+def test_split_plan_stays_in_the_kernel_domain(b, kh, resident):
+    for t in (1, 63, 64, 65, 1000, 2112, 70_000):
+        ns = split_plan(b, kh, t, resident)
+        chunks = -(-t // CHUNK)
+        assert 1 <= ns <= chunks
+        assert -(-chunks // ns) <= MAX_CHUNKS
+
+
+@pytest.mark.parametrize("name,value", [("kChunk", CHUNK),
+                                        ("kMaxSplit", CHUNK * MAX_CHUNKS),
+                                        ("kMaxG", MAX_GROUP)])
+def test_wrapper_constants_match_the_kernel(name, value):
+    # the wrapper plans the grid and checks the domain with its own copies
+    src = (_build.CSRC / "decode_attention.cu").read_text()
+    m = re.search(rf"constexpr int {name} = (\d+);", src)
+    assert m is not None and int(m.group(1)) == value
+
+
+def _contiguous(t, width):
+    return [torch.arange(s, min(s + width, t)) for s in range(0, t, width)]
+
+
+def _interleaved(t, ns):
+    """The kernel's splits: split s takes 64-slot chunks s, s + ns, ..."""
+    chunk = torch.arange(t) // CHUNK
+    return [torch.nonzero(chunk % ns == s).flatten() for s in range(ns)]
+
+
+def _split_then_combine(q, k, v, kv_pos, q_pos, window, splits):
+    """A torch emulation of the kernel's arithmetic: per split the running
+    max (clamped at -1e4), the sum and the unnormalised accumulator in base
+    2 (scores times D^-0.5 log2(e)), then the cross-split merge."""
+    b, h, d = q.shape
+    g = h // k.shape[2]
+    kx = k.permute(0, 2, 1, 3).repeat_interleave(g, 1)     # (B, H, T, D)
+    vx = v.permute(0, 2, 1, 3).repeat_interleave(g, 1)
+    s2 = torch.einsum("bhd,bhtd->bht", q * (d ** -0.5 / np.log(2)), kx)
+    valid = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+    if window is not None:
+        valid &= kv_pos > q_pos[:, None] - window
+    floor = -1e4 / np.log(2)
+    parts = []
+    for idx in splits:
+        ok = valid[:, None, idx]
+        m = torch.where(ok, s2[..., idx], -torch.inf).amax(-1).clamp_min(floor)
+        p = torch.where(ok, torch.exp2(s2[..., idx] - m[..., None]), 0.0)
+        parts.append((m, p.sum(-1), torch.einsum("bht,bhtd->bhd", p,
+                                                   vx[:, :, idx])))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    tot = sum(torch.exp2(m - mx) * l for m, l, _ in parts)
+    acc = sum(torch.exp2(m - mx)[..., None] * a for m, _, a in parts)
+    return acc / tot.clamp_min(1e-30)[..., None]
+
+
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("split", ["64", "320", "T", "kernel"])
+def test_split_then_combine_matches_plain(split, window):
+    # the ring-buffer inputs, one more row with no slot filled and one whose
+    # query comes before every position: those rows' splits are all
+    # invisible and must give exact zeros
+    b, h, kh, t, d = 5, 10, 2, 700, 64
+    q, k, v, _, _ = _inputs(b, h, kh, t, d, t, seed=11)
+    kv_pos = np.stack([np.roll(np.arange(t, dtype=np.int32), r)
+                       for r in (0, 17, 150, 0, 333)])
+    kv_pos[2, :30] = -1
+    kv_pos[3] = -1
+    q_pos = np.random.default_rng(3).integers(60, t, size=b).astype(np.int32)
+    q_pos[4] = -1
+    args = [torch.from_numpy(a) for a in (q, k, v, kv_pos, q_pos)]
+    splits = {"64": _contiguous(t, 64), "320": _contiguous(t, 320),
+              "T": _contiguous(t, t),
+              "kernel": _interleaved(t, split_plan(b, kh, t, 60))}[split]
+    if split == "kernel":
+        assert len(splits) == 6 and t % CHUNK
+    got = _split_then_combine(*args, window, splits)
+    want = decode_attention_plain(*args, window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL32)
+    assert torch.equal(got[3:], torch.zeros_like(got[3:]))
+    assert torch.equal(want[3:], torch.zeros_like(want[3:]))

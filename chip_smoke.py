@@ -9,8 +9,10 @@ Phases, each printed on a line of its own:
 
 1. build       — compile the six CUDA kernels from ``src/repro_torch/csrc``;
                  the line gives the registers and spills of the tensor-core
-                 (wgmma) instance of flash_attention and of the serving
-                 path's decode_attention instance (bf16, G 5).
+                 (wgmma) instance of flash_attention, of the serving
+                 path's decode_attention instance (bf16, G 5) and of every
+                 ssd_scan instance (state, chain and output pass), and
+                 requires no spills in the serving path's ssd passes.
 2. kernels     — hold each kernel against its plain PyTorch version on the
                  card and time kernel, plain version, library call (where
                  one PyTorch call computes the same function) and the
@@ -30,7 +32,16 @@ Phases, each printed on a line of its own:
                  at batch 1, and at serve's warm-up step (18 slots, one
                  split, q at an odd offset); its serving rows add
                  ``device_ms``, the profiler's device time per call, for the
-                 kernel and SDPA.
+                 kernel and SDPA.  ssd_scan (y and h_last, f32 for either x
+                 dtype, within 2e-4) must also reject the scan with h0
+                 dropped; its serving rows add ``device_ms`` in total and
+                 per pass.  It is also checked at serve's warm-up (S 16),
+                 serve-check's prompt (S 1536) and prefill (S 1528), P 16
+                 and P 32, N 64 at chunk 64 and 256, N 128 at chunk 128,
+                 odd N and chunk, and x at an odd element offset; every
+                 ssd instance the build made must have run in one of these
+                 rows, and N 128 at chunk 256 must be refused before any
+                 launch.
 3. fit-stress  — ``Simulator(64, 50).run(lmbr_stress_workload(seed=0), lmbr,
                  seed=0, max_moves=1200)`` on the card with the dense peel
                  and the span_gain kernel pinned; the summary and member
@@ -107,11 +118,11 @@ def _cuda_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(torch, fn, iters: int) -> float | None:
-    """Device time per call: the profiler's self device time of every
-    kernel that ``iters`` calls of ``fn`` launch, over ``iters`` (None when
-    the profiler saw no device activity).  Unlike ``_cuda_ms`` it leaves out
-    the host's share of a call that the device waits for."""
+def _device_times(torch, fn, iters: int) -> dict:
+    """Device ms per call of each kernel (by name) that ``iters`` calls of
+    ``fn`` launch: the profiler's self device time over ``iters`` (empty
+    when the profiler saw no device activity).  Unlike ``_cuda_ms`` it
+    leaves out the host's share of a call that the device waits for."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -122,9 +133,16 @@ def _device_ms(torch, fn, iters: int) -> float | None:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA)
-    return total / 1e3 / iters if total else None
+    return {e.key: e.self_device_time_total / 1e3 / iters
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total}
+
+
+def _device_ms(torch, fn, iters: int) -> float | None:
+    """Device time per call of everything ``fn`` launches (None when the
+    profiler saw no device activity)."""
+    times = _device_times(torch, fn, iters)
+    return sum(times.values()) if times else None
 
 
 def _fmt_ms(x) -> str:
@@ -217,6 +235,19 @@ def _ptxas_entries(report: str) -> list[dict]:
     return out
 
 
+def _ssd_instance(entry: str):
+    """(pass, x dtype, P) of an ssd_scan kernel's mangled name; the chain
+    pass has neither dtype nor P."""
+    m = re.search(r"ssd_scan_(state|chain|output)_kernel", entry)
+    if not m:
+        return None
+    if m.group(1) == "chain":
+        return ("chain", None, None)
+    p = re.search(r"Li(\d+)E", entry)
+    return (m.group(1), "bf16" if "__nv_bfloat16" in entry else "f32",
+            int(p.group(1)))
+
+
 def phase_build(_build):
     so = _build.build(force=True)
     entries = _ptxas_entries(_build.BUILD_INFO["ptxas"])
@@ -228,17 +259,35 @@ def phase_build(_build):
            if "decode_attention_kernelI13__nv_bfloat16Li5E" in e["entry"]]
     _require(len(dec) == 1, "build: no ptxas report of the bf16 G 5 "
              "decode_attention instance")
+    # every ssd_scan instance: (pass, x dtype, P) -> registers and spills
+    ssd = {_ssd_instance(e["entry"]): e for e in entries
+           if _ssd_instance(e["entry"])}
+    serving = [("state", "bf16", 64), ("chain", None, None),
+               ("output", "bf16", 64)]
+    for inst in serving:
+        _require(inst in ssd, f"build: no ptxas report of ssd_scan {inst}")
+        e = ssd[inst]
+        _require(e["spill_stores"] == 0 and e["spill_loads"] == 0,
+                 f"build: the serving ssd_scan instance {inst} spills "
+                 f"({e['spill_stores']} / {e['spill_loads']} bytes)")
+    ssd_line = ", ".join(
+        f"{k[0]}{'' if k[1] is None else f' {k[1]} P {k[2]}'} "
+        f"registers={e['registers']} spills={e['spill_stores']}/"
+        f"{e['spill_loads']}"
+        for k, e in sorted(ssd.items(), key=lambda kv: str(kv[0])))
     print(f"build: {_build.BUILD_INFO['seconds']:.2f} s -> {Path(so).name} "
           f"flash_attention wgmma instance: registers={tc[0]['registers']} "
           f"spill_stores={tc[0]['spill_stores']} "
           f"spill_loads={tc[0]['spill_loads']}; decode_attention bf16 G 5 "
           f"instance: registers={dec[0]['registers']} "
           f"spill_stores={dec[0]['spill_stores']} "
-          f"spill_loads={dec[0]['spill_loads']}", flush=True)
+          f"spill_loads={dec[0]['spill_loads']}; ssd_scan instances "
+          f"(spill stores/loads bytes): {ssd_line}", flush=True)
     for e in entries:
         print(f"  {e['source']} {e['entry'][:60]} registers={e['registers']} "
               f"spill_stores={e['spill_stores']} "
               f"spill_loads={e['spill_loads']}")
+    return set(ssd)
 
 
 def phase_kernels(np, torch, dev):
@@ -513,6 +562,129 @@ def _decode_domain_rows(torch, dev, dtype):
     return rows
 
 
+def _ssd_serving_row(torch, randn, dtype):
+    """ssd_scan at hymba-1.5b's prefill (B 8, S 2048, 50 heads of 64, state
+    16, chunk 256) from a nonzero h0: the check against the plain version
+    (which must also refuse the scan with h0 dropped), times per call and
+    per pass, and the bound of the work."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
+
+    B, S = SERVE["batch"], SERVE["prefill_len"]
+    NH, P, N, L = 50, 64, 16, 256
+    esz = torch.finfo(dtype).bits // 8
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    x = randn(B, S, NH, P).to(dtype)
+    dt = F.softplus(randn(B, S, NH) - 1.0)
+    a = -torch.exp(randn(NH, scale=0.3))
+    bm, cm = randn(B, S, N, scale=0.3), randn(B, S, N, scale=0.3)
+    h0 = randn(B, NH, P, N, scale=0.1)
+    got = ssd_scan(x, dt, a, bm, cm, chunk=L, h0=h0)
+    want = ssd_scan_plain(x, dt, a, bm, cm, chunk=L, h0=h0)
+    torch.cuda.synchronize()
+    err = _max_abs(got, want)
+    _require(_close(torch, got, want, TOL32),
+             f"ssd_scan {tag}: max|diff| {err}")
+    # a kernel that dropped h0 (started from zero) must fail the check
+    no_h0 = ssd_scan_plain(x, dt, a, bm, cm, chunk=L)
+    no_h0_err = _max_abs(no_h0, want)
+    _require(not _close(torch, no_h0, want, TOL32),
+             f"ssd_scan {tag}: the check cannot see a dropped h0")
+    del got, want, no_h0
+    nch = -(-S // L)
+    ops = B * NH * nch * (L * (L + 1) / 2 * 2 * (N + P) + 4 * L * P * N)
+    nbytes = (B * S * NH * P * (esz + 4) + B * S * NH * 4 + NH * 4
+              + 2 * B * S * N * 4 + 2 * B * NH * P * N * 4)
+    bound, by = _bound_ms(nbytes, ops, FP32_OPS_PER_S)
+
+    def kern():
+        return ssd_scan(x, dt, a, bm, cm, chunk=L, h0=h0)
+
+    times = _device_times(torch, kern, 20)
+    return dict(
+        shape=f"B{B}.S{S}.H{NH}.P{P}.N{N}.L{L}.{tag}", instance=f"{tag}.P{P}",
+        max_abs_err=err, no_h0_err=no_h0_err,
+        ms=_cuda_ms(torch, kern, 20),
+        device_ms=sum(times.values()) if times else None,
+        device_ms_by_pass={p: sum(t for k, t in times.items()
+                                  if f"ssd_scan_{p}_kernel" in k)
+                           for p in ("state", "chain", "output")},
+        plain_ms=_cuda_ms(torch, lambda: ssd_scan_plain(
+            x, dt, a, bm, cm, chunk=L, h0=h0), 2),
+        library_ms=None, library_device_ms=None, bound_ms=bound,
+        bound_by=by)
+
+
+# ssd_scan beyond the serving shape: label, B, S, H, P, N, chunk
+SSD_DOMAIN = (
+    ("warmup", 1, 16, 50, 64, 16, 256),         # serve's warm-up prompt
+    ("serve-check", 2, 1536, 50, 64, 16, 256),  # serve-check's prompt
+    ("ragged", 2, 1528, 50, 64, 16, 256),       # ... and its prefill
+    ("P16", 2, 1000, 8, 16, 16, 256),
+    ("P32", 2, 1000, 8, 32, 16, 256),
+    ("N64.L64", 2, 1000, 8, 64, 64, 64),
+    ("N64.L256", 1, 1000, 8, 64, 64, 256),      # the most shared memory
+    ("N128.L128", 1, 2048, 80, 64, 128, 128),   # mamba2-2.7b's SSM widths
+    ("N12.L100", 2, 777, 8, 32, 12, 100),       # N, chunk and S unpadded
+    ("P16.N24.L72", 2, 500, 4, 16, 24, 72),
+    ("x-offset", 1, 300, 4, 32, 16, 128),       # x at an odd element offset
+)
+SSD_REFUSED = (64, 128, 256)   # P, N, chunk: B and C overflow shared memory
+
+
+def _ssd_domain_rows(torch, dev, dtype):
+    """ssd_scan at every row of ``SSD_DOMAIN`` from a nonzero h0, y and
+    h_last against the plain version within TOL32; and a shape outside the
+    kernel's domain, which the wrapper must refuse before any launch."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan.ops import (
+        kernel_takes, ssd_scan, ssd_scan_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def inputs(B, S, H, P, N):
+        return (randn(B, S, H, P).to(dtype), F.softplus(randn(B, S, H) - 1.0),
+                -torch.exp(randn(H, scale=0.3)), randn(B, S, N, scale=0.3),
+                randn(B, S, N, scale=0.3), randn(B, H, P, N, scale=0.1))
+
+    rows = []
+    for label, B, S, H, P, N, L in SSD_DOMAIN:
+        _require(kernel_takes(P, N, L), f"ssd_scan {label}: outside the "
+                 "kernel's domain")
+        x, dt, a, bm, cm, h0 = inputs(B, S, H, P, N)
+        if label == "x-offset":   # the wrapper copies x to 16-byte alignment
+            x = torch.empty(x.numel() + 1, dtype=dtype,
+                            device=dev)[1:].view_as(x).copy_(x)
+            _require(x.data_ptr() % 16 != 0, "ssd_scan x-offset: x aligned")
+        got = ssd_scan(x, dt, a, bm, cm, chunk=L, h0=h0)
+        want = ssd_scan_plain(x, dt, a, bm, cm, chunk=L, h0=h0)
+        torch.cuda.synchronize()
+        err = _max_abs(got, want)
+        _require(_close(torch, got, want, TOL32),
+                 f"ssd_scan {label} {tag}: max|diff| {err}")
+        rows.append(dict(shape=f"{label}.B{B}.S{S}.H{H}.P{P}.N{N}.L{L}.{tag}",
+                         instance=f"{tag}.P{P}", max_abs_err=err))
+    P, N, L = SSD_REFUSED
+    _require(not kernel_takes(P, N, L), "ssd_scan: the refused shape is in "
+             "the domain")
+    before = ssd_scan.launches
+    try:
+        ssd_scan(*inputs(1, 64, 2, P, N)[:5], chunk=L)
+        refused = False
+    except ValueError:
+        refused = True
+    torch.cuda.synchronize()
+    _require(refused and ssd_scan.launches == before,
+             f"ssd_scan P={P} N={N} chunk={L}: not refused before launch")
+    return rows
+
+
 def phase_model_kernels(np, torch, dev):
     """flash_attention, decode_attention and ssd_scan against their plain
     versions at the serving path's shapes, in bf16 and f32, with kernel,
@@ -521,7 +693,6 @@ def phase_model_kernels(np, torch, dev):
 
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, decode_attention_plain)
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
 
     gen = torch.Generator(device=dev).manual_seed(12)
     B, H, K, D = SERVE["batch"], 25, 5, 64
@@ -602,32 +773,10 @@ def phase_model_kernels(np, torch, dev):
         del q, k, v, qT, kT, vT, wants, want
         rows["decode_attention"] += _decode_domain_rows(torch, dev, dtype)
 
-        # ssd_scan: prefill of the SSM branch from a nonzero state
-        NH, P, N, L = 50, 64, 16, 256
-        x = randn(B, S, NH, P).to(dtype)
-        dt = F.softplus(randn(B, S, NH) - 1.0)
-        a = -torch.exp(randn(NH, scale=0.3))
-        bm, cm = randn(B, S, N, scale=0.3), randn(B, S, N, scale=0.3)
-        h0 = randn(B, NH, P, N, scale=0.1)
-        got = ssd_scan(x, dt, a, bm, cm, chunk=L, h0=h0)
-        want = ssd_scan_plain(x, dt, a, bm, cm, chunk=L, h0=h0)
-        torch.cuda.synchronize()
-        err = _max_abs(got, want)
-        _require(_close(torch, got, want, TOL32),
-                 f"ssd_scan {tag}: max|diff| {err}")
-        nch = -(-S // L)
-        ops = B * NH * nch * (L * (L + 1) / 2 * 2 * (N + P) + 4 * L * P * N)
-        nbytes = (B * S * NH * P * (esz + 4) + B * S * NH * 4 + NH * 4
-                  + 2 * B * S * N * 4 + 2 * B * NH * P * N * 4)
-        bound, by = _bound_ms(nbytes, ops, FP32_OPS_PER_S)
-        rows["ssd_scan"].append(dict(
-            shape=f"B{B}.S{S}.H{NH}.P{P}.N{N}.L{L}.{tag}", max_abs_err=err,
-            ms=_cuda_ms(torch, lambda: ssd_scan(x, dt, a, bm, cm, chunk=L,
-                                                h0=h0), 5),
-            plain_ms=_cuda_ms(torch, lambda: ssd_scan_plain(
-                x, dt, a, bm, cm, chunk=L, h0=h0), 2),
-            library_ms=None, bound_ms=bound, bound_by=by))
-        del x, dt, bm, cm, h0
+        # ssd_scan: prefill of the SSM branch from a nonzero state, then
+        # the domain rows
+        rows["ssd_scan"].append(_ssd_serving_row(torch, randn, dtype))
+        rows["ssd_scan"] += _ssd_domain_rows(torch, dev, dtype)
 
     out = {}
     for name, shapes in rows.items():
@@ -1008,11 +1157,18 @@ def main(argv=None) -> int:
     rows = {}
     launches = {}
     flash_instances = None
+    ssd_built = None
     if "build" in phases:
-        phase_build(_build)
+        ssd_built = phase_build(_build)
     if "kernels" in phases:
         rows = phase_kernels(np, torch, dev)
         rows.update(phase_model_kernels(np, torch, dev))
+        if ssd_built is not None:
+            # every ssd_scan instance the build made ran in a checked row
+            ran = {r["instance"] for r in rows["ssd_scan"]["shapes"]}
+            missed = sorted(f"{d}.P{p}" for _, d, p in ssd_built
+                            if d is not None and f"{d}.P{p}" not in ran)
+            _require(not missed, f"kernels: no ssd_scan row ran {missed}")
     if "fit-stress" in phases:
         hg = lmbr_stress_workload(seed=0).hypergraph
         stress = phase_fit(np, torch, fit_kernels, "fit-stress", hg,

@@ -17,8 +17,12 @@ which the serving prefill needs.
 * ``ssd_scan_plain`` — the plain PyTorch version (the reference's
   ``ssd_chunked``, einsum for einsum).
 * ``ssd_scan`` — the wrapper: plain version for CPU tensors, the CUDA
-  kernel (``csrc/ssd_scan.cu``) for CUDA tensors.  ``ssd_scan.launches``
-  counts kernel launches.
+  kernel (``csrc/ssd_scan.cu``: a state pass, a chain pass and an output
+  pass, with a workspace of ``B * H * chunks * (P * N + 1)`` floats
+  allocated here) for CUDA tensors.  ``ssd_scan.launches`` counts calls
+  that launched the three passes.
+* ``kernel_takes`` — the shapes the CUDA kernel launches; the wrapper
+  refuses the rest for CUDA tensors before any launch.
 """
 
 from __future__ import annotations
@@ -28,10 +32,24 @@ import torch
 from ... import _build
 from .. import check_same_device, launch_args
 
-__all__ = ["ssd_scan", "ssd_scan_plain"]
+__all__ = ["kernel_takes", "ssd_scan", "ssd_scan_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
+MAX_CHUNK = 256
+MAX_STATE = 128
+# pad16(chunk) * pad8(N): the output pass stages the chunk's B and C, which
+# with x and the state must fit a block's 227 KB of shared memory
+MAX_TILE = 16384
+
+
+def kernel_takes(p: int, n: int, chunk: int) -> bool:
+    """Whether the CUDA kernel launches at head dim ``p``, state ``n`` and
+    ``chunk`` (the same test as ``ssd_scan_launch`` in the source)."""
+    pad16 = -(-chunk // 16) * 16
+    pad8 = -(-n // 8) * 8
+    return (p in _HEAD_DIMS and 1 <= chunk <= MAX_CHUNK
+            and 1 <= n <= MAX_STATE and pad16 * pad8 <= MAX_TILE)
 
 
 def ssd_scan_plain(x, dt, a, bmat, cmat, *, chunk: int, h0=None):
@@ -98,19 +116,27 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"chunk must be positive, got {chunk}")
     if dev.type == "cpu":
         return ssd_scan_plain(x, dt, a, bmat, cmat, chunk=chunk, h0=h0)
-    if p not in _HEAD_DIMS or chunk > 256 or n > 128:
-        raise ValueError(f"the CUDA kernel takes head_dim in {_HEAD_DIMS}, "
-                         f"chunk <= 256 and state <= 128, got P={p}, "
-                         f"chunk={chunk}, N={n}")
+    if not kernel_takes(p, n, chunk):
+        raise ValueError(
+            f"the CUDA kernel takes head_dim in {_HEAD_DIMS}, chunk <= "
+            f"{MAX_CHUNK}, state <= {MAX_STATE} and pad16(chunk) * pad8(state)"
+            f" <= {MAX_TILE}, got P={p}, chunk={chunk}, N={n}")
     y = torch.empty((b, s, nh, p), dtype=torch.float32, device=dev)
     h_last = torch.empty_like(h0)
     if b * nh == 0:
         return y, h_last
+    if x.data_ptr() % 16:
+        x = x.clone()   # the passes copy x in 16-byte pieces
+    # per (b, head, chunk): the chunk's state, then exp(cum) at its end
+    nchunks = -(-s // chunk)
+    ws = torch.empty(b * nh * nchunks * (p * n + 1), dtype=torch.float32,
+                     device=dev)
     index, stream = launch_args(dev)
     err = _build.lib().ssd_scan_launch(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), bmat.data_ptr(),
         cmat.data_ptr(), h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-        b, s, nh, p, n, chunk, _DTYPES[x.dtype], index, stream,
+        ws.data_ptr(), b, s, nh, p, n, chunk, _DTYPES[x.dtype], index,
+        stream,
     )
     _build.check(err, "ssd_scan")
     ssd_scan.launches += 1

@@ -3,6 +3,12 @@ tensors) against the JAX package's Pallas SSD kernel in interpret mode,
 its sequential-recurrence oracle and the model-level ``ssd_chunked`` (for
 ``y`` and ``h_last``, from a nonzero ``h0``), on the same seeded inputs.
 
+The CUDA kernel runs only on the card (``chip_smoke.py`` holds it against
+the plain version there); here a plain-PyTorch model of its three passes
+(state, chain, output) is held against the same references, its split
+tensor-core products are emulated against the card's f32 check, and the
+shape domain of the kernel is pinned.
+
 Tolerances are the reference's kernel tolerances (tests/test_kernels.py):
 2e-4 in f32, 2e-2 where x is stored in bf16 (the reference kernel also
 rounds y to bf16 there; the port returns y in f32)."""
@@ -114,3 +120,163 @@ def test_wrapper_rejects_bad_inputs():
         ssd_scan(x, dt, a, bm, cm, chunk=0, h0=h0)
     with pytest.raises(TypeError):
         ssd_scan(x.half(), dt, a, bm, cm, chunk=8, h0=h0)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's decomposition (csrc/ssd_scan.cu), in plain PyTorch: a
+# state pass per chunk, a chain pass over the chunks, an output pass per
+# chunk.  ``mm`` is the output pass's product (C B^T, C h^T, and att . x
+# unless ``mm_x`` is given).
+
+def _three_passes(x, dt, a, bm, cm, *, chunk, h0, mm=torch.matmul,
+                  mm_x=None):
+    b, s, nh, p = x.shape
+    n = bm.shape[-1]
+    nc = -(-s // chunk)
+    pad = nc * chunk - s
+    F = torch.nn.functional
+    x = F.pad(x.float(), (0, 0, 0, 0, 0, pad))
+    dt = F.pad(dt, (0, 0, 0, pad))
+    bm, cm = F.pad(bm, (0, 0, 0, pad)), F.pad(cm, (0, 0, 0, pad))
+    L = chunk
+    xc = x.reshape(b, nc, L, nh, p).permute(0, 3, 1, 2, 4)   # (B,H,c,L,P)
+    dtc = dt.reshape(b, nc, L, nh).permute(0, 3, 1, 2)        # (B,H,c,L)
+    bc = bm.reshape(b, 1, nc, L, n)
+    cc = cm.reshape(b, 1, nc, L, n)
+    cum = torch.cumsum(a[None, :, None, None] * dtc, dim=-1)
+    # 1. state pass: each chunk's own contribution, and its decay
+    w = torch.exp(cum[..., -1:] - cum) * dtc
+    states = (xc * w[..., None]).transpose(-1, -2) @ bc        # (B,H,c,P,N)
+    decay = torch.exp(cum[..., -1])
+    # 2. chain pass: the state entering each chunk, and the last state
+    h, h_in = h0, []
+    for c in range(nc):
+        h_in.append(h)
+        h = decay[:, :, c, None, None] * h + states[:, :, c]
+    h_in = torch.stack(h_in, dim=2)
+    # 3. output pass
+    tril = torch.ones((L, L), dtype=torch.bool).tril()
+    gate = torch.where(tril, torch.exp(cum[..., :, None] - cum[..., None, :]),
+                       torch.zeros(()))
+    att = mm(cc, bc.transpose(-1, -2)) * gate * dtc[..., None, :]
+    y = (mm_x or mm)(att, xc) + torch.exp(cum)[..., None] * mm(
+        cc, h_in.transpose(-1, -2))
+    y = y.permute(0, 2, 3, 1, 4).reshape(b, nc * L, nh, p)[:, :s]
+    return y, h
+
+
+PASS_CASES = {   # b, s, h, p, n, chunk, h0 scale
+    "h0": (2, 128, 3, 16, 16, 32, 0.5),
+    "ragged": (2, 100, 3, 32, 16, 32, 0.5),
+    "shorter-than-chunk": (1, 24, 2, 16, 8, 64, 0.5),
+    "one-chunk": (1, 64, 2, 64, 16, 64, 0.5),
+    "zero-h0": (1, 128, 2, 64, 16, 64, 0.0),
+}
+
+
+@pytest.mark.parametrize("case", list(PASS_CASES))
+def test_three_passes_match_plain_and_reference(case):
+    b, s, h, p, n, chunk, h0_scale = PASS_CASES[case]
+    arrs = _inputs(b, s, h, p, n, seed=s + p, h0_scale=h0_scale)
+    t = [torch.from_numpy(v) for v in arrs]
+    y, h_last = _three_passes(*t[:5], chunk=chunk, h0=t[5])
+    want_y, want_h = ssd_scan_plain(*t[:5], chunk=chunk, h0=t[5])
+    torch.testing.assert_close(y, want_y, **TOL32)
+    torch.testing.assert_close(h_last, want_h, **TOL32)
+    ref_y, ref_h = ref_chunked(*(jnp.asarray(v) for v in arrs[:5]),
+                               chunk=chunk, h0=jnp.asarray(arrs[5]))
+    np.testing.assert_allclose(y.numpy(), np.asarray(ref_y), **TOL32)
+    np.testing.assert_allclose(h_last.numpy(), np.asarray(ref_h), **TOL32)
+    if h0_scale == 0.0 and s % chunk == 0:   # the TPU kernel's own domain
+        interp = ref_kernel(*(jnp.asarray(v) for v in arrs[:5]), chunk=chunk,
+                            interpret=True)
+        np.testing.assert_allclose(y.numpy(), np.asarray(interp), **TOL32)
+
+
+def _tf32(v):
+    """Round to 10 mantissa bits, ties away from zero (the kernel's
+    ``split``: add half a TF32 ulp to the bits, clear the low 13)."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_read(v):
+    """What the tensor cores read of an fp32 operand: its top 19 bits."""
+    return (v.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _split_mm(a, b):
+    """The kernel's product: each operand split into hi = TF32(v) and
+    lo = v - hi, three TF32 products (lo.hi, hi.lo, hi.hi; exact in fp32)
+    summed in fp32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32_read(a - ah), _tf32_read(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _bf16x3_mm(att, x):
+    """The kernel's att . x for bf16 x (exact in bf16): att split into
+    three bf16 pieces, each the rounding of what the ones before leave,
+    three bf16 products (exact in fp32) summed in fp32."""
+    pieces, rest = [], att
+    for _ in range(3):
+        pieces.append(rest.to(torch.bfloat16).float())
+        rest = rest - pieces[-1]
+    return sum(p @ x for p in reversed(pieces))
+
+
+def _one_rounding_mm(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _serving_like(seed, s=512, h=2):
+    """chip_smoke.py's ssd inputs (hymba's SSM widths, chunk 256)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+
+    x = randn(1, s, h, 64)
+    dt = torch.nn.functional.softplus(randn(1, s, h) - 1.0)
+    a = -torch.exp(randn(h, scale=0.3))
+    bm, cm = randn(1, s, 16, scale=0.3), randn(1, s, 16, scale=0.3)
+    return x, dt, a, bm, cm, randn(1, h, 64, 16, scale=0.1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_split_tf32_meets_the_card_check(dtype):
+    # the card holds the kernel against ssd_scan_plain at TOL32; the split
+    # products pass that check here (split TF32 for C B^T and C h^T, and
+    # for att . x with f32 x; att in three bf16 pieces for bf16 x), one
+    # TF32 rounding does not
+    x, dt, a, bm, cm, h0 = _serving_like(18)
+    x = x.to(dtype)
+    want = ssd_scan_plain(x, dt, a, bm, cm, chunk=256, h0=h0)
+    bits = _tf32(torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11]))
+    assert bits.tolist() == [1.0 + 2.0 ** -10, 1.0 + 4 * 2.0 ** -11]
+    assert torch.equal(x.float().to(torch.bfloat16).float(), x.float()) \
+        == (dtype == torch.bfloat16)
+    mm_x = _bf16x3_mm if dtype == torch.bfloat16 else _split_mm
+    split = _three_passes(x, dt, a, bm, cm, chunk=256, h0=h0, mm=_split_mm,
+                          mm_x=mm_x)
+    for got, w in zip(split, want):
+        torch.testing.assert_close(got, w, **TOL32)
+    one = _three_passes(x, dt, a, bm, cm, chunk=256, h0=h0,
+                        mm=_one_rounding_mm)
+    assert not torch.allclose(one[0], want[0], **TOL32)
+
+
+def test_kernel_domain_predicate():
+    from repro_torch.kernels.ssd_scan.ops import kernel_takes
+
+    # every shape the card checks launch (chip_smoke.py), and the edges
+    for p, n, chunk in [(64, 16, 256), (16, 16, 256), (32, 16, 256),
+                        (64, 64, 64), (64, 128, 128), (64, 64, 256),
+                        (32, 12, 128), (64, 16, 1), (16, 1, 16)]:
+        assert kernel_takes(p, n, chunk), (p, n, chunk)
+    # N 128 at chunk 256 needs 2 x 132 KB of B and C: refused, not launched
+    for p, n, chunk in [(64, 128, 256), (64, 65, 256), (64, 16, 257),
+                        (64, 129, 16), (48, 16, 256), (128, 16, 64),
+                        (64, 16, 0), (64, 0, 64)]:
+        assert not kernel_takes(p, n, chunk), (p, n, chunk)

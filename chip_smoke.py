@@ -41,12 +41,21 @@ Phases, each printed on a line of its own:
                  odd N and chunk, and x at an odd element offset; every
                  ssd instance the build made must have run in one of these
                  rows, and N 128 at chunk 256 must be refused before any
-                 launch.
+                 launch.  lockstep_peel is checked at LMBR's pow2 classes,
+                 in both size classes (the C side's class choice must agree
+                 with ``uses_shared_memory`` at the class edges), at the
+                 fit's shapes ((K, U) 128 x 64 at G 1, 8 and 512, 64 x 64
+                 and 64 x 32, 128 x 256), odd K and U, weights too heavy
+                 for the packed argmin, and on a tie-heavy batch, where
+                 the check must also reject ties broken to the highest
+                 slot; its rows add ``device_ms`` and device us per round.
 3. fit-stress  — ``Simulator(64, 50).run(lmbr_stress_workload(seed=0), lmbr,
                  seed=0, max_moves=1200)`` on the card with the dense peel
                  and the span_gain kernel pinned; the summary and member
                  matrix must equal the same call on the CPU bit for bit, and
-                 every placement kernel must have launched.
+                 every placement kernel must have launched.  The line gives
+                 the peel launches by (K, U) class and the peel's rounds
+                 (each launch's longest pair, summed).
 4. fit-paper   — the same fit and CPU cross-check on the largest fig9
                  circuit (ibm10-like, 69 429 nodes, 35 partitions, capacity
                  ceil(n/20), max_moves 600).
@@ -65,7 +74,8 @@ Phases, each printed on a line of its own:
 
 ``--profile`` runs each fit once more under torch.profiler and the
 package's tracer, and one serving batch (prefill, 8 decode steps) under
-torch.profiler, and prints where the time goes.
+torch.profiler, and prints where the time goes (for the fits also
+lockstep_peel's device time per launch and per peel round).
 
 Then: the card's name and power limit (nvidia-smi), one JSON line with
 every kernel's numbers, and the device line.  Any failed check raises and
@@ -214,6 +224,31 @@ def _peel_inputs(np, torch, rng, G, K, U, dev):
             torch.from_numpy(nodew).to(dev), torch.from_numpy(nvalid).to(dev))
 
 
+def _peel_tie_inputs(torch, G, K, U, dev):
+    """Equal weights over a regular incidence: pair g's edge k holds slots
+    k mod U and (k + 1 + g) mod U, every slot valid, so every degree starts
+    equal and most rounds are decided by the lowest-slot rule."""
+    k = torch.arange(K, device=dev)
+    inc = torch.zeros((G, K, U), dtype=torch.float32, device=dev)
+    for g in range(G):
+        inc[g, k, k % U] = 1.0
+        inc[g, k, (k + 1 + g) % U] = 1.0
+    return (inc, torch.ones((G, K), device=dev),
+            torch.ones((G, U), device=dev),
+            torch.full((G,), U, dtype=torch.int32, device=dev))
+
+
+def _peel_highest_slot(torch, plain, inc, we, nodew, nv):
+    """The plain peel with ties broken to the highest slot (every slot
+    valid): the plain version over the slots in reverse order, mapped
+    back."""
+    U = inc.shape[2]
+    _require(bool((nv == U).all()), "highest-slot variant needs nvalid U")
+    peel, rtot, rben = plain(inc.flip(2).contiguous(), we,
+                             nodew.flip(1).contiguous(), nv)
+    return torch.where(peel >= 0, U - 1 - peel, peel), rtot, rben
+
+
 # ------------------------------------------------------------------ phases
 def _ptxas_entries(report: str) -> list[dict]:
     """Each kernel entry of a ``ptxas -v`` report: its source, mangled name,
@@ -291,6 +326,7 @@ def phase_build(_build):
 
 
 def phase_kernels(np, torch, dev):
+    from repro_torch import _build
     from repro_torch.kernels.cover_rounds.ops import (
         cover_rounds, cover_rounds_plain)
     from repro_torch.kernels.lockstep_peel.ops import (
@@ -348,36 +384,83 @@ def phase_kernels(np, torch, dev):
     _require(torch.equal(ch, ch_p), "cover_rounds bad-row chosen mismatch")
     rows["cover_rounds"] = dict(cr[0], shapes=cr)
 
-    # lockstep_peel: pow2 classes of the LMBR dispatch (at most 2^22 floats
-    # per launch), and one class whose state exceeds shared memory
+    # lockstep_peel: the size class the C side picks agrees with ops.py at
+    # the class edges
+    lib = _build.lib()
+    for K in (0, 1, 31, 32, 33, 255, 256, 257, 1024, 8192, 65536):
+        for U in (1, 31, 32, 33, 255, 256, 257, 512):
+            _require(uses_shared_memory(K, U)
+                     == bool(lib.lockstep_peel_uses_shared_memory(K, U)),
+                     f"lockstep_peel size class of K={K} U={U}: ops.py and "
+                     "the source disagree")
+    # pow2 classes of the LMBR dispatch (at most 2^22 floats per launch),
+    # one class in global scratch, then the path's shapes: (128, 64) at G
+    # 1, 8 (the headline) and 512 (a full launch), (64, 64) and (64, 32),
+    # odd K and U, fit-paper's widest class (128, 256), a tie-heavy batch,
+    # and weights too heavy for the packed argmin
     lp = []
-    for G, K, U in ((256, 256, 64), (64, 1024, 64), (1, 8192, 512)):
-        inc, we, nodew, nv = _peel_inputs(np, torch, rng, G, K, U, dev)
+    cases = [((256, 256, 64), "random"), ((64, 1024, 64), "random"),
+             ((1, 8192, 512), "random"), ((1, 128, 64), "random"),
+             ((8, 128, 64), "random"), ((512, 128, 64), "random"),
+             ((3, 64, 64), "random"), ((3, 64, 32), "random"),
+             ((4, 101, 97), "random"), ((3, 128, 256), "random"),
+             ((8, 128, 64), "ties"),
+             ((8, 128, 64), "heavy")]
+    for (G, K, U), kind in cases:
+        if kind == "ties":
+            inc, we, nodew, nv = _peel_tie_inputs(torch, G, K, U, dev)
+        else:
+            inc, we, nodew, nv = _peel_inputs(np, torch, rng, G, K, U, dev)
+        if kind == "heavy":
+            # totals past 2^21 (still below 2^24): the kernel's argmin
+            # cannot pack degree and slot into one key
+            we = we * 16384.0
         got = lockstep_peel(inc, we, nodew, nv)
         want = lockstep_peel_plain(inc, we, nodew, nv)
         torch.cuda.synchronize()
         err = _max_abs(got, want)
-        _require(err == 0, f"lockstep_peel G={G} K={K} U={U}: max|diff| {err}")
+        label = f"G{G}.K{K}.U{U}" + ("" if kind == "random" else f".{kind}")
+        _require(err == 0, f"lockstep_peel {label}: max|diff| {err}")
+        extra = {}
+        if kind == "ties":
+            # the check sees the tie rule: ties to the highest slot differ
+            high = _peel_highest_slot(torch, lockstep_peel_plain, inc, we,
+                                      nodew, nv)
+            _require(not torch.equal(high[0], got[0]),
+                     f"lockstep_peel {label}: the check cannot see ties "
+                     "broken to the highest slot")
+            extra["highest_slot_peels_differ"] = int(
+                (high[0] != got[0]).sum())
         rounds = (want[0] >= 0).sum(dim=1).double()
         nbytes = (G * K * U * 4 + G * K * 4 + G * U * 4 + G * 4
                   + 3 * G * U * 4)
         # degree build + updates (2 K U each) and per-round argmin + column
         design_ops = float((4.0 * K * U + rounds * (U + K)).sum())
         bound, by = _bound_ms(nbytes, design_ops)
-        lp.append(dict(shape=f"G{G}.K{K}.U{U}", max_abs_err=err,
+        dev_ms = _device_ms(torch, lambda: lockstep_peel(inc, we, nodew, nv),
+                            20)
+        lp.append(dict(shape=label, max_abs_err=err,
                        smem=uses_shared_memory(K, U),
                        ms=_cuda_ms(torch,
                                    lambda: lockstep_peel(inc, we, nodew, nv),
                                    20),
+                       device_ms=dev_ms,
                        plain_ms=_cuda_ms(
                            torch,
                            lambda: lockstep_peel_plain(inc, we, nodew, nv),
                            2),
                        bound_ms=bound, bound_by=by,
+                       rounds_max=int(rounds.max()),
+                       device_us_per_round=(
+                           None if dev_ms is None or not rounds.max()
+                           else dev_ms * 1e3 / float(rounds.max())),
                        design_ops=design_ops,
-                       tpu_design_ops=float(rounds.max()) * 2 * K * U * G))
-    _require(not lp[-1]["smem"], "global-scratch peel class not exercised")
-    rows["lockstep_peel"] = dict(lp[0], shapes=lp)
+                       tpu_design_ops=float(rounds.max()) * 2 * K * U * G,
+                       **extra))
+    _require(not lp[2]["smem"], "global-scratch peel class not exercised")
+    _require(all(r["smem"] for r in lp[3:]), "a path shape left the warp "
+             "class")
+    rows["lockstep_peel"] = dict(lp[4], shapes=lp)   # (128, 64) at G 8
 
     parts = []
     for name, row in rows.items():
@@ -1010,6 +1093,7 @@ def _zero_counts(kernels):
         fn.launches = 0
         for inst in getattr(fn, "instance_launches", {}):
             fn.instance_launches[inst] = 0
+        getattr(fn, "class_launches", {}).clear()
 
 
 def _counts(kernels):
@@ -1039,24 +1123,50 @@ def phase_fit(np, torch, kernels, label, hg, n, capacity, max_moves,
     from repro_torch import flags
     from repro_torch.core import Simulator, lmbr, peel_counters
 
+    from repro_torch.core import algorithms
+
     flags.set_variant("peeldevice+spandevice")
     peel0 = peel_counters()
     _zero_counts(kernels)
-    t0 = time.perf_counter()
-    res = Simulator(n, capacity, device="cuda").run(
-        hg, lmbr, seed=0, max_moves=max_moves)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    # keep each dense-peel launch's peel tensor: its rounds are read after
+    # the fit, so the fit itself does no extra device work or sync
+    peels, peel_fn = [], algorithms.lockstep_peel
+
+    def recording(inc, we, nodew, nvalid):
+        out = peel_fn(inc, we, nodew, nvalid)
+        peels.append(out[0])
+        return out
+
+    algorithms.lockstep_peel = recording
+    try:
+        t0 = time.perf_counter()
+        res = Simulator(n, capacity, device="cuda").run(
+            hg, lmbr, seed=0, max_moves=max_moves)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        algorithms.lockstep_peel = peel_fn
     launches = _counts(kernels)
+    peel_classes = dict(kernels["lockstep_peel"].class_launches)
     peel1 = peel_counters()
     flags.reset()
     _check_result(np, res, hg, label)
     for name, count in launches.items():
         _require(count > 0, f"{label}: kernel {name} never launched")
+    _require(sum(peel_classes.values()) == launches["lockstep_peel"]
+             == len(peels), f"{label}: peel launches by class do not add up")
+    # the peel is a chain of rounds: each launch lasts as long as its
+    # longest pair
+    peel_rounds = sum(int((p >= 0).sum(dim=1).max()) for p in peels)
+    del peels
+    classes = ", ".join(f"K{k}.U{u}: {c}" for (k, u), c in sorted(
+        peel_classes.items(), key=lambda kv: -kv[1]))
     line = (f"{label}: avg_span={res.avg_span:.4f} "
             f"placement_s={res.placement_seconds:.2f} wall_s={wall:.2f} "
             f"moves={res.placement_stats['moves']} launches={launches} "
-            f"peel_pairs={ {k: peel1[k] - peel0[k] for k in peel0} }")
+            f"peel_pairs={ {k: peel1[k] - peel0[k] for k in peel0} } "
+            f"peel_launches_by_class={{{classes}}} "
+            f"peel_rounds={peel_rounds}")
     cpu_wall = None
     if cpu_check:
         t0 = time.perf_counter()
@@ -1068,13 +1178,16 @@ def phase_fit(np, torch, kernels, label, hg, n, capacity, max_moves,
                  f"cpu_wall_s={cpu_wall:.2f} cpu_match=bitwise")
     print(line, flush=True)
     return dict(launches=launches, wall=wall, cpu_wall=cpu_wall,
-                placement_s=res.placement_seconds, avg_span=res.avg_span)
+                placement_s=res.placement_seconds, avg_span=res.avg_span,
+                peel_rounds=peel_rounds)
 
 
-def phase_profile(torch, label, hg, n, capacity, max_moves):
+def phase_profile(torch, label, hg, n, capacity, max_moves, peel_rounds):
     """The fit of ``phase_fit`` once more under torch.profiler and the
-    package tracer: host-side split (HPA, LMBR move loop, replay) and the
-    device's busy time by kernel.  Numbers are under the profiler."""
+    package tracer: host-side split (HPA, LMBR move loop, replay), the
+    device's busy time by kernel, and lockstep_peel's device time per peel
+    round (``peel_rounds`` from ``phase_fit``'s run of the same fit).
+    Numbers are under the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1107,6 +1220,15 @@ def phase_profile(torch, label, hg, n, capacity, max_moves):
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.key[:70]!r} count={e.count} "
               f"device_ms={e.self_device_time_total / 1e3:.3f}")
+    peel = [e for e in rows if "lockstep_peel" in e.key]
+    if peel:
+        peel_ms = sum(e.self_device_time_total for e in peel) / 1e3
+        count = sum(e.count for e in peel)
+        print(f"profile {label} lockstep_peel: device_ms={peel_ms:.3f} "
+              f"count={count} device_ms_per_launch={peel_ms / count:.5f} "
+              f"rounds={peel_rounds} device_us_per_round="
+              + (f"{peel_ms * 1e3 / peel_rounds:.4f}" if peel_rounds
+                 else "not_measured"), flush=True)
 
 
 def main(argv=None) -> int:
@@ -1177,16 +1299,18 @@ def main(argv=None) -> int:
         launches.update(stress["launches"])
         if args.profile:
             phase_profile(torch, "fit-stress", hg, STRESS["num_partitions"],
-                          STRESS["capacity"], STRESS["max_moves"])
+                          STRESS["capacity"], STRESS["max_moves"],
+                          stress["peel_rounds"])
     if "fit-paper" in phases:
         n_nodes = PAPER_NODES
         hg = ispd_like_workload(num_nodes=n_nodes, seed=9).hypergraph
         label = f"fit-paper(n={n_nodes})"
         cap = int(math.ceil(n_nodes / 20))
-        phase_fit(np, torch, fit_kernels, label, hg, 35, cap, 600,
-                  cpu_check=True)
+        paper = phase_fit(np, torch, fit_kernels, label, hg, 35, cap, 600,
+                          cpu_check=True)
         if args.profile:
-            phase_profile(torch, label, hg, 35, cap, 600)
+            phase_profile(torch, label, hg, 35, cap, 600,
+                          paper["peel_rounds"])
     if "serve" in phases:
         served = phase_serve(torch, kernels, dev)
         launches.update({n: served["launches"][n] for n in model_kernels})

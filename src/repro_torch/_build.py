@@ -44,8 +44,8 @@ _SIGNATURES = {
     "cover_rounds_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "lockstep_peel_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _P], _I),
-    "lockstep_peel_state_bytes": ([_I, _I], _LL),
-    "lockstep_peel_smem_cap": ([], _I),
+    "lockstep_peel_uses_shared_memory": ([_I, _I], _I),
+    "lockstep_peel_scratch_words": ([_I, _I], _LL),
     "flash_attention_launch": ([_P] * 4 + [_I] * 10 + [_P], _I),
     "decode_attention_launch": ([_P] * 8 + [_I] * 9 + [_P], _I),
     "decode_attention_blocks_per_sm": ([_I], _I),

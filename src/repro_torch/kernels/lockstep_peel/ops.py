@@ -9,15 +9,20 @@ degrees of their other items.  Outputs the free-space-independent
 trajectory: ``peel`` (G, U) int32 (-1 after the last round), ``rtot`` and
 ``rben`` (G, U) f32 (0 after the last round).
 
-Exact only on integer-valued weights whose totals stay below 2^24 (every
-quantity is then an integer f32 holds exactly); the LMBR dispatcher only
-sends such batches.
+Exact only on a 0/1 incidence with integer-valued weights whose totals
+stay below 2^24 (every quantity is then an integer f32 holds exactly); the
+LMBR dispatcher only sends such batches.
 
 * ``lockstep_peel_plain`` — the plain PyTorch version (elementwise
   products and sums, never a matmul, so no TF32 path exists).
 * ``lockstep_peel`` — the wrapper: plain version for CPU tensors, the CUDA
   kernel (``csrc/lockstep_peel.cu``) for CUDA tensors.
-  ``lockstep_peel.launches`` counts kernel launches.
+  ``lockstep_peel.launches`` counts kernel launches and
+  ``lockstep_peel.class_launches`` counts them by (K, U).
+* ``uses_shared_memory`` — the kernel's size class of a (K, U) cell: bits
+  in shared memory with one warp per pair, or in global scratch with one
+  block per pair (the same test as ``lockstep_peel_uses_shared_memory`` in
+  the source).
 """
 
 from __future__ import annotations
@@ -27,7 +32,8 @@ import torch
 from ... import _build
 from .. import check_same_device, launch_args
 
-__all__ = ["lockstep_peel", "lockstep_peel_plain", "uses_shared_memory"]
+__all__ = ["WARP_MAX_K", "WARP_MAX_U", "lockstep_peel", "lockstep_peel_plain",
+           "uses_shared_memory"]
 
 
 def lockstep_peel_plain(inc, we, nodew, nvalid):
@@ -68,17 +74,23 @@ def lockstep_peel_plain(inc, we, nodew, nvalid):
     return peel, rtot, rben
 
 
+# the warp class: every lane holds the 8 alive-edge words of K 256 and the
+# degrees and column words of 8 slots (U 256)
+WARP_MAX_K = 256
+WARP_MAX_U = 256
+
+
 def uses_shared_memory(K: int, U: int) -> bool:
-    """Whether a (K, U) class keeps its per-pair state in shared memory
-    (else in global scratch).  Needs the built kernel library."""
-    lib = _build.lib()
-    return lib.lockstep_peel_state_bytes(K, U) <= lib.lockstep_peel_smem_cap()
+    """Whether the kernel keeps a (K, U) cell's bits in shared memory, one
+    warp per pair (else in global scratch, one block per pair)."""
+    return 0 <= K <= WARP_MAX_K and 0 <= U <= WARP_MAX_U
 
 
 def lockstep_peel(inc: torch.Tensor, we: torch.Tensor, nodew: torch.Tensor,
                   nvalid: torch.Tensor):
     """Peel trajectories (peel (G, U) int32, rtot / rben (G, U) f32) of
-    inc (G, K, U) f32, we (G, K) f32, nodew (G, U) f32, nvalid (G,) int32."""
+    inc (G, K, U) f32 holding 0 or 1, we (G, K) f32, nodew (G, U) f32,
+    nvalid (G,) int32."""
     dev = check_same_device(inc, we, nodew, nvalid)
     if (inc.dtype, we.dtype, nodew.dtype) != (torch.float32,) * 3:
         raise TypeError("lockstep_peel takes float32 inc / we / nodew")
@@ -98,7 +110,8 @@ def lockstep_peel(inc: torch.Tensor, we: torch.Tensor, nodew: torch.Tensor,
         return peel, rtot, rben
     scratch = None
     if not uses_shared_memory(K, U):
-        scratch = torch.empty(G * (U + 2 * K), dtype=torch.float32, device=dev)
+        words = _build.lib().lockstep_peel_scratch_words(K, U)
+        scratch = torch.empty(G * words, dtype=torch.int32, device=dev)
     index, stream = launch_args(dev)
     err = _build.lib().lockstep_peel_launch(
         inc.data_ptr(), we.data_ptr(), nodew.data_ptr(), nvalid.data_ptr(),
@@ -108,7 +121,10 @@ def lockstep_peel(inc: torch.Tensor, we: torch.Tensor, nodew: torch.Tensor,
     )
     _build.check(err, "lockstep_peel")
     lockstep_peel.launches += 1
+    lockstep_peel.class_launches[(K, U)] = (
+        lockstep_peel.class_launches.get((K, U), 0) + 1)
     return peel, rtot, rben
 
 
 lockstep_peel.launches = 0
+lockstep_peel.class_launches = {}

@@ -9,8 +9,10 @@ import pytest
 import torch
 
 from repro.kernels.lockstep_peel.ops import lockstep_peel as ref_peel
-from repro_torch.kernels.lockstep_peel.ops import (lockstep_peel,
-                                                    lockstep_peel_plain)
+from repro_torch.kernels.lockstep_peel.ops import (WARP_MAX_K, WARP_MAX_U,
+                                                    lockstep_peel,
+                                                    lockstep_peel_plain,
+                                                    uses_shared_memory)
 
 jax = pytest.importorskip("jax")
 
@@ -61,6 +63,98 @@ def test_plain_matches_reference(shape, force):
         np.testing.assert_array_equal(g, w, err_msg=f"{force}:{name}")
 
 
+def _assert_matches(inst, force):
+    want = ref_peel(*inst, force=force)
+    got = _port(*inst)
+    for w, g, name in zip(want, got, ("peel", "rtot", "rben")):
+        assert g.shape == w.shape, name
+        np.testing.assert_array_equal(g, w, err_msg=f"{force}:{name}")
+    return got
+
+
+# the (K, U) classes LMBR's dense peel launches most (K 128 / 64 with U 64
+# / 32), a cell of the real K and U (100, 49), and U > 64 not a multiple
+# of 32 (three full lane words and one partial)
+PATH_SHAPES = [(3, 128, 64), (2, 64, 32), (1, 100, 49), (2, 40, 97)]
+
+
+@pytest.mark.parametrize("force", ["numpy", "interpret"])
+@pytest.mark.parametrize("shape", PATH_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_plain_matches_reference_path_classes(shape, force):
+    G, K, U = shape
+    _assert_matches(_instance(G, K, U, seed=7 * G + 3 * K + U), force)
+
+
+def _tie_instance(G, K, U):
+    """Equal weights over a regular incidence: pair g's edge k holds slots
+    k mod U and (k + 1 + g) mod U, so every degree starts equal and most
+    rounds are decided by the lowest-slot rule."""
+    inc = np.zeros((G, K, U), dtype=np.float64)
+    for g in range(G):
+        for k in range(K):
+            inc[g, k, k % U] = 1.0
+            inc[g, k, (k + 1 + g) % U] = 1.0
+    return (inc, np.ones((G, K)), np.ones((G, U)),
+            np.full(G, U, dtype=np.int64))
+
+
+@pytest.mark.parametrize("force", ["numpy", "interpret"])
+def test_plain_matches_reference_on_ties(force):
+    inst = _tie_instance(3, 64, 32)
+    peel, _, _ = _assert_matches(inst, force)
+    # the instance is tie-decided: peeling over the slots in reverse order
+    # (ties -> highest slot) gives another trajectory
+    inc, we, nodew, nvalid = inst
+    rev, _, _ = _port(inc[:, :, ::-1].copy(), we, nodew[:, ::-1].copy(),
+                      nvalid)
+    rev = np.where(rev >= 0, inc.shape[2] - 1 - rev, rev)
+    assert (peel >= 0).sum() > 30
+    assert not np.array_equal(rev, peel)
+
+
+@pytest.mark.parametrize("force", ["numpy", "interpret"])
+def test_plain_matches_reference_on_early_stops(force):
+    G, K, U = 3, 8, 40
+    inc, we, nodew, nvalid = _instance(G, K, U, seed=11)
+    nvalid[:] = U
+    nodew[:] = 2.0
+    # pair 0: edge k holds slots 5k .. 5k + 4, so each edge's death leaves
+    # four items of degree 0 that go next, and the benefit reaches 0 when
+    # the last edge loses its first pin, with four items left; pair 1:
+    # edges 2..4 hold only slots beyond nvalid, never die, and the pair
+    # runs until its valid items run out; pair 2: every edge weighs 0
+    inc[0] = 0.0
+    for k in range(K):
+        inc[0, k, 5 * k: 5 * k + 5] = 1.0
+    nvalid[1] = U - 4
+    nodew[1, U - 4:] = 0.0
+    inc[1, 2:5] = 0.0
+    inc[1, 2:5, U - 4:] = 1.0
+    we[2] = 0.0
+    peel, rtot, rben = _assert_matches((inc, we, nodew, nvalid), force)
+    rounds = (peel >= 0).sum(axis=1)
+    assert rounds[0] == 5 * (K - 1) + 1
+    assert rounds[1] == U - 4
+    assert rounds[2] == 0 and (rtot[2] == 0).all() and (rben[2] == 0).all()
+
+
+def test_size_class_edges():
+    assert (WARP_MAX_K, WARP_MAX_U) == (256, 256)
+    for K, U in ((0, 1), (1, 1), (128, 64), (256, 64), (128, 256),
+                 (256, 256), (101, 97), (256, 1), (1, 256)):
+        assert uses_shared_memory(K, U), (K, U)
+    for K, U in ((257, 256), (256, 257), (1024, 64), (8192, 512),
+                 (65536, 64), (4, 1 << 20)):
+        assert not uses_shared_memory(K, U), (K, U)
+    # of the pow2 classes the dispatcher forms (u2 k2 <= 2^22, both >= 4),
+    # exactly those with K <= 256 and U <= 256 are in the warp class
+    for ku in range(2, 21):
+        for uu in range(2, 23 - ku):
+            K, U = 1 << ku, 1 << uu
+            assert uses_shared_memory(K, U) == (K <= 256 and U <= 256)
+
+
 def test_trajectory_semantics():
     # two items, one edge of weight 3 over both: item 0 (lower slot) is
     # peeled first on the degree tie, the edge dies, the pair stops
@@ -79,9 +173,11 @@ def test_cpu_tensors_run_the_plain_version():
     args = [torch.from_numpy(a.astype(t)) for a, t in
             zip(inst, (np.float32, np.float32, np.float32, np.int32))]
     before = lockstep_peel.launches
+    classes = dict(lockstep_peel.class_launches)
     for a, b in zip(lockstep_peel(*args), lockstep_peel_plain(*args)):
         assert torch.equal(a, b)
     assert lockstep_peel.launches == before
+    assert lockstep_peel.class_launches == classes
 
 
 def test_wrapper_rejects_bad_inputs():

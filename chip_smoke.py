@@ -59,14 +59,30 @@ Phases, each printed on a line of its own:
 4. fit-paper   — the same fit and CPU cross-check on the largest fig9
                  circuit (ibm10-like, 69 429 nodes, 35 partitions, capacity
                  ceil(n/20), max_moves 600).
-5. serve       — ``repro_torch.launch.serve`` on hymba-1.5b at full width
+5. paper-algos — the paper's six algorithms (random, hpa, ihpa, ds, pra,
+                 lmbr) through ``Simulator(n, cap, device="cuda").run(hg,
+                 ALGORITHMS[name], name=name, seed=0)`` with the dense peel
+                 and the span_gain kernel pinned, at fig6's paper default
+                 (``random_workload(1000, 4000, 3, 11, 20, seed=0)``, 40
+                 partitions, capacity 50), IHPA alone at 30 partitions
+                 (where its §4.2 shrink runs), and fig9's ibm01-like circuit
+                 (12 752 nodes, 35 partitions, capacity 638, lmbr
+                 ``max_moves=600``).  Each run must equal the same call on
+                 the CPU bit for bit and its avg_span the JAX package's
+                 (``PAPER_RUNS``, pinned by a CPU test); span_gain must
+                 launch in every ihpa and ds run and in fig6's pra run,
+                 cover_rounds in every fig9 run, lockstep_peel in every
+                 lmbr run.  The line
+                 gives each run's launches and the (B, N, W) of every
+                 cover_rounds launch.
+6. serve       — ``repro_torch.launch.serve`` on hymba-1.5b at full width
                  and depth (32 layers, bf16, random weights from seed 0):
                  16 requests in batches of 8, prompt 2048, 64 greedy decode
                  steps; finite logits, prefill tokens/s, decode ms/step,
                  peak memory, and each model kernel's launch count, which
                  must be 32 x 2 (flash, ssd) and 32 x 64 x 2 (decode), every
                  flash launch on the tensor-core (wgmma) instance.
-6. serve-check — hymba-1.5b at full width and 4 layers (global, window,
+7. serve-check — hymba-1.5b at full width and 4 layers (global, window,
                  window, global) in f32 with TF32 off, prompt 1536: the
                  kernel route against the plain route on the card (logits
                  within 1e-3) and teacher-forced decode after prefill
@@ -75,7 +91,9 @@ Phases, each printed on a line of its own:
 ``--profile`` runs each fit once more under torch.profiler and the
 package's tracer, and one serving batch (prefill, 8 decode steps) under
 torch.profiler, and prints where the time goes (for the fits also
-lockstep_peel's device time per launch and per peel round).
+lockstep_peel's device time per launch and per peel round; for
+paper-algos, fig9's IHPA fit with span_gain's and cover_rounds' device
+time per launch).
 
 Then: the card's name and power limit (nvidia-smi), one JSON line with
 every kernel's numbers, and the device line.  Any failed check raises and
@@ -100,9 +118,35 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12       # H100 SXM non-tensor fp32, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores, data sheet
-PHASES = ("build", "kernels", "fit-stress", "fit-paper", "serve",
-          "serve-check")
+PHASES = ("build", "kernels", "fit-stress", "fit-paper", "paper-algos",
+          "serve", "serve-check")
 PAPER_NODES = 69429          # ibm10, the largest fig9 circuit
+# paper-algos: the workloads (generator, arguments) and the runs (workload,
+# partitions, capacity, algorithm, extra arguments, avg_span of the JAX
+# package's ``Simulator(n, cap).run(hg, ALGORITHMS[name], name=name,
+# seed=0, **extra)`` on the CPU; tests/test_torch_chip_smoke_constants.py
+# recomputes every row)
+PAPER_WORKLOADS = {
+    "fig6": ("random_workload", dict(num_items=1000, num_queries=4000,
+                                     min_query=3, max_query=11, density=20,
+                                     seed=0)),
+    "fig9-ibm01": ("ispd_like_workload", dict(num_nodes=12752, seed=0)),
+}
+PAPER_RUNS = (
+    ("fig6", 40, 50, "random", {}, 6.309),
+    ("fig6", 40, 50, "hpa", {}, 4.969),
+    ("fig6", 40, 50, "ihpa", {}, 4.3455),
+    ("fig6", 40, 50, "ds", {}, 4.51525),
+    ("fig6", 40, 50, "pra", {}, 4.74225),
+    ("fig6", 40, 50, "lmbr", {}, 4.21625),
+    ("fig6", 30, 50, "ihpa", {}, 4.733),
+    ("fig9-ibm01", 35, 638, "random", {}, 3.5707563983745634),
+    ("fig9-ibm01", 35, 638, "hpa", {}, 1.1980466243672916),
+    ("fig9-ibm01", 35, 638, "ihpa", {}, 1.0),
+    ("fig9-ibm01", 35, 638, "ds", {}, 1.0),
+    ("fig9-ibm01", 35, 638, "pra", {}, 1.0562486632922221),
+    ("fig9-ibm01", 35, 638, "lmbr", dict(max_moves=600), 1.0),
+)
 # summary keys that record wall time or which backend ran
 BACKEND_KEYS = {"placement_s", "fit_peel", "fit_cover_engine"}
 
@@ -1231,6 +1275,143 @@ def phase_profile(torch, label, hg, n, capacity, max_moves, peel_rounds):
                  else "not_measured"), flush=True)
 
 
+def _paper_kernels_required(workload: str, name: str) -> set:
+    """The kernels a paper-algos run must launch: span_gain in IHPA's and
+    DS's residual rounds and in fig6's replay rounds, cover_rounds in
+    fig9's whole buckets (at or above ``span_round_threshold`` words),
+    lockstep_peel in LMBR.  PRA's only span work is the replay (its
+    per-edge covers are host numpy, as in the reference), so at fig9 it
+    launches cover_rounds alone."""
+    need = set()
+    if name in ("ihpa", "ds") or (name == "pra" and workload == "fig6"):
+        need.add("span_gain")
+    if workload.startswith("fig9"):
+        need.add("cover_rounds")
+    if name == "lmbr":
+        need.add("lockstep_peel")
+    return need
+
+
+def phase_paper_algos(np, torch, kernels, graphs):
+    """Every run of ``PAPER_RUNS`` on the card, each held bit for bit
+    against the same call on the CPU and against the JAX package's
+    avg_span.  Records each run's kernel launches and the (B, N, W) of
+    every cover_rounds launch."""
+    from repro_torch import flags
+    from repro_torch.core import ALGORITHMS, Simulator, setcover
+
+    rounds_fn = setcover.cover_rounds
+    shapes = []
+
+    def recording(codes, rem):
+        if codes.shape[0]:
+            shapes.append(tuple(codes.shape))
+        return rounds_fn(codes, rem)
+
+    runs = []
+    for workload, n, cap, name, extra, want in PAPER_RUNS:
+        hg = graphs[workload]
+        label = f"paper-algos {workload} ({n}, {cap}) {name}"
+        flags.set_variant("peeldevice+spandevice")
+        _zero_counts(kernels)
+        first = len(shapes)
+        setcover.cover_rounds = recording
+        try:
+            t0 = time.perf_counter()
+            res = Simulator(n, cap, device="cuda").run(
+                hg, ALGORITHMS[name], name=name, seed=0, **extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            setcover.cover_rounds = rounds_fn
+        launches = _counts(kernels)
+        flags.reset()
+        _check_result(np, res, hg, label)
+        run_shapes = shapes[first:]
+        _require(len(run_shapes) == launches["cover_rounds"],
+                 f"{label}: cover_rounds shapes do not match its launches")
+        for kernel in sorted(_paper_kernels_required(workload, name)):
+            _require(launches[kernel] > 0,
+                     f"{label}: kernel {kernel} never launched")
+        t0 = time.perf_counter()
+        cpu = Simulator(n, cap, device="cpu").run(
+            hg, ALGORITHMS[name], name=name, seed=0, **extra)
+        cpu_wall = time.perf_counter() - t0
+        _compare(np, res, cpu, label)
+        _require(res.avg_span == want,
+                 f"{label}: avg_span {res.avg_span!r} is not the "
+                 f"reference's {want!r}")
+        counted = {}
+        for shape in run_shapes:
+            counted[shape] = counted.get(shape, 0) + 1
+        print(f"{label}: avg_span={res.avg_span!r} reference={want!r} "
+              f"placement_s={res.placement_seconds:.3f} wall_s={wall:.3f} "
+              f"cpu_placement_s={cpu.placement_seconds:.3f} "
+              f"cpu_wall_s={cpu_wall:.3f} cpu_match=bitwise "
+              f"launches={launches} cover_rounds_shapes="
+              + "{" + ", ".join(f"{b}x{n_}x{w}: {c}" for (b, n_, w), c
+                                in sorted(counted.items())) + "}",
+              flush=True)
+        runs.append(dict(workload=workload, n=n, name=name,
+                         launches=launches, wall=wall, cpu_wall=cpu_wall))
+    return runs
+
+
+def phase_paper_profile(torch, hg, n, capacity, name):
+    """One paper-algos run once more under torch.profiler and the package
+    tracer: host split (HPA, the algorithm's own loop, replay), the
+    device's busy time, and span_gain's and cover_rounds' device ms per
+    launch.  Numbers are under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import flags, obs
+    from repro_torch.core import ALGORITHMS, Simulator
+
+    label = f"paper-algos {name} (n={hg.num_nodes}, {n}, {capacity})"
+    flags.set_variant("peeldevice+spandevice+obstrace")
+    obs.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        Simulator(n, capacity, device="cuda").run(hg, ALGORITHMS[name],
+                                                  name=name, seed=0)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    host = {key: sum(e["dur"] for e in obs.tracer().spans(key)) / 1e6
+            for key in ("fit.place", "fit.hpa", "replay.cover")}
+    flags.reset()
+    obs.reset()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    # the wall also holds the profiler's start; the fit and the replay are
+    # what the traced spans time
+    traced = host["fit.place"] + host["replay.cover"]
+    print(f"profile {label}: wall_s={wall:.3f} hpa_s={host['fit.hpa']:.3f} "
+          f"algorithm_loop_s={host['fit.place'] - host['fit.hpa']:.3f} "
+          f"replay_s={host['replay.cover']:.3f} device_busy_s={busy:.4f} "
+          f"device_idle_share={1 - busy / wall:.4f} "
+          f"device_idle_share_of_fit_replay={1 - busy / traced:.4f}"
+          if rows else f"profile {label}: wall_s={wall:.3f} device time "
+          "not measured (the profiler saw no device activity)", flush=True)
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.key[:70]!r} count={e.count} "
+              f"device_ms={e.self_device_time_total / 1e3:.3f}")
+    for kernel in ("span_gain", "cover_rounds"):
+        hits = [e for e in rows if kernel in e.key]
+        if hits:
+            ms = sum(e.self_device_time_total for e in hits) / 1e3
+            count = sum(e.count for e in hits)
+            print(f"profile {label} {kernel}: device_ms={ms:.4f} "
+                  f"count={count} device_ms_per_launch={ms / count:.5f}",
+                  flush=True)
+        else:
+            print(f"profile {label} {kernel}: not measured (no launch "
+                  "under the profiler)", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1258,7 +1439,8 @@ def main(argv=None) -> int:
     import numpy as np
 
     from repro_torch import _build
-    from repro_torch.core import ispd_like_workload, lmbr_stress_workload
+    from repro_torch.core import (ispd_like_workload, lmbr_stress_workload,
+                                  random_workload)
     from repro_torch.core import LMBR_STRESS_DEFAULTS as STRESS
     from repro_torch.kernels.cover_rounds.ops import cover_rounds
     from repro_torch.kernels.decode_attention.ops import decode_attention
@@ -1278,6 +1460,7 @@ def main(argv=None) -> int:
     kernels = {**fit_kernels, **model_kernels}
     rows = {}
     launches = {}
+    path_launches = {}   # phase -> kernel -> launches on that path
     flash_instances = None
     ssd_built = None
     if "build" in phases:
@@ -1297,6 +1480,7 @@ def main(argv=None) -> int:
                            STRESS["num_partitions"], STRESS["capacity"],
                            STRESS["max_moves"], cpu_check=True)
         launches.update(stress["launches"])
+        path_launches["fit-stress"] = stress["launches"]
         if args.profile:
             phase_profile(torch, "fit-stress", hg, STRESS["num_partitions"],
                           STRESS["capacity"], STRESS["max_moves"],
@@ -1308,12 +1492,26 @@ def main(argv=None) -> int:
         cap = int(math.ceil(n_nodes / 20))
         paper = phase_fit(np, torch, fit_kernels, label, hg, 35, cap, 600,
                           cpu_check=True)
+        path_launches["fit-paper"] = paper["launches"]
         if args.profile:
             phase_profile(torch, label, hg, 35, cap, 600,
                           paper["peel_rounds"])
+    if "paper-algos" in phases:
+        makers = {"random_workload": random_workload,
+                  "ispd_like_workload": ispd_like_workload}
+        graphs = {key: makers[fn](**kw).hypergraph
+                  for key, (fn, kw) in PAPER_WORKLOADS.items()}
+        algo_runs = phase_paper_algos(np, torch, fit_kernels, graphs)
+        path_launches["paper-algos"] = {
+            name: sum(r["launches"][name] for r in algo_runs)
+            for name in fit_kernels}
+        if args.profile:
+            phase_paper_profile(torch, graphs["fig9-ibm01"], 35, 638, "ihpa")
     if "serve" in phases:
         served = phase_serve(torch, kernels, dev)
         launches.update({n: served["launches"][n] for n in model_kernels})
+        path_launches["serve"] = {n: served["launches"][n]
+                                  for n in model_kernels}
         flash_instances = served["flash_instances"]
         if args.profile:
             phase_serve_profile(np, torch, dev)
@@ -1349,6 +1547,8 @@ def main(argv=None) -> int:
             bound_by=row.get("bound_by"), library_ms=row.get("library_ms"),
             device_ms=row.get("device_ms"),
             library_device_ms=row.get("library_device_ms"),
+            launches_by_path={path: counts[name] for path, counts
+                              in path_launches.items() if name in counts},
         ))
         if name == "flash_attention":
             # ms is the instance's that the serving path runs

@@ -1,6 +1,7 @@
 """repro_torch.core — the placement pipeline: a workload becomes a
-`Hypergraph`, HPA gives the balanced start, LMBR replicates items over the
-batched span engine, and `Simulator.run` replays the trace.
+`Hypergraph`, HPA gives the balanced start, one of the paper's replicating
+algorithms (IHPA, DS, PRA, LMBR) places copies over the batched span
+engine, and `Simulator.run` replays the trace.
 
 Layout:
   hypergraph  — workload model (queries = hyperedges over data items)
@@ -8,12 +9,13 @@ Layout:
   workloads   — Random / LMBR-stress / ISPD-like generators
   setcover    — greedy replica selection and the batched span engine
   hpa         — multilevel hypergraph partitioner (hMETIS stand-in)
-  algorithms  — LMBR (+ Random, HPA baselines)
+  algorithms  — IHPA, DS, PRA, LMBR (+ Random, HPA baselines)
   simulator   — trace-driven simulator + energy model
 """
 
 from .hypergraph import (  # noqa: F401
     Hypergraph,
+    MutableHypergraph,
     canonicalize_csr,
     from_reference_arrays,
 )
@@ -36,10 +38,13 @@ from .hpa import fresh_partition_cache  # noqa: F401
 from .hpa import partition as hpa_partition  # noqa: F401
 from .algorithms import (  # noqa: F401
     ALGORITHMS,
+    ds,
     hpa_placement,
+    ihpa,
     lmbr,
     min_partitions,
     peel_counters,
+    pra,
     random_placement,
 )
 from .simulator import EnergyModel, SimulationResult, Simulator  # noqa: F401

@@ -1,15 +1,20 @@
-"""Data placement algorithms with replication (paper §4): the baselines
-and LMBR.
+"""Data placement algorithms with replication (paper §4).
 
   * random_placement — Random baseline (replicate & distribute randomly)
   * hpa_placement    — HPA baseline, no replication (straight line in fig. 6)
+  * ihpa             — Algorithm 1, Iterative HPA
+  * ds               — Algorithm 2, Dense-Subgraph based
+  * pra              — Algorithm 3, Pre-Replication via hitting sets
   * lmbr             — Algorithms 4+5, improved Local-Move-Based Replication
 
 All return a `Placement` (membership matrix), on which spans are computed by
-greedy set cover (replica selection).  The host-side move loop, projection
-and selection are numpy copies of the JAX package's ``core/algorithms.py``;
-the dense peel (``lmbr_peel="device"``) runs the lockstep_peel kernel on the
-caller's device.  Every peel backend is bit-identical.
+greedy set cover (replica selection).  The host-side loops (IHPA's residual
+rounds, DS's densest-subset peel, PRA's scoring and rewiring, LMBR's move
+loop, projection and selection) are numpy copies of the JAX package's
+``core/algorithms.py``.  Their span work goes through the batched engine on
+the caller's device (span_gain, cover_rounds), and LMBR's dense peel
+(``lmbr_peel="device"``) through the lockstep_peel kernel.  Every backend is
+bit-identical.
 """
 
 from __future__ import annotations
@@ -28,11 +33,17 @@ from ..kernels.lockstep_peel.ops import lockstep_peel
 from . import hpa as hpa_mod
 from .cluster import capacity_vector, normalize_capacity
 from .hypergraph import Hypergraph
-from .setcover import Placement, SpanMaintainer, engine_counters
+from .setcover import (
+    Placement,
+    SpanMaintainer,
+    batched_spans_csr,
+    engine_counters,
+    greedy_set_cover,
+)
 
 __all__ = [
-    "random_placement", "hpa_placement", "lmbr", "min_partitions",
-    "peel_counters", "ALGORITHMS",
+    "random_placement", "hpa_placement", "ihpa", "ds", "pra", "lmbr",
+    "min_partitions", "peel_counters", "ALGORITHMS",
 ]
 
 # Dense-peel dispatch counters (observability, not control flow): pairs the
@@ -150,6 +161,230 @@ def hpa_placement(
         hg, ne, _cap_slice(capacity, 0, ne), seed=seed, nruns=nruns
     )
     return _assign_to_placement(hg, assign, n, capacity)
+
+
+# ----------------------------------------------------------- residual helpers
+def _residual_edges(hg: Hypergraph, pl: Placement, min_span: int,
+                    device="cuda") -> np.ndarray:
+    """Edge ids with span > min_span (pruneHypergraphBySpan keeps these)."""
+    spans = batched_spans_csr(hg.edge_ptr, hg.edge_nodes, pl.member,
+                              device=device)
+    return np.flatnonzero(spans > min_span)
+
+
+# ------------------------------------------------------------ Algorithm 1: IHPA
+def ihpa(
+    hg: Hypergraph, n: int, capacity: float, seed: int = 0, nruns: int = 2,
+    device="cuda", **_
+) -> Placement:
+    """Algorithm 1, Iterative HPA: partition, then repeatedly re-partition
+    the residual hypergraph (edges with span > 1) into the spare partitions,
+    replicating its items.
+
+    Residual spans come from an incremental SpanMaintainer on ``device``
+    (only the edges of touched items recompute); when the residual must
+    shrink (§4.2), lowest-span hyperedges are dropped in stable
+    ascending-span order, so one seed gives one placement."""
+    device = _resolve_device(device)
+    ne = _base_partitions(hg, capacity)
+    assign = hpa_mod.partition(
+        hg, ne, _cap_slice(capacity, 0, ne), seed=seed, nruns=nruns
+    )
+    pl = _assign_to_placement(hg, assign, n, capacity)
+    spans = SpanMaintainer(hg, pl, device=device)
+    used = ne
+    round_ = 0
+    while used < n:
+        round_ += 1
+        edge_ids = spans.residual_edges(1)
+        if len(edge_ids) == 0:
+            break
+        resid = hg.subhypergraph_edges(edge_ids)
+        resid, old_ids = resid.relabel()
+        rem_parts = n - used
+        rem_cap = (float(capacity[used:n].sum()) if _is_cap_vec(capacity)
+                   else rem_parts * capacity)
+        if resid.total_node_weight() > rem_cap:
+            # §4.2: drop lowest-span hyperedges one at a time (these gain
+            # least from replication) until the residual fits
+            spans_r = batched_spans_csr(
+                resid.edge_ptr, old_ids[resid.edge_nodes], pl.member,
+                device=device,
+            )
+            order = np.argsort(spans_r, kind="stable")  # ascending span
+            pin_deg = np.bincount(resid.edge_nodes, minlength=resid.num_nodes)
+            live_w = float(
+                resid.node_weights[np.flatnonzero(pin_deg > 0)].sum()
+            )
+            keep_mask = np.ones(resid.num_edges, dtype=bool)
+            for e in order:
+                if live_w <= rem_cap:
+                    break
+                keep_mask[e] = False
+                for u in resid.edge(int(e)):
+                    pin_deg[u] -= 1
+                    if pin_deg[u] == 0:
+                        live_w -= float(resid.node_weights[u])
+            resid = resid.subhypergraph_edges(np.flatnonzero(keep_mask))
+            sub, sub_ids = resid.relabel()
+            old_ids = old_ids[sub_ids]
+            resid = sub
+            if resid.num_edges == 0 or resid.num_nodes == 0:
+                break
+        if _is_cap_vec(capacity):
+            # shortest prefix of the spare rows that holds the residual
+            cum = np.cumsum(capacity[used:n])
+            n_new = min(rem_parts, max(1, int(np.searchsorted(
+                cum, resid.total_node_weight() - 1e-9)) + 1))
+        else:
+            n_new = min(rem_parts,
+                        max(1, int(np.ceil(resid.total_node_weight()
+                                           / capacity))))
+        sub_assign = hpa_mod.partition(
+            resid, n_new, _cap_slice(capacity, used, used + n_new),
+            seed=seed + round_, nruns=nruns
+        )
+        pl.member[used + sub_assign, old_ids] = True
+        spans.notify_items(old_ids)
+        used += n_new
+    return pl
+
+
+# -------------------------------------------------------------- Algorithm 2: DS
+def ds(
+    hg: Hypergraph, n: int, capacity: float, seed: int = 0, nruns: int = 2,
+    device="cuda", **_
+) -> Placement:
+    """Algorithm 2, Dense-Subgraph based: fill each spare partition with the
+    densest capacity-bounded node set of the current residual hypergraph.
+
+    The peel inside `k_densest_nodes` is a host heap peel (lowest degree
+    first, ties -> lowest node id); residual spans come from the batched
+    engine on ``device``."""
+    device = _resolve_device(device)
+    ne = _base_partitions(hg, capacity)
+    assign = hpa_mod.partition(
+        hg, ne, _cap_slice(capacity, 0, ne), seed=seed, nruns=nruns
+    )
+    pl = _assign_to_placement(hg, assign, n, capacity)
+    spans = SpanMaintainer(hg, pl, device=device)
+    used = ne
+    while used < n:
+        edge_ids = spans.residual_edges(1)
+        if len(edge_ids) == 0:
+            break
+        resid = hg.subhypergraph_edges(edge_ids)
+        dense_nodes = resid.k_densest_nodes(_cap_at(capacity, used))
+        if len(dense_nodes) == 0:
+            break
+        pl.member[used, dense_nodes] = True
+        spans.notify_items(dense_nodes)
+        used += 1
+    return pl
+
+
+# ------------------------------------------------------------- Algorithm 3: PRA
+def _hitting_set(sets: list[list[int]]) -> list[int]:
+    """Greedy hitting set: repeatedly take the element in the most sets
+    (ties -> lowest element id)."""
+    remaining = [set(s) for s in sets if s]
+    hit: list[int] = []
+    while remaining:
+        counts: dict[int, int] = {}
+        for s in remaining:
+            for x in s:
+                counts[x] = counts.get(x, 0) + 1
+        best = max(counts.items(), key=lambda kv: (kv[1], -kv[0]))[0]
+        hit.append(best)
+        remaining = [s for s in remaining if best not in s]
+    return hit
+
+
+def pra(
+    hg: Hypergraph, n: int, capacity: float, seed: int = 0, nruns: int = 2,
+    device="cuda", **_
+) -> Placement:
+    """Algorithm 3, Pre-Replication: score items by how often they are the
+    sole partition-local member of an edge, then clone high scorers across
+    the partitions their edges must visit anyway (greedy hitting sets), and
+    re-partition the rewired hypergraph.
+
+    Scores accumulate in edge-major CSR order; items are processed in
+    stable descending-score order (ties -> lowest item id); the hitting-set
+    greedy breaks ties to the lowest element id.  Host work only (the
+    per-edge covers are single queries); ``device`` is checked like every
+    entry point's."""
+    _resolve_device(device)
+    ne = _base_partitions(hg, capacity)
+    assign = hpa_mod.partition(
+        hg, ne, _cap_slice(capacity, 0, ne), seed=seed, nruns=nruns
+    )
+    pl0 = _assign_to_placement(hg, assign, ne, _cap_slice(capacity, 0, ne))
+
+    # score_v = #edges where v is the only member of its partition (line 4):
+    # a pin is "solo" iff its (edge, partition) pin-count is exactly 1
+    score = np.zeros(hg.num_nodes, dtype=np.float64)
+    if hg.num_pins:
+        pin_edge = np.repeat(
+            np.arange(hg.num_edges, dtype=np.int64), hg.edge_sizes()
+        )
+        pin_part = assign[hg.edge_nodes]
+        cnt = np.zeros((hg.num_edges, ne), dtype=np.int32)
+        np.add.at(cnt, (pin_edge, pin_part), 1)
+        solo = cnt[pin_edge, pin_part] == 1
+        score = np.bincount(
+            hg.edge_nodes[solo],
+            weights=hg.edge_weights[pin_edge[solo]],
+            minlength=hg.num_nodes,
+        )
+
+    budget = (float(capacity.sum()) if _is_cap_vec(capacity)
+              else n * capacity) - hg.total_node_weight()  # spare room
+    mutable = hg.copy_mutable()
+    origins = list(range(hg.num_nodes))  # origins[new_id] = original item id
+    node_ptr, node_edges = hg.incidence()
+    order = np.argsort(-score, kind="stable")
+    for v in order:
+        if budget < hg.node_weights[v] or score[v] <= 0:
+            continue
+        ev = node_edges[node_ptr[v]: node_ptr[v + 1]]
+        # spanning partitions of e \ {v}: copies of v are anchored to the
+        # partitions each edge must visit anyway for its other items
+        span_sets = []
+        for e in ev:
+            others = hg.edge(int(e))
+            others = others[others != v]
+            span_sets.append(
+                list(greedy_set_cover(others, pl0.member)) if len(others)
+                else []
+            )
+        hit = _hitting_set(span_sets)
+        if len(hit) <= 1:
+            continue
+        # original v serves the first hitting-set member; each further member
+        # gets a fresh copy, and edges spanned by it are rewired to that copy
+        copies = {hit[0]: int(v)}
+        for g in hit[1:]:
+            if budget < hg.node_weights[v]:
+                break
+            copies[g] = mutable.add_node_copy(int(v))
+            origins.append(int(v))
+            budget -= hg.node_weights[v]
+        for e, spans in zip(ev, span_sets):
+            for g in hit:
+                if g in spans and g in copies:
+                    mutable.replace_in_edge(int(e), int(v), copies[g])
+                    break
+    replicated = mutable.freeze()
+    final_assign = hpa_mod.partition(
+        replicated, n, capacity, seed=seed + 1, nruns=nruns
+    )
+    # map copies back onto original item ids
+    pl = Placement.empty(n, hg.num_nodes, capacity, hg.node_weights)
+    copy_origin = np.asarray(origins, dtype=np.int64)
+    for new_v in range(replicated.num_nodes):
+        pl.member[final_assign[new_v], copy_origin[new_v]] = True
+    return pl
 
 
 # ----------------------------------------------------- Algorithms 4+5: LMBR
@@ -1326,5 +1561,8 @@ def lmbr(
 ALGORITHMS: dict[str, Callable[..., Placement]] = {
     "random": random_placement,
     "hpa": hpa_placement,
+    "ihpa": ihpa,
+    "ds": ds,
+    "pra": pra,
     "lmbr": lmbr,
 }

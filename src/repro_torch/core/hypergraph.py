@@ -3,18 +3,20 @@
 Nodes are data items (possibly weighted); hyperedges are queries (possibly
 weighted by frequency).  Backed by CSR numpy arrays.  A copy of the JAX
 package's ``core/hypergraph.py`` cut down to what the placement pipeline
-reads; ``from_reference_arrays`` takes that package's arrays as they are.
+reads (the paper's algorithms 1-5 included); ``from_reference_arrays``
+takes that package's arrays as they are.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import heapq
 from typing import Iterable, Sequence
 
 import numpy as np
 
-__all__ = ["Hypergraph", "build_incidence", "canonicalize_csr", "csr_ranges",
-           "from_reference_arrays"]
+__all__ = ["Hypergraph", "MutableHypergraph", "build_incidence",
+           "canonicalize_csr", "csr_ranges", "from_reference_arrays"]
 
 
 def csr_ranges(ptr: np.ndarray, ids: np.ndarray):
@@ -168,6 +170,74 @@ class Hypergraph:
         ptr, idx = self.pin_indices(edge_ids)
         return ptr, self.edge_nodes[idx]
 
+    def subhypergraph_edges(self, edge_ids: np.ndarray) -> "Hypergraph":
+        """Keep the given hyperedges; node ids are preserved (no relabel)
+        and the node weights are shared with ``self``."""
+        edge_ids = np.asarray(edge_ids, dtype=np.int64)
+        ptr, nodes = self.edges_csr(edge_ids)
+        return Hypergraph(
+            ptr, nodes, self.node_weights, self.edge_weights[edge_ids]
+        )
+
+    def active_nodes(self) -> np.ndarray:
+        """Nodes with degree >= 1 (contained in at least one hyperedge)."""
+        return np.unique(self.edge_nodes)
+
+    def relabel(self) -> tuple["Hypergraph", np.ndarray]:
+        """Compact to active nodes.  Returns (new_graph, old_ids) where
+        old_ids[new_id] = original node id."""
+        old_ids = self.active_nodes()
+        remap = np.full(self.num_nodes, -1, dtype=np.int64)
+        remap[old_ids] = np.arange(len(old_ids))
+        g = Hypergraph(
+            self.edge_ptr.copy(),
+            remap[self.edge_nodes],
+            self.node_weights[old_ids].copy(),
+            self.edge_weights.copy(),
+        )
+        return g, old_ids
+
+    def k_densest_nodes(self, max_weight: float) -> np.ndarray:
+        """getKDensestNodes (paper §4.1): greedily peel the lowest-degree node
+        (ties -> lowest node id) until the total remaining node weight is
+        at most ``max_weight``.  Returns the surviving node ids."""
+        alive_nodes, _, _, _ = self._peel_to_weight(max_weight)
+        return np.flatnonzero(alive_nodes)
+
+    def prune_to_size(self, max_weight: float) -> "Hypergraph":
+        """pruneHypergraphToSize: the same peel; returns the hypergraph of
+        the edges whose every pin survived."""
+        _, alive_edges, _, _ = self._peel_to_weight(max_weight)
+        return self.subhypergraph_edges(np.flatnonzero(alive_edges))
+
+    def _peel_to_weight(self, max_weight: float):
+        """Heap peel on (weighted degree, node id): a node's death kills
+        each incident edge, which lowers its surviving pins' degrees."""
+        node_ptr, node_edges = self.incidence()
+        deg = self.degrees().astype(np.float64)
+        alive_nodes = np.zeros(self.num_nodes, dtype=bool)
+        active = self.active_nodes()
+        alive_nodes[active] = True
+        alive_edges = np.ones(self.num_edges, dtype=bool)
+        total_w = float(self.node_weights[alive_nodes].sum())
+        heap = [(deg[v], int(v)) for v in active]
+        heapq.heapify(heap)
+        while total_w > max_weight and heap:
+            d, v = heapq.heappop(heap)
+            if not alive_nodes[v] or d != deg[v]:
+                continue  # stale
+            alive_nodes[v] = False
+            total_w -= float(self.node_weights[v])
+            for e in node_edges[node_ptr[v]: node_ptr[v + 1]]:
+                if alive_edges[e]:
+                    alive_edges[e] = False
+                    w = self.edge_weights[e]
+                    for u in self.edge(int(e)):
+                        if alive_nodes[u]:
+                            deg[u] -= w
+                            heapq.heappush(heap, (deg[u], int(u)))
+        return alive_nodes, alive_edges, deg, total_w
+
     def equals(self, other: "Hypergraph") -> bool:
         """Exact structural equality: same CSR arrays, same weights."""
         return (
@@ -177,10 +247,53 @@ class Hypergraph:
             and np.array_equal(self.edge_weights, other.edge_weights)
         )
 
+    def copy_mutable(self) -> "MutableHypergraph":
+        return MutableHypergraph(
+            [list(self.edge(e)) for e in range(self.num_edges)],
+            list(self.node_weights),
+            list(self.edge_weights),
+        )
+
     def __repr__(self):
         return (
             f"Hypergraph(V={self.num_nodes}, E={self.num_edges}, "
             f"pins={self.num_pins}, density={self.density():.2f})"
+        )
+
+
+class MutableHypergraph:
+    """List-of-lists hypergraph used by PRA, which rewrites hyperedges while
+    replicating nodes (paper Algorithm 3)."""
+
+    def __init__(self, edges, node_weights, edge_weights):
+        self.edges = [list(e) for e in edges]
+        self.node_weights = list(node_weights)
+        self.edge_weights = list(edge_weights)
+
+    @property
+    def num_nodes(self):
+        return len(self.node_weights)
+
+    def add_node_copy(self, v: int) -> int:
+        """makeNewCopy: clone node v, return the new node id."""
+        self.node_weights.append(self.node_weights[v])
+        return len(self.node_weights) - 1
+
+    def replace_in_edge(self, e: int, old: int, new: int) -> bool:
+        """Rewire the first pin ``old`` of edge e to ``new``."""
+        edge = self.edges[e]
+        for i, u in enumerate(edge):
+            if u == old:
+                edge[i] = new
+                return True
+        return False
+
+    def freeze(self) -> Hypergraph:
+        return Hypergraph.from_edges(
+            self.edges,
+            num_nodes=self.num_nodes,
+            node_weights=np.asarray(self.node_weights),
+            edge_weights=np.asarray(self.edge_weights),
         )
 
 

@@ -104,6 +104,12 @@ class Placement:
     def num_items(self) -> int:
         return self.member.shape[1]
 
+    def partition_items(self, p: int) -> np.ndarray:
+        return np.flatnonzero(self.member[p])
+
+    def partition_weight(self, p: int) -> float:
+        return float(self.node_weights[self.member[p]].sum())
+
     def partition_weights(self) -> np.ndarray:
         return self.member @ self.node_weights
 
@@ -122,10 +128,19 @@ class Placement:
             return cap
         return np.full(self.num_partitions, float(cap))
 
+    def free_space(self, p: int) -> float:
+        return self.cap_of(p) - self.partition_weight(p)
+
     def replication_factor(self) -> float:
         placed = self.member.sum(axis=0)
         placed = placed[placed > 0]
         return float(placed.mean()) if len(placed) else 0.0
+
+    def copies_of(self, v: int) -> np.ndarray:
+        return np.flatnonzero(self.member[:, v])
+
+    def add(self, p: int, items) -> None:
+        self.member[p, np.asarray(items, dtype=np.int64)] = True
 
     def validate(self, tol: float = 1e-9) -> None:
         w = self.partition_weights()
@@ -481,20 +496,28 @@ def batched_spans_csr(edge_ptr: np.ndarray, edge_nodes: np.ndarray,
 
 # ======================================================== incremental spans
 class SpanMaintainer:
-    """Per-edge span cache over the batched engine.
+    """Per-edge span cache with dirty-set invalidation over the batched
+    engine.
+
+    Membership of an item only affects the covers of edges containing it,
+    so after `notify_items(touched)` recomputing just the incident (dirty)
+    edges reproduces a full sweep bit for bit.  Callers must notify every
+    item whose membership row changed (IHPA and DS do).
 
     With ``with_covers=True`` it also keeps every edge's replica selection
     in FLAT form — ``pin_parts`` holds, for every pin of the hypergraph's
     CSR, the partition that serves it, and ``chosen(e)`` the partitions of
     e's cover in greedy selection order.  ``refresh_edges`` re-derives an
-    explicit edge set in one batched cover; callers name every edge whose
-    cover may have changed (LMBR's move loop does)."""
+    explicit edge set in one batched cover and clears those edges' dirty
+    bits; LMBR's move loop names its edges this way instead of notifying
+    items."""
 
     def __init__(self, hg, placement: Placement, with_covers: bool = False,
                  device="cuda"):
         self.hg = hg
         self.placement = placement
         self.device = _resolve_device(device)
+        self._node_ptr, self._node_edges = hg.incidence()
         self._pin_part: np.ndarray | None = None  # (P,) serving partition
         self._chosen: list[np.ndarray] | None = None  # per edge, greedy order
         if with_covers:
@@ -510,6 +533,7 @@ class SpanMaintainer:
                 hg.edge_ptr, hg.edge_nodes, placement.member,
                 device=self.device,
             )
+        self._dirty = np.zeros(hg.num_edges, dtype=bool)
 
     @property
     def pin_parts(self) -> np.ndarray:
@@ -548,6 +572,38 @@ class SpanMaintainer:
             self._pin_part[pidx] = cov.pin_parts
             for i, e in enumerate(edge_ids):
                 self._chosen[int(e)] = cov.chosen(i).copy()
+        self._dirty[edge_ids] = False
+
+    def notify_items(self, items) -> None:
+        """Mark every edge incident to `items` dirty."""
+        items = np.asarray(items, dtype=np.int64)
+        if not len(items):
+            return
+        cnt = self._node_ptr[items + 1] - self._node_ptr[items]
+        total = int(cnt.sum())
+        if not total:
+            return
+        base = np.repeat(self._node_ptr[items], cnt)
+        off = np.arange(total, dtype=np.int64) - np.repeat(
+            np.concatenate([[0], np.cumsum(cnt[:-1])]), cnt
+        )
+        self._dirty[self._node_edges[base + off]] = True
 
     def spans(self) -> np.ndarray:
+        """Every edge's span, the dirty edges recomputed first."""
+        d = np.flatnonzero(self._dirty)
+        if len(d):
+            if self._pin_part is not None:
+                self.refresh_edges(d)  # keeps covers consistent with spans
+            else:
+                ptr, nodes = self.hg.edges_csr(d)
+                self._spans[d] = batched_spans_csr(
+                    ptr, nodes, self.placement.member, device=self.device
+                )
+            self._dirty[:] = False
         return self._spans
+
+    def residual_edges(self, min_span: int) -> np.ndarray:
+        """Edge ids with span > min_span (pruneHypergraphBySpan keeps
+        these)."""
+        return np.flatnonzero(self.spans() > min_span)

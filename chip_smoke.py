@@ -49,6 +49,12 @@ Phases, each printed on a line of its own:
                  for the packed argmin, and on a tie-heavy batch, where
                  the check must also reject ties broken to the highest
                  slot; its rows add ``device_ms`` and device us per round.
+                 cover_rounds is also checked at fig9's path bucket
+                 (14 027, 35, 1) and at each edge of its three classes
+                 (the C side's class must agree with ``rounds_class``), on
+                 tied best gains (the lowest id must win) and on queries
+                 that go bad after good rounds; its rows add
+                 ``device_ms``.
 3. fit-stress  — ``Simulator(64, 50).run(lmbr_stress_workload(seed=0), lmbr,
                  seed=0, max_moves=1200)`` on the card with the dense peel
                  and the span_gain kernel pinned; the summary and member
@@ -91,7 +97,8 @@ Phases, each printed on a line of its own:
 ``--profile`` runs each fit once more under torch.profiler and the
 package's tracer, and one serving batch (prefill, 8 decode steps) under
 torch.profiler, and prints where the time goes (for the fits also
-lockstep_peel's device time per launch and per peel round; for
+lockstep_peel's device time per launch and per peel round and
+cover_rounds' device time per launch; for
 paper-algos, fig9's IHPA fit with span_gain's and cover_rounds' device
 time per launch).
 
@@ -372,7 +379,7 @@ def phase_build(_build):
 def phase_kernels(np, torch, dev):
     from repro_torch import _build
     from repro_torch.kernels.cover_rounds.ops import (
-        cover_rounds, cover_rounds_plain)
+        cover_rounds, cover_rounds_plain, rounds_class)
     from repro_torch.kernels.lockstep_peel.ops import (
         lockstep_peel, lockstep_peel_plain, uses_shared_memory)
     from repro_torch.kernels.span_gain.ops import span_gains, span_gains_plain
@@ -399,10 +406,30 @@ def phase_kernels(np, torch, dev):
                            bound_ms=bound, bound_by=by))
     rows["span_gain"] = dict(sg[2], shapes=sg)   # stress tier: N=64, W=1
 
-    # cover_rounds: the stress tier's full bucket (10 000 queries, N=64,
-    # W=1), plus a multi-word bucket and one over the shared-memory class
+    # cover_rounds: the class the C side picks agrees with ops.py at the
+    # class edges
+    lib = _build.lib()
+    classes = ("register", "shared", "global")
+    for N in (0, 1, 31, 32, 33, 64, 65, 128, 129, 255, 256, 257, 1024, 1025,
+              2048, 2049, 65536):
+        for W in (0, 1, 2, 3, 7, 8, 9, 32):
+            _require(rounds_class(N, W)
+                     == classes[lib.cover_rounds_class(N, W)],
+                     f"cover_rounds class of N={N} W={W}: ops.py and the "
+                     "source disagree")
+    # the stress tier's full bucket (10 000 queries, N 64, W 1), a
+    # multi-word bucket, one over the warp classes, fig9's path bucket
+    # (14 027 queries, N 35, W 1), then each class edge: the rows a lane
+    # holds in the register class (32 / 33, 64 / 65, 128 / 129, 256), the
+    # shared class past it (N 257 at W 1) up to 2048 words (N 2048 at W 1,
+    # N 256 at W 8), and one past that (global)
     cr = []
-    for B, N, W in ((10_000, 64, 1), (2_000, 35, 2), (64, 256, 32)):
+    cases = [(10_000, 64, 1), (2_000, 35, 2), (64, 256, 32), (14_027, 35, 1),
+             (4096, 32, 1), (4096, 33, 1), (4096, 65, 1), (4096, 128, 1),
+             (4096, 129, 1), (4096, 256, 1), (2048, 257, 1), (512, 2048, 1),
+             (512, 2049, 1), (1024, 256, 8), (1024, 257, 8), (1024, 40, 5),
+             (512, 16, 9)]
+    for i, (B, N, W) in enumerate(cases):
         c, r = _cover_inputs(np, torch, rng, B, N, W, dev)
         (ch, bad), (ch_p, bad_p) = cover_rounds(c, r), cover_rounds_plain(c, r)
         torch.cuda.synchronize()
@@ -414,11 +441,43 @@ def phase_kernels(np, torch, dev):
         nbytes = B * N * W * 8 + B * W * 8 + B * Rmax * 4 + B
         ops = float(spans.sum()) * N * (3 * W + 1)
         bound, by = _bound_ms(nbytes, ops)
-        cr.append(dict(shape=f"B{B}.N{N}.W{W}", max_abs_err=err,
+        times = _device_times(torch, lambda: cover_rounds(c, r), 50)
+        dev_ms = sum(t for k, t in times.items() if "cover_rounds" in k)
+        cr.append(dict(shape=f"B{B}.N{N}.W{W}", cls=rounds_class(N, W),
+                       max_abs_err=err,
                        ms=_cuda_ms(torch, lambda: cover_rounds(c, r), 50),
+                       device_ms=dev_ms if times else None,
                        plain_ms=_cuda_ms(
-                           torch, lambda: cover_rounds_plain(c, r), 3),
-                       bound_ms=bound, bound_by=by))
+                           torch, lambda: cover_rounds_plain(c, r), 3)
+                       if i < 4 else None,
+                       bound_ms=bound, bound_by=by,
+                       spans_max=int(spans.max())))
+    _require({row["cls"] for row in cr} == set(classes),
+             "a cover_rounds class was not exercised")
+    _require(cr[0]["cls"] == cr[3]["cls"] == "register",
+             "a path shape of cover_rounds left the register class")
+    # equal best gains: every query stores all its pins on two or more
+    # partitions (on one lane or on several); the lowest id must win, and
+    # the check must be able to see a highest-id rule
+    for B, N, W in ((4096, 35, 1), (4096, 256, 1), (1024, 100, 3),
+                    (64, 256, 32)):
+        c, r = _cover_inputs(np, torch, rng, B, N, W, dev)
+        tied = torch.from_numpy(rng.random((B, N)) < 4.0 / N).to(dev)
+        tied[:, 5] = tied[:, 37 % N] = True
+        c = torch.where(tied[:, :, None], r[:, None, :], c)
+        # every partition that stores all the pins (a few queries of the
+        # inputs already hold one)
+        tied = ((c & r[:, None, :]) == r[:, None, :]).all(dim=2)
+        (ch, bad), (ch_p, bad_p) = cover_rounds(c, r), cover_rounds_plain(c, r)
+        low = torch.argmax(tied.int(), dim=1).int()
+        high = N - 1 - torch.argmax(tied.flip(1).int(), dim=1).int()
+        _require(torch.equal(ch, ch_p) and torch.equal(bad, bad_p),
+                 f"cover_rounds ties B={B} N={N} W={W}: kernel and plain "
+                 "version differ")
+        _require(torch.equal(ch[:, 0], low) and bool((ch[:, 1] == -1).all()),
+                 f"cover_rounds ties N={N} W={W}: not the lowest id")
+        _require(bool((high != low).all()), "tie check cannot see a "
+                 "highest-id rule")
     # an uncoverable query is flagged, the others still resolve
     c, r = _cover_inputs(np, torch, rng, 8, 16, 1, dev)
     c[3] = 0
@@ -426,11 +485,25 @@ def phase_kernels(np, torch, dev):
     _require(bad.tolist() == bad_p.tolist() and bool(bad[3])
              and int(bad.sum()) == 1, "bad flag mismatch")
     _require(torch.equal(ch, ch_p), "cover_rounds bad-row chosen mismatch")
+    # queries that go bad after good rounds (pin 0 stored nowhere) keep
+    # their earlier choices, in every class; a spoiled query that uses all
+    # N partitions first ends at Rmax, not bad, as in the reference
+    for B, N, W in ((14_027, 35, 1), (2_000, 35, 2), (64, 256, 32)):
+        c, r = _cover_inputs(np, torch, rng, B, N, W, dev)
+        spoil = torch.from_numpy(rng.random(B) < 0.05).to(dev)
+        c[:, :, 0] = torch.where(spoil[:, None], c[:, :, 0] & ~1, c[:, :, 0])
+        (ch, bad), (ch_p, bad_p) = cover_rounds(c, r), cover_rounds_plain(c, r)
+        _require(torch.equal(bad, bad_p) and bool(bad.any())
+                 and not bool((bad & ~spoil).any()),
+                 f"cover_rounds late-bad B={B} N={N} W={W}: bad flags")
+        _require(torch.equal(ch, ch_p),
+                 f"cover_rounds late-bad B={B} N={N} W={W}: chosen mismatch")
+        _require(bool((ch[bad, 0] >= 0).any()),
+                 "no query went bad after a good round")
     rows["cover_rounds"] = dict(cr[0], shapes=cr)
 
     # lockstep_peel: the size class the C side picks agrees with ops.py at
     # the class edges
-    lib = _build.lib()
     for K in (0, 1, 31, 32, 33, 255, 256, 257, 1024, 8192, 65536):
         for U in (1, 31, 32, 33, 255, 256, 257, 512):
             _require(uses_shared_memory(K, U)
@@ -1229,9 +1302,9 @@ def phase_fit(np, torch, kernels, label, hg, n, capacity, max_moves,
 def phase_profile(torch, label, hg, n, capacity, max_moves, peel_rounds):
     """The fit of ``phase_fit`` once more under torch.profiler and the
     package tracer: host-side split (HPA, LMBR move loop, replay), the
-    device's busy time by kernel, and lockstep_peel's device time per peel
-    round (``peel_rounds`` from ``phase_fit``'s run of the same fit).
-    Numbers are under the profiler."""
+    device's busy time by kernel, lockstep_peel's device time per peel
+    round (``peel_rounds`` from ``phase_fit``'s run of the same fit) and
+    cover_rounds' device ms per launch.  Numbers are under the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1273,6 +1346,7 @@ def phase_profile(torch, label, hg, n, capacity, max_moves, peel_rounds):
               f"rounds={peel_rounds} device_us_per_round="
               + (f"{peel_ms * 1e3 / peel_rounds:.4f}" if peel_rounds
                  else "not_measured"), flush=True)
+    _print_kernel_device_ms(rows, f"profile {label}", "cover_rounds")
 
 
 def _paper_kernels_required(workload: str, name: str) -> set:
@@ -1400,16 +1474,21 @@ def phase_paper_profile(torch, hg, n, capacity, name):
         print(f"  {e.key[:70]!r} count={e.count} "
               f"device_ms={e.self_device_time_total / 1e3:.3f}")
     for kernel in ("span_gain", "cover_rounds"):
-        hits = [e for e in rows if kernel in e.key]
-        if hits:
-            ms = sum(e.self_device_time_total for e in hits) / 1e3
-            count = sum(e.count for e in hits)
-            print(f"profile {label} {kernel}: device_ms={ms:.4f} "
-                  f"count={count} device_ms_per_launch={ms / count:.5f}",
-                  flush=True)
-        else:
-            print(f"profile {label} {kernel}: not measured (no launch "
-                  "under the profiler)", flush=True)
+        _print_kernel_device_ms(rows, f"profile {label}", kernel)
+
+
+def _print_kernel_device_ms(rows, label: str, kernel: str) -> None:
+    """One kernel's device ms in all and per launch, from the profiler's
+    device rows of a profiled run."""
+    hits = [e for e in rows if kernel in e.key]
+    if hits:
+        ms = sum(e.self_device_time_total for e in hits) / 1e3
+        count = sum(e.count for e in hits)
+        print(f"{label} {kernel}: device_ms={ms:.4f} count={count} "
+              f"device_ms_per_launch={ms / count:.5f}", flush=True)
+    else:
+        print(f"{label} {kernel}: not measured (no launch under the "
+              "profiler)", flush=True)
 
 
 def main(argv=None) -> int:

@@ -42,6 +42,7 @@ _SIGNATURES = {
     # name: (argtypes, restype)
     "span_gain_launch": ([_P, _P, _P, _LL, _I, _I, _I, _P], _I),
     "cover_rounds_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "cover_rounds_class": ([_I, _I], _I),
     "lockstep_peel_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _P], _I),
     "lockstep_peel_uses_shared_memory": ([_I, _I], _I),

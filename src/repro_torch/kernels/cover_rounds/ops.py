@@ -12,6 +12,9 @@ bucket on the host loop, which raises the canonical error.
 * ``cover_rounds`` — the wrapper: plain version for CPU tensors, the CUDA
   kernel (``csrc/cover_rounds.cu``) for CUDA tensors.
   ``cover_rounds.launches`` counts kernel launches.
+* ``rounds_class`` — the class the kernel runs a bucket's (N, W) in
+  (``"register"``, ``"shared"`` or ``"global"``); the C side chooses, this
+  mirrors its test.
 
 Both return ``ch`` (B, Rmax) int32, -1 past each query's last round, with
 ``Rmax = min(N, 64 W)``, and ``bad`` (B,) bool.
@@ -25,12 +28,29 @@ from ... import _build
 from .. import check_same_device, launch_args
 from ..span_gain.ops import span_gains_plain
 
-__all__ = ["cover_rounds", "cover_rounds_plain", "max_rounds"]
+__all__ = ["cover_rounds", "cover_rounds_plain", "max_rounds",
+           "rounds_class"]
+
+# the kernel's classes: one warp per query with the rows in registers (W 1,
+# N <= 256) or in shared memory (W <= 8, N W <= 2048 words); one block per
+# query reading global memory otherwise
+REGISTER_MAX_N = 256
+SHARED_MAX_W = 8
+SHARED_MAX_WORDS = 2048
 
 
 def max_rounds(N: int, W: int) -> int:
     """Round bound of a bucket: each round covers at least one pin."""
     return min(N, 64 * W)
+
+
+def rounds_class(N: int, W: int) -> str:
+    """The class ``csrc/cover_rounds.cu`` runs an (N, W) bucket in."""
+    if W == 1 and 0 <= N <= REGISTER_MAX_N:
+        return "register"
+    if 1 <= W <= SHARED_MAX_W and 0 <= N and N * W <= SHARED_MAX_WORDS:
+        return "shared"
+    return "global"
 
 
 def cover_rounds_plain(codes: torch.Tensor, rem: torch.Tensor):

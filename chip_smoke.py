@@ -81,14 +81,35 @@ Phases, each printed on a line of its own:
                  lmbr run.  The line
                  gives each run's launches and the (B, N, W) of every
                  cover_rounds launch.
-6. serve       — ``repro_torch.launch.serve`` on hymba-1.5b at full width
+6. placement-api — the production API, the fixed-RF algorithms and the
+                 bridges through the port's entry points at full size,
+                 each run on the card and again at ``device="cpu"`` (each
+                 inside its own partition memo), held against its CPU twin
+                 and the JAX package's values (``API_HELD``, pinned by a
+                 CPU test): ``PlacementService("lmbr").fit`` of fig8's
+                 TPC-H-heterogeneous workload (2 000 items, 4 000
+                 queries) on 45 partitions of 100 GB with a random
+                 ``NodeProfile`` and ``durability_eps=0.05``, then its
+                 avg_span on cover_rounds; ``refit`` on the seed-1 trace
+                 under ``nodecost0.5`` with partitions 3 and 17 masked
+                 (no copy may land there, the old plan must stay inside
+                 the new one); ``fit_hierarchical`` at 4 pods x 10 hosts;
+                 ``Simulator(60, 50).compare`` of the four 3-way
+                 algorithms at fig. 6(f)-(h)'s paper point; an expert plan
+                 for DeepSeek-V3's 256 experts, top-8, on 32 ranks x 9
+                 slots against the contiguous layout; a pra3 shard plan
+                 (1 000 shards, 2 000 recipes, 48 hosts, capacity 80)
+                 whose spans run once more on the span engine.  Each run
+                 must launch the kernels ``API_RUNS`` names; the line
+                 gives its held values, walls and launches.
+7. serve       — ``repro_torch.launch.serve`` on hymba-1.5b at full width
                  and depth (32 layers, bf16, random weights from seed 0):
                  16 requests in batches of 8, prompt 2048, 64 greedy decode
                  steps; finite logits, prefill tokens/s, decode ms/step,
                  peak memory, and each model kernel's launch count, which
                  must be 32 x 2 (flash, ssd) and 32 x 64 x 2 (decode), every
                  flash launch on the tensor-core (wgmma) instance.
-7. serve-check — hymba-1.5b at full width and 4 layers (global, window,
+8. serve-check — hymba-1.5b at full width and 4 layers (global, window,
                  window, global) in f32 with TF32 off, prompt 1536: the
                  kernel route against the plain route on the card (logits
                  within 1e-3) and teacher-forced decode after prefill
@@ -100,7 +121,9 @@ torch.profiler, and prints where the time goes (for the fits also
 lockstep_peel's device time per launch and per peel round and
 cover_rounds' device time per launch; for
 paper-algos, fig9's IHPA fit with span_gain's and cover_rounds' device
-time per launch).
+time per launch; for placement-api, service-fit split into HPA, the LMBR
+move loop, the durability pass and the plan's spans, with each placement
+kernel's device time per launch).
 
 Then: the card's name and power limit (nvidia-smi), one JSON line with
 every kernel's numbers, and the device line.  Any failed check raises and
@@ -126,7 +149,7 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12       # H100 SXM non-tensor fp32, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores, data sheet
 PHASES = ("build", "kernels", "fit-stress", "fit-paper", "paper-algos",
-          "serve", "serve-check")
+          "placement-api", "serve", "serve-check")
 PAPER_NODES = 69429          # ibm10, the largest fig9 circuit
 # paper-algos: the workloads (generator, arguments) and the runs (workload,
 # partitions, capacity, algorithm, extra arguments, avg_span of the JAX
@@ -156,6 +179,59 @@ PAPER_RUNS = (
 )
 # summary keys that record wall time or which backend ran
 BACKEND_KEYS = {"placement_s", "fit_peel", "fit_cover_engine"}
+# placement-api: the runs in order, each with its flag variant, the
+# kernels it must launch (at least that many times) and the values it
+# holds; every held value is what the JAX package gives for the same call
+# on the CPU (tests/test_torch_chip_smoke_constants.py recomputes them)
+API_RUNS = {
+    "service-fit": ("peeldevice+spandevice",
+                    {"span_gain": 1, "lockstep_peel": 1, "cover_rounds": 1}),
+    "service-refit": ("peeldevice+spandevice+nodecost0.5",
+                      {"span_gain": 1, "lockstep_peel": 1}),
+    "service-hier": ("peeldevice+spandevice",
+                     {"span_gain": 1, "lockstep_peel": 1}),
+    # the replay bucket (4 000 queries x 60 partitions x 1 word) is above
+    # span_round_threshold, so every replay goes whole to cover_rounds
+    "three-way": ("spandevice", {"cover_rounds": 4}),
+    "experts": ("peeldevice+spandevice",
+                {"span_gain": 1, "lockstep_peel": 1}),
+    "shards": ("spandevice", {"span_gain": 1}),
+}
+API_HELD = {
+    "service-fit": dict(
+        json_sha256="7e52dceb1dcb13a614e4720e5cc2813b"
+                    "6142c57367233846cdcd3477291c6686",
+        durability_copies=753, avg_span=1.00725),
+    "service-refit": dict(
+        json_sha256="835ee1bafb7f1f57abed46a5cf32f56f"
+                    "6b1b1639ecb986c9a24528f2cd367d21",
+        copies_added=169, avg_span_before=1.0895, avg_span_after=1.0685),
+    "service-hier": dict(
+        host_member_sha256="5b61d8000746f6520bdb777ea5d3ac22"
+                           "1d9c3cbb82f9b04db849ad7f71a5bf36",
+        mean_pod_span=1.0, mean_host_span=1.00825,
+        mean_weighted_span=0.00825),
+    "three-way": {
+        "random3": dict(avg_span=5.036, member_sha256=(
+            "ce9dfd3b451941d0c2ccf938f7b77db866f3ab852fdda3497c57ff4fd5d1c795")),
+        "sda": dict(avg_span=4.30875, member_sha256=(
+            "54548a69f494038c4be9bb0d92608eb4cd2076eb30203f79d539e83371715981")),
+        "ihpa3": dict(avg_span=4.0025, member_sha256=(
+            "22deb3ae0477c057f832917edc31f021164ea94344c8ab90902da70f6b6dd746")),
+        "pra3": dict(avg_span=4.1935, member_sha256=(
+            "18c8a0c137d4e8082b7bb5503d803eff0ccbd2704a37b65969911d2f3f436570")),
+    },
+    "experts": dict(
+        member_sha256="3782656412f3e2f54eca33c6429c7425"
+                      "18b536839c8b8202fc118bf3a0c7eb4e",
+        tables_sha256="313b97ea0901d430e585e040188e8488"
+                      "2c665eb0e240d3980d9bf450b84755b2",
+        avg_span=4.028564453125, baseline_avg_span=7.18115234375),
+    "shards": dict(
+        member_sha256="a2edc84e8f2d2b7d8e6b7b485ef316df"
+                      "d458ae160a1994686fc954e9abd6e830",
+        survives_2_failures=True, avg_span=1.1255),
+}
 
 
 def _bound_ms(nbytes: float, ops: float,
@@ -1477,6 +1553,235 @@ def phase_paper_profile(torch, hg, n, capacity, name):
         _print_kernel_device_ms(rows, f"profile {label}", kernel)
 
 
+def _sha256(data) -> str:
+    import hashlib
+
+    if isinstance(data, str):
+        data = data.encode()
+    return hashlib.sha256(data).hexdigest()
+
+
+def api_inputs(np):
+    """The placement-api runs' inputs, made by the port's generators:
+    fig8's TPC-H-heterogeneous workload at its largest N (2 000 items,
+    4 000 queries, seeds 0 and 1), a 45-partition profile of 100 GB nodes,
+    the refit's mask of partitions 3 and 17, fig. 6(f)-(h)'s 3-way paper
+    point, DeepSeek-V3's routing trace and the shard recipes."""
+    from repro_torch import core
+
+    rng = np.random.default_rng(0)
+    profile = core.NodeProfile(
+        capacity=np.full(45, 100.0), fail_prob=rng.uniform(0.01, 0.1, 45),
+        power_idle=100.0, power_active=300.0,
+        access_cost=rng.uniform(0, 1, 45))
+    mask = np.ones(45, dtype=bool)
+    mask[[3, 17]] = False
+    return dict(
+        tpch=core.tpch_heterogeneous(num_items=2000, num_queries=4000,
+                                     seed=0).queries,
+        tpch1=core.tpch_heterogeneous(num_items=2000, num_queries=4000,
+                                      seed=1).queries,
+        profile=profile, mask=mask,
+        fig6=core.random_workload(1000, 4000, 3, 11, 20,
+                                  seed=0).hypergraph,
+        trace=core.synthetic_routing_trace(256, 4096, top_k=8, seed=0),
+        recipes=core.mixture_batch_recipes(1000, 2000, seed=0),
+    )
+
+
+def api_run(np, name, inp, device, state):
+    """One placement-api run on ``device`` through the port's entry
+    points; returns the values it holds.  ``state`` carries the fitted
+    plan from service-fit to service-refit and each run's results."""
+    from repro_torch import core, flags
+
+    svc = core.PlacementService("lmbr", seed=0, device=device)
+    if name == "service-fit":
+        plan = svc.fit(inp["tpch"], 2000, 45, profile=inp["profile"],
+                       durability_eps=0.05)
+        state["plan"] = plan
+        flags.set_variant("spanrounddevice")
+        return dict(json_sha256=_sha256(plan.to_json()),
+                    durability_copies=plan.stats["durability_copies"],
+                    avg_span=plan.avg_span(inp["tpch"]))
+    if name == "service-refit":
+        old = state["plan"]
+        new = svc.refit(old, inp["tpch1"], max_moves=64,
+                        dest_mask=inp["mask"], profile=inp["profile"])
+        added = new.member & ~old.member
+        _require(not added[~inp["mask"]].any(),
+                 "service-refit: a copy landed on a masked partition")
+        _require(bool((new.member | ~old.member).all()),
+                 "service-refit: the old plan is not inside the new one")
+        return dict(json_sha256=_sha256(new.to_json()),
+                    copies_added=int(added.sum()),
+                    avg_span_before=old.avg_span(inp["tpch1"]),
+                    avg_span_after=new.avg_span(inp["tpch1"]))
+    if name == "service-hier":
+        plan = svc.fit_hierarchical(inp["tpch"], 2000, num_pods=4,
+                                    hosts_per_pod=10, host_capacity=100.0)
+        spans = np.array([plan.spans(q) for q in inp["tpch"]])
+        weighted = [plan.weighted_span(q) for q in inp["tpch"]]
+        return dict(host_member_sha256=_sha256(plan.host_member.tobytes()),
+                    mean_pod_span=float(spans[:, 0].mean()),
+                    mean_host_span=float(spans[:, 1].mean()),
+                    mean_weighted_span=float(np.mean(weighted)))
+    if name == "three-way":
+        hg = inp["fig6"]
+        n = 3 * core.min_partitions(hg, 50)
+        res = core.Simulator(n, 50, device=device).compare(
+            hg, core.THREE_WAY_ALGORITHMS, seed=0)
+        state["three-way"] = res
+        return {algo: dict(avg_span=r.avg_span,
+                           member_sha256=_sha256(r.member.tobytes()))
+                for algo, r in res.items()}
+    if name == "experts":
+        trace = inp["trace"]
+        plan = core.plan_expert_placement(trace, 256, 32, slots_per_rank=9,
+                                          algorithm="lmbr", seed=0,
+                                          device=device)
+        base = core.baseline_contiguous_placement(256, 32, 9)
+        return dict(member_sha256=_sha256(plan.member.tobytes()),
+                    tables_sha256=_sha256(plan.slot_to_expert.tobytes()
+                                          + plan.expert_slot_table.tobytes()),
+                    avg_span=plan.avg_span(trace),
+                    baseline_avg_span=base.avg_span(trace))
+    if name == "shards":
+        recipes = inp["recipes"]
+        plan = core.plan_shard_placement(recipes, 1000, 48, capacity=80,
+                                         algorithm="pra3", device=device)
+        # the plan's spans once more through the span engine on ``device``
+        spans = core.spans_for_workload(
+            core.Hypergraph.from_edges(recipes, num_nodes=1000),
+            core.Placement.from_member(plan.member, 80.0), device=device)
+        _require(float(spans.mean()) == plan.avg_span(recipes),
+                 "shards: the engine's spans differ from the plan's")
+        return dict(member_sha256=_sha256(plan.member.tobytes()),
+                    survives_2_failures=plan.survives_failures(2),
+                    avg_span=float(spans.mean()))
+    raise ValueError(f"unknown placement-api run {name!r}")
+
+
+def phase_placement_api(np, torch, kernels, inp):
+    """Every run of ``API_RUNS`` on the card, each inside its own
+    partition memo, held against the same call on the CPU (also in its
+    own memo) and against ``API_HELD``; each must launch the kernels
+    ``API_RUNS`` names."""
+    from repro_torch import core, flags
+
+    dev_state, cpu_state, runs = {}, {}, []
+    for name, (variant, need) in API_RUNS.items():
+        label = f"placement-api {name}"
+        flags.set_variant(variant)
+        _zero_counts(kernels)
+        t0 = time.perf_counter()
+        with core.fresh_partition_cache():
+            held = api_run(np, name, inp, "cuda", dev_state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts(kernels)
+        flags.set_variant(variant)
+        t0 = time.perf_counter()
+        with core.fresh_partition_cache():
+            cpu_held = api_run(np, name, inp, "cpu", cpu_state)
+        cpu_wall = time.perf_counter() - t0
+        flags.reset()
+        _require(held == cpu_held,
+                 f"{label}: {held} differs from the CPU run's {cpu_held}")
+        _require(held == API_HELD[name],
+                 f"{label}: {held} is not the reference's {API_HELD[name]}")
+        if name == "three-way":
+            for algo in held:
+                _compare(np, dev_state[name][algo], cpu_state[name][algo],
+                         f"{label} {algo}")
+        for kernel, least in need.items():
+            _require(launches[kernel] >= least,
+                     f"{label}: kernel {kernel} launched {launches[kernel]} "
+                     f"times, fewer than {least}")
+        print(f"{label}: {json.dumps(held)} wall_s={wall:.3f} "
+              f"cpu_wall_s={cpu_wall:.3f} cpu_match=bitwise "
+              f"reference_match=exact launches={launches}", flush=True)
+        runs.append(dict(name=name, launches=launches, wall=wall,
+                         cpu_wall=cpu_wall))
+    return runs
+
+
+def phase_api_profile(torch, inp):
+    """service-fit once more under torch.profiler and the package tracer:
+    host split (HPA, the LMBR move loop, the durability pass, the plan's
+    spans), the device's busy time and each placement kernel's device ms
+    per launch.  Numbers are under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import core, flags, obs
+    from repro_torch.core import placement_service
+
+    timed = {"durability": 0.0}
+    originals = (placement_service.ensure_durability,
+                 placement_service.validate_durability)
+
+    def clocked(fn):
+        def run(*args):
+            t = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                timed["durability"] += time.perf_counter() - t
+        return run
+
+    flags.set_variant("peeldevice+spandevice+obstrace")
+    obs.reset()
+    placement_service.ensure_durability = clocked(originals[0])
+    placement_service.validate_durability = clocked(originals[1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            with core.fresh_partition_cache():
+                plan = core.PlacementService("lmbr", seed=0).fit(
+                    inp["tpch"], 2000, 45, profile=inp["profile"],
+                    durability_eps=0.05)
+            torch.cuda.synchronize()
+            fit_wall = time.perf_counter() - t1
+            flags.FLAGS["span_round_backend"] = "device"
+            t1 = time.perf_counter()
+            plan.avg_span(inp["tpch"])
+            torch.cuda.synchronize()
+            spans_s = time.perf_counter() - t1
+    finally:
+        (placement_service.ensure_durability,
+         placement_service.validate_durability) = originals
+    wall = time.perf_counter() - t0
+    host = {key: sum(e["dur"] for e in obs.tracer().spans(key)) / 1e6
+            for key in ("service.fit", "fit.hpa", "fit.lmbr")}
+    flags.reset()
+    obs.reset()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    label = "profile placement-api service-fit"
+    # the wall also holds the profiler's start and teardown; the fit and
+    # the spans are what the host clock and the traced spans time
+    print(f"{label}: wall_s={wall:.3f} fit_wall_s={fit_wall:.3f} "
+          f"algorithm_s={host['service.fit']:.3f} "
+          f"hpa_s={host['fit.hpa']:.3f} "
+          f"lmbr_loop_s={host['fit.lmbr'] - host['fit.hpa']:.3f} "
+          f"durability_s={timed['durability']:.3f} spans_s={spans_s:.3f} "
+          f"device_busy_s={busy:.4f} device_idle_share={1 - busy / wall:.4f} "
+          f"device_idle_share_of_fit_spans="
+          f"{1 - busy / (fit_wall + spans_s):.4f}"
+          if rows else f"{label}: wall_s={wall:.3f} device time not "
+          "measured (the profiler saw no device activity)", flush=True)
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.key[:70]!r} count={e.count} "
+              f"device_ms={e.self_device_time_total / 1e3:.3f}")
+    for kernel in ("span_gain", "lockstep_peel", "cover_rounds"):
+        _print_kernel_device_ms(rows, label, kernel)
+
+
 def _print_kernel_device_ms(rows, label: str, kernel: str) -> None:
     """One kernel's device ms in all and per launch, from the profiler's
     device rows of a profiled run."""
@@ -1586,6 +1891,14 @@ def main(argv=None) -> int:
             for name in fit_kernels}
         if args.profile:
             phase_paper_profile(torch, graphs["fig9-ibm01"], 35, 638, "ihpa")
+    if "placement-api" in phases:
+        inp = api_inputs(np)
+        api_runs = phase_placement_api(np, torch, fit_kernels, inp)
+        path_launches["placement-api"] = {
+            name: sum(r["launches"][name] for r in api_runs)
+            for name in fit_kernels}
+        if args.profile:
+            phase_api_profile(torch, inp)
     if "serve" in phases:
         served = phase_serve(torch, kernels, dev)
         launches.update({n: served["launches"][n] for n in model_kernels})

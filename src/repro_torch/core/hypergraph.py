@@ -140,12 +140,22 @@ class Hypergraph:
     def density(self) -> float:
         return self.num_edges / max(self.num_nodes, 1)
 
+    def avg_items_per_query(self) -> float:
+        """avgDataItemsPerQuery subroutine (paper §4.1)."""
+        if self.num_edges == 0:
+            return 0.0
+        return float(self.edge_sizes().mean())
+
     def incidence(self):
         if self._node_ptr is None:
             self._node_ptr, self._node_edges = build_incidence(
                 self.edge_ptr, self.edge_nodes, self.num_nodes
             )
         return self._node_ptr, self._node_edges
+
+    def node_edges_of(self, v: int) -> np.ndarray:
+        node_ptr, node_edges = self.incidence()
+        return node_edges[node_ptr[v] : node_ptr[v + 1]]
 
     def degrees(self, edge_mask: np.ndarray | None = None) -> np.ndarray:
         """Weighted degree of every node (sum of incident edge weights)."""

@@ -43,9 +43,12 @@ from ..kernels.span_gain.ops import span_gains
 from .cluster import normalize_capacity
 
 __all__ = [
+    "queries_to_csr",
     "Placement",
     "greedy_set_cover",
     "cover_for_query",
+    "query_span",
+    "spans_for_workload",
     "WorkloadCover",
     "batched_cover_csr",
     "batched_spans_csr",
@@ -54,6 +57,18 @@ __all__ = [
 ]
 
 _WORD = 64
+
+
+def queries_to_csr(queries) -> "tuple[np.ndarray, np.ndarray]":
+    """CSR (ptr, nodes) of a list of queries (each an int sequence).  Pure
+    packing: callers wanting set semantics deduplicate first."""
+    lists = [np.asarray(q, dtype=np.int64) for q in queries]
+    ptr = np.zeros(len(lists) + 1, dtype=np.int64)
+    ptr[1:] = np.cumsum([len(q) for q in lists])
+    nodes = (
+        np.concatenate(lists) if lists else np.zeros(0, dtype=np.int64)
+    )
+    return ptr, nodes
 
 
 @dataclasses.dataclass
@@ -142,6 +157,22 @@ class Placement:
     def add(self, p: int, items) -> None:
         self.member[p, np.asarray(items, dtype=np.int64)] = True
 
+    def add_partition(self, capacity: float | None = None) -> int:
+        """Append an empty partition (capacity: the given one, else the
+        smallest row's for a vector, else the scalar); returns its id."""
+        self.member = np.vstack(
+            [self.member, np.zeros((1, self.num_items), dtype=bool)]
+        )
+        cap = self.capacity
+        if isinstance(cap, np.ndarray) and cap.ndim:
+            new_cap = float(np.min(cap)) if capacity is None else float(capacity)
+            self.capacity = np.append(cap, new_cap)
+        elif capacity is not None and float(capacity) != float(cap):
+            self.capacity = np.append(
+                np.full(self.num_partitions - 1, float(cap)), float(capacity)
+            )
+        return self.num_partitions - 1
+
     def validate(self, tol: float = 1e-9) -> None:
         w = self.partition_weights()
         if (w > self.capacity + tol).any():
@@ -196,6 +227,12 @@ def cover_for_query(query: np.ndarray, member: np.ndarray):
         accessed.append(query[newly])
         remaining &= ~newly
     return chosen, accessed
+
+
+def query_span(query: np.ndarray, member: np.ndarray) -> int:
+    """getQuerySpan: size of the greedy cover (the selection of
+    `greedy_set_cover`)."""
+    return len(greedy_set_cover(query, member))
 
 
 # ===================================================================== engine
@@ -492,6 +529,13 @@ def batched_spans_csr(edge_ptr: np.ndarray, edge_nodes: np.ndarray,
     """Spans only; element-wise equal to the per-query greedy cover size."""
     return batched_cover_csr(edge_ptr, edge_nodes, member,
                              device=device).spans
+
+
+def spans_for_workload(hg, placement: Placement, device="cuda") -> np.ndarray:
+    """Span of every hyperedge in `hg` under `placement` (batched engine on
+    ``device``, bit-identical to the per-query reference)."""
+    return batched_spans_csr(hg.edge_ptr, hg.edge_nodes, placement.member,
+                             device=device)
 
 
 # ======================================================== incremental spans

@@ -212,3 +212,14 @@ class Simulator:
             cluster_power_w=self.energy.cluster_power(loads, self.profile),
             member=pl.member,
         )
+
+    def compare(
+        self, hg: Hypergraph, algorithms: dict[str, Callable[..., Placement]],
+        **kw,
+    ) -> dict[str, SimulationResult]:
+        """`run` of every algorithm of ``algorithms`` (name -> fitter) on
+        ``hg``, in the mapping's order."""
+        return {
+            name: self.run(hg, fn, name=name, **kw)
+            for name, fn in algorithms.items()
+        }

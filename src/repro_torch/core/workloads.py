@@ -2,6 +2,9 @@
 
   * random_workload      — queries are connected subgraphs of a random
     data-item graph of given density (the paper's Random dataset);
+  * snowflake_workload   — the data-item graph is a tree mimicking a
+    star/snowflake SQL schema; queries are connected subgraphs;
+  * tpch_heterogeneous   — snowflake with TPC-H-skewed item sizes (fig. 8);
   * lmbr_stress_workload — the LMBR stress tier (2 500 items, 10 000
     queries, density 12, 64 partitions);
   * ispd_like_workload   — sparse hypergraphs matching ISPD98 statistics
@@ -20,9 +23,15 @@ import numpy as np
 from .hypergraph import Hypergraph
 
 __all__ = [
-    "Workload", "random_workload", "ispd_like_workload",
-    "lmbr_stress_workload", "LMBR_STRESS_DEFAULTS",
+    "Workload", "random_workload", "snowflake_workload",
+    "ispd_like_workload", "tpch_heterogeneous", "lmbr_stress_workload",
+    "PAPER_DEFAULTS", "LMBR_STRESS_DEFAULTS",
 ]
+
+PAPER_DEFAULTS = dict(
+    num_items=1000, min_query=3, max_query=11, num_queries=4000,
+    capacity=50, num_partitions=40, density=20,
+)
 
 
 @dataclasses.dataclass
@@ -30,6 +39,10 @@ class Workload:
     hypergraph: Hypergraph
     name: str
     item_graph_edges: np.ndarray | None = None  # (M,2) underlying item graph
+
+    @property
+    def queries(self):
+        return [self.hypergraph.edge(e) for e in range(self.hypergraph.num_edges)]
 
 
 def _connected_subgraph_query(
@@ -83,6 +96,89 @@ def random_workload(
         queries.append(_connected_subgraph_query(adj, rng, size))
     hg = Hypergraph.from_edges(queries, num_nodes=num_items)
     return Workload(hg, f"random(d={density})", edges)
+
+
+def snowflake_workload(
+    levels: int = 3,
+    degree: int = 5,
+    attrs_per_table: int = 15,
+    num_items: int = 2000,
+    num_queries: int = 4000,
+    min_query: int = 3,
+    max_query: int = 11,
+    seed: int = 0,
+    item_weights: np.ndarray | None = None,
+) -> Workload:
+    """Tree-shaped data-item graph: tables form a tree (fan-out `degree`,
+    `levels` levels); each table contributes a key item plus attribute
+    items hanging off the key, attached round-robin.  Queries = connected
+    subgraphs (joins along the tree + attribute accesses).
+    ``attrs_per_table`` is accepted as the reference's is, and unused."""
+    rng = np.random.default_rng(seed)
+    edges = []
+    table_keys = [0]  # item 0 = root fact-table key
+    next_item = 1
+    frontier = [0]
+    level = 1
+    while next_item < num_items and level < levels:
+        new_frontier = []
+        for parent_key in frontier:
+            for _ in range(degree):
+                if next_item >= num_items:
+                    break
+                child_key = next_item
+                next_item += 1
+                edges.append((parent_key, child_key))  # join edge
+                table_keys.append(child_key)
+                new_frontier.append(child_key)
+        frontier = new_frontier
+        level += 1
+    ti = 0
+    while next_item < num_items:
+        edges.append((table_keys[ti % len(table_keys)], next_item))
+        next_item += 1
+        ti += 1
+    edges = np.asarray(edges, dtype=np.int64)
+    adj = _build_adj(num_items, edges)
+    queries = []
+    for _ in range(num_queries):
+        size = int(rng.integers(min_query, max_query + 1))
+        queries.append(_connected_subgraph_query(adj, rng, size))
+    hg = Hypergraph.from_edges(
+        queries, num_nodes=num_items, node_weights=item_weights
+    )
+    return Workload(hg, "snowflake", edges)
+
+
+def tpch_heterogeneous(
+    num_items: int = 2000,
+    num_queries: int = 4000,
+    scale_factor: int = 25,
+    seed: int = 0,
+    target_min_partitions: int = 20,
+    capacity: float = 100.0,
+    **kw,
+) -> Workload:
+    """Snowflake workload with TPC-H-skewed column sizes (fig. 8).
+
+    Log-uniform sizes between 25 KB and 28 GB (SF = 25) in GB, 15% large
+    fact-table columns and 85% small dimension columns, scaled so that
+    N_e == ``target_min_partitions`` at ``capacity`` (the skew ratio is
+    kept).  ``scale_factor`` only names the workload."""
+    rng = np.random.default_rng(seed + 1)
+    lo, hi = 25e-6, 28.0  # GB at SF=25
+    big = rng.uniform(np.log(1.0), np.log(hi), size=num_items)
+    small = rng.uniform(np.log(lo), np.log(0.5), size=num_items)
+    is_big = rng.random(num_items) < 0.15
+    weights = np.exp(np.where(is_big, big, small))
+    target_total = 0.97 * target_min_partitions * capacity
+    weights = weights * (target_total / weights.sum())
+    wl = snowflake_workload(
+        num_items=num_items, num_queries=num_queries, seed=seed,
+        item_weights=weights, **kw,
+    )
+    wl.name = f"tpch-hetero(sf={scale_factor})"
+    return wl
 
 
 LMBR_STRESS_DEFAULTS = dict(

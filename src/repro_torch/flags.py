@@ -19,6 +19,10 @@ Backend values:
 ``"device"`` means the CUDA kernel when the caller's device is a GPU and the
 kernel's plain PyTorch version when it is the CPU.  Every backend is
 bit-identical, so these are performance knobs only.
+
+``durability_eps`` (variant ``durab<eps>``) is the per-item loss ceiling
+``prod fail_prob <= eps`` that `PlacementService` fits meet by adding
+copies after the fit; 0.0 (the default) turns the pass off.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ _DEFAULTS = dict(
     lmbr_epochs="item",
     placement_objective="span",
     node_cost_weight=0.0,
+    durability_eps=0.0,
     obs_level="off",
 )
 
@@ -75,6 +80,11 @@ def set_variant(spec: str):
             FLAGS["lmbr_gain_cache"] = bool(int(part[len("lmbrcache"):]))
         elif part == "energy":
             FLAGS["placement_objective"] = "energy"
+        elif part.startswith("durab"):
+            eps = float(part[len("durab"):])
+            if eps < 0:
+                raise ValueError(f"durability_eps must be >= 0, got {eps}")
+            FLAGS["durability_eps"] = eps
         elif part.startswith("nodecost"):
             w = float(part[len("nodecost"):])
             if w < 0:

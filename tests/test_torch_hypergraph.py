@@ -111,3 +111,18 @@ def test_capacity_seam_identical(cap):
     ref_prof = ref_cluster.NodeProfile.homogeneous(3, 9.0)
     assert prof.capacity_arg() == ref_prof.capacity_arg()
     assert prof.is_homogeneous and ref_prof.is_homogeneous
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_query_size_and_incidence_helpers(seed):
+    want = ref_wl.random_workload(150, 300, min_query=1, max_query=9,
+                                  density=4, seed=seed).hypergraph
+    got = workloads.random_workload(150, 300, min_query=1, max_query=9,
+                                    density=4, seed=seed).hypergraph
+    assert got.avg_items_per_query() == want.avg_items_per_query()
+    for v in range(0, 150, 7):
+        a, b = got.node_edges_of(v), want.node_edges_of(v)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    empty = hypergraph.Hypergraph.from_edges([], num_nodes=3)
+    assert empty.avg_items_per_query() == ref_hg.Hypergraph.from_edges(
+        [], num_nodes=3).avg_items_per_query() == 0.0

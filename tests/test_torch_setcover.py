@@ -137,3 +137,39 @@ def test_from_member_copies_and_validates():
         pl.validate()
     with pytest.raises(ValueError):
         Placement.from_member(member, 5.0, [1, 2])
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_small_helpers_match_reference(seed):
+    from repro.core import setcover as ref_setcover
+    from repro_torch.core import queries_to_csr, query_span, spans_for_workload
+
+    ref, hg, member = _instance(seed, V=120, E=40, max_q=70)
+    queries = [hg.edge(e) for e in range(hg.num_edges)] + [[]]
+    got, want = queries_to_csr(queries), ref_setcover.queries_to_csr(queries)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    assert queries_to_csr([])[0].tolist() == [0]
+    for q in queries[:-1]:
+        assert query_span(q, member) == ref_setcover.query_span(q, member)
+    spans = spans_for_workload(hg, Placement.from_member(member, 1e9),
+                               device="cpu")
+    want = ref_setcover.spans_for_workload(ref, RefPlacement(member, 1e9,
+                                                             np.ones(120)))
+    assert spans.tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("capacity,extra", [
+    (50.0, None), (50.0, 50.0), (50.0, 20.0),
+    (np.array([40.0, 60.0, 80.0]), None),
+    (np.array([40.0, 60.0, 80.0]), 90.0),
+])
+def test_add_partition_matches_reference(capacity, extra):
+    member = np.eye(3, 5, dtype=bool)
+    got = Placement(member.copy(), capacity, np.ones(5))
+    want = RefPlacement(member.copy(), capacity, np.ones(5))
+    assert got.add_partition(extra) == want.add_partition(extra) == 3
+    assert got.member.tobytes() == want.member.tobytes()
+    assert type(got.capacity) is type(want.capacity)
+    assert np.array_equal(got.capacity, want.capacity)
+    assert got.capacity_vec.tolist() == want.capacity_vec.tolist()

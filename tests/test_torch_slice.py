@@ -176,3 +176,66 @@ def test_cuda_default_raises_without_cuda(monkeypatch):
     # an explicit CPU device still runs
     assert batched_cover_csr(port_hg.edge_ptr, port_hg.edge_nodes, member,
                              device="cpu").spans.max() == 1
+
+
+def _service_entry(device):
+    from repro_torch.core import PlacementService
+    return PlacementService("lmbr", device=device)
+
+
+def _three_way_entry(name):
+    def run(device):
+        from repro_torch.core import THREE_WAY_ALGORITHMS
+        hg = from_reference_arrays(*_small_graph_arrays())
+        return THREE_WAY_ALGORITHMS[name](hg, capacity=20.0, device=device)
+    return run
+
+
+def _small_graph_arrays():
+    hg = ref_random(30, 40, density=3, seed=0).hypergraph
+    return (hg.edge_ptr, hg.edge_nodes, hg.node_weights, hg.edge_weights,
+            hg.num_nodes)
+
+
+def _experts_entry(device):
+    from repro_torch.core import plan_expert_placement
+    trace = [np.array([0, 1, 2]), np.array([2, 3])]
+    return plan_expert_placement(trace, 8, 2, 5, device=device)
+
+
+def _shards_entry(device):
+    from repro_torch.core import plan_shard_placement
+    return plan_shard_placement([np.array([0, 1]), np.array([1, 2])], 6, 6,
+                                3.0, device=device)
+
+
+def _spans_entry(device):
+    from repro_torch.core import Placement, spans_for_workload
+    hg = from_reference_arrays(*_small_graph_arrays())
+    return spans_for_workload(
+        hg, Placement.from_member(np.ones((2, 30), dtype=bool), 1e9),
+        device=device)
+
+
+NEW_ENTRIES = {
+    "PlacementService": _service_entry,
+    "pra_3way": _three_way_entry("pra3"),
+    "sda": _three_way_entry("sda"),
+    "ihpa_3way": _three_way_entry("ihpa3"),
+    "random_3way": _three_way_entry("random3"),
+    "plan_expert_placement": _experts_entry,
+    "plan_shard_placement": _shards_entry,
+    "spans_for_workload": _spans_entry,
+}
+
+
+@pytest.mark.parametrize("entry", list(NEW_ENTRIES))
+def test_new_entry_points_default_to_cuda(entry, monkeypatch):
+    run = NEW_ENTRIES[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run("cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run(None)
+    # an explicit CPU device still runs
+    assert run("cpu") is not None

@@ -102,14 +102,36 @@ Phases, each printed on a line of its own:
                  whose spans run once more on the span engine.  Each run
                  must launch the kernels ``API_RUNS`` names; the line
                  gives its held values, walls and launches.
-7. serve       — ``repro_torch.launch.serve`` on hymba-1.5b at full width
+7. online      — online serving through the port's entry points, each run
+                 on the card and again at ``device="cpu"`` (each inside its
+                 own partition memo), held against its CPU twin and the JAX
+                 package's values (``ONLINE_HELD``, pinned by a CPU test):
+                 ``ReplicaRouter.route_csr`` of the lmbr-stress trace
+                 (10 000 queries) on the random layout of 64 x 50 in
+                 27 microbatches of 384, default and balanced (sha256s of
+                 covers, pin attribution and ledger; every 97th default
+                 cover against ``cover_for_query``), then its queries/s
+                 pinned to cover_rounds, under ``auto`` and on the CPU;
+                 ``Simulator(40, 50).run_online`` with the drift detector
+                 on fig6's splice (2 000 queries of seed 0, then 4 000 of
+                 seed 7; lmbr ``max_moves=120``, ``refit_moves=400``), with
+                 three partitions failing and returning, and migrating the
+                 random layout onto lmbr's paced by ``migbw1`` through an
+                 outage (summaries, sha256s of spans and final member);
+                 ``refit(as_migration=True)`` of that lmbr plan on the seed-1
+                 queries (the schedule's JSON, copies only).  Each run must
+                 launch the kernels ``ONLINE_RUNS`` names, and every kernel
+                 exactly as often as the CPU twin's dispatch calls its
+                 wrapper; the line gives its held values, walls and
+                 launches.
+8. serve       — ``repro_torch.launch.serve`` on hymba-1.5b at full width
                  and depth (32 layers, bf16, random weights from seed 0):
                  16 requests in batches of 8, prompt 2048, 64 greedy decode
                  steps; finite logits, prefill tokens/s, decode ms/step,
                  peak memory, and each model kernel's launch count, which
                  must be 32 x 2 (flash, ssd) and 32 x 64 x 2 (decode), every
                  flash launch on the tensor-core (wgmma) instance.
-8. serve-check — hymba-1.5b at full width and 4 layers (global, window,
+9. serve-check — hymba-1.5b at full width and 4 layers (global, window,
                  window, global) in f32 with TF32 off, prompt 1536: the
                  kernel route against the plain route on the card (logits
                  within 1e-3) and teacher-forced decode after prefill
@@ -123,7 +145,9 @@ cover_rounds' device time per launch; for
 paper-algos, fig9's IHPA fit with span_gain's and cover_rounds' device
 time per launch; for placement-api, service-fit split into HPA, the LMBR
 move loop, the durability pass and the plan's spans, with each placement
-kernel's device time per launch).
+kernel's device time per launch; for online, the drift run split into
+the fit, routing, the refits and the rest, with the device's idle
+share).
 
 Then: the card's name and power limit (nvidia-smi), one JSON line with
 every kernel's numbers, and the device line.  Any failed check raises and
@@ -149,7 +173,7 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12       # H100 SXM non-tensor fp32, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores, data sheet
 PHASES = ("build", "kernels", "fit-stress", "fit-paper", "paper-algos",
-          "placement-api", "serve", "serve-check")
+          "placement-api", "online", "serve", "serve-check")
 PAPER_NODES = 69429          # ibm10, the largest fig9 circuit
 # paper-algos: the workloads (generator, arguments) and the runs (workload,
 # partitions, capacity, algorithm, extra arguments, avg_span of the JAX
@@ -233,6 +257,153 @@ API_HELD = {
         survives_2_failures=True, avg_span=1.1255),
 }
 
+
+# online: the runs in order, each with its flag variant and the kernels it
+# must launch (as many times as the CPU twin's dispatch calls their
+# wrappers), the events of the failover and migration runs (the migrate
+# target is the lmbr fit the run makes), and the held values, each what
+# the JAX package gives for the same call on the CPU
+# (tests/test_torch_chip_smoke_constants.py recomputes them)
+ONLINE_RUNS = {
+    # one 384-query microbatch at N 64, W 1 packs to 24 576 words, under
+    # span_round_threshold, so the router reaches cover_rounds only pinned
+    "router": ("spandevice+spanrounddevice", ("cover_rounds",)),
+    "drift": ("peeldevice+spandevice", ("span_gain", "lockstep_peel")),
+    "failover": ("peeldevice+spandevice", ("span_gain", "lockstep_peel")),
+    "migration": ("peeldevice+spandevice+migbw1",
+                  ("span_gain", "lockstep_peel")),
+    "refit-migration": ("peeldevice+spandevice",
+                        ("span_gain", "lockstep_peel")),
+}
+ONLINE_EVENTS = {
+    "failover": ((400, "down", 7), (800, "down", 21), (1300, "up", 7),
+                 (2000, "down", 33), (2600, "up", 21), (3300, "up", 33)),
+    "migration": ((500, "migrate", None), (900, "down", 5),
+                  (1800, "up", 5)),
+}
+ONLINE_HELD = {
+    "router": {
+        "default": {
+            "cover_sha256": "8c2a15bbabc2f85fbddf645e86f49c3e"
+                            "5e675762720d28d571fc0701ecce2b7b",
+            "ledger_sha256": "12d34a15a983f43ffd8706e43fbb8112"
+                             "de02f216ccf9961522d6c613bb9666fe",
+            "avg_span": 6.6261,
+            "load_imbalance": 1.3077979505289687,
+            "microbatches": 27,
+        },
+        "balanced": {
+            "cover_sha256": "ddb8a6cc06b7f7c260514204b2287a4d"
+                            "26a774597f12f233725562e9c5b2dc5e",
+            "ledger_sha256": "2d26ee51a7bc6f560d9dbadd9e7a70cd"
+                             "27665bc86ef37971c743ee7e48a899d3",
+            "avg_span": 6.6262,
+            "load_imbalance": 1.307778213757508,
+            "microbatches": 27,
+        },
+    },
+    "drift": {
+        "algorithm": 'lmbr+drift',
+        "avg_span": 5.6605,
+        "max_span": 11,
+        "energy_kj": 15437.31,
+        "shipped_gb": 30878.0,
+        "rf": 1.8,
+        "load_imbalance": 1.359,
+        "active_machines": 36,
+        "cluster_power_w": 9400.0,
+        "fit_gain_calls": 11160,
+        "fit_gain_cache_hits": 1126,
+        "fit_gain_fp_hits": 2158,
+        "fit_peel_pairs": 7456,
+        "fit_moves": 120,
+        "fit_gain_cache": True,
+        "fit_lmbr_epochs": 'item',
+        "fit_cache_hit_rate": 0.2942652329749104,
+        "served_queries": 6000,
+        "microbatches": 16,
+        "plan_swaps": 2,
+        "degraded_queries": 0,
+        "partitions_down": 0,
+        "repaired_items": 0,
+        "unrepairable_items": 0,
+        "drift_fires": 2,
+        "refits": 2,
+        "windowed_avg_span": 5.5762,
+        "spans_sha256": "dac8007494ba93cd31b9703e36193937"
+                        "433d710b6f4b80bf3761a84a6ba72744",
+        "member_sha256": "fe79ce43b3c81fb8ffe7b04e47df2d11"
+                         "683cff95bb528050ffcfb32e103335c4",
+    },
+    "failover": {
+        "algorithm": 'lmbr',
+        "avg_span": 5.1143,
+        "max_span": 11,
+        "energy_kj": 9655.53,
+        "shipped_gb": 19244.0,
+        "rf": 1.208,
+        "load_imbalance": 1.605,
+        "active_machines": 36,
+        "cluster_power_w": 9400.0,
+        "fit_gain_calls": 11160,
+        "fit_gain_cache_hits": 1126,
+        "fit_gain_fp_hits": 2158,
+        "fit_peel_pairs": 7456,
+        "fit_moves": 120,
+        "fit_gain_cache": True,
+        "fit_lmbr_epochs": 'item',
+        "fit_cache_hit_rate": 0.2942652329749104,
+        "served_queries": 4000,
+        "microbatches": 14,
+        "plan_swaps": 0,
+        "degraded_queries": 0,
+        "partitions_down": 3,
+        "repaired_items": 76,
+        "unrepairable_items": 0,
+        "spans_sha256": "461c1d5cce2b26b9abcd2b8ceaa83172"
+                        "8c438c438248d7efd5da67eea99675c6",
+        "member_sha256": "f1346a443bfa8762fab0d7db3d136745"
+                         "bdde5da170009acf2294a8b214dc6a42",
+    },
+    "migration": {
+        "algorithm": 'random',
+        "avg_span": 5.5365,
+        "max_span": 11,
+        "energy_kj": 10131.48,
+        "shipped_gb": 20139.0,
+        "rf": 1.152,
+        "load_imbalance": 1.3,
+        "active_machines": 37,
+        "cluster_power_w": 9550.0,
+        "served_queries": 4000,
+        "microbatches": 13,
+        "plan_swaps": 1,
+        "degraded_queries": 0,
+        "partitions_down": 1,
+        "repaired_items": 24,
+        "unrepairable_items": 0,
+        "migrations": 1,
+        "migration_copies": 1074,
+        "migration_drops": 1942,
+        "migration_transfer_gb": 1070.0,
+        "migration_wasted_gb": 0.0,
+        "migration_max_inflight_gb": 144.0,
+        "migration_ticks": 1322,
+        "migration_done": True,
+        "spans_sha256": "ce2f037e02c520ddb7eb0d3b5370f44c"
+                        "8f5cdffc3900e4c7ec07a8076b40a8f3",
+        "member_sha256": "477a7a7f5aee7e2320a4273b5982f5d5"
+                         "0aa8d57db2a068658e9119dcbe15b428",
+    },
+    "refit-migration": {
+        "json_sha256": "0b28125648806818fa7d32ebcd51c3ef"
+                       "00dc956a20ed369532eeb42c29cfe83d",
+        "copies": 69,
+        "drops": 0,
+        "avg_span_before": 6.198,
+        "avg_span_after": 5.9755,
+    },
+}
 
 def _bound_ms(nbytes: float, ops: float,
               peak: float = FP32_OPS_PER_S) -> tuple[float, str]:
@@ -1782,6 +1953,283 @@ def phase_api_profile(torch, inp):
         _print_kernel_device_ms(rows, label, kernel)
 
 
+# ------------------------------------------------------------------ online
+def online_inputs(np):
+    """The online runs' inputs, made by the port's generators: the
+    lmbr-stress trace (2 500 items, 10 000 queries), fig6's paper default
+    (``random_workload(1000, 4000, 3, 11, 20, seed=0)``), the drift splice
+    (its first 2 000 queries, then the 4 000 of seed 7) and the seed-1
+    queries the refit-migration run adapts to."""
+    from repro_torch import core
+
+    fig6 = core.random_workload(1000, 4000, 3, 11, 20, seed=0).hypergraph
+    new = core.random_workload(1000, 4000, 3, 11, 20, seed=7).hypergraph
+    splice = core.Hypergraph.from_edges(
+        [fig6.edge(e) for e in range(2000)]
+        + [new.edge(e) for e in range(new.num_edges)], num_nodes=1000)
+    return dict(
+        stress=core.lmbr_stress_workload(seed=0).hypergraph,
+        fig6=fig6, splice=splice,
+        seed1=core.random_workload(1000, 4000, 3, 11, 20, seed=1).queries,
+    )
+
+
+def online_held(np, res):
+    """What an online run holds: its summary without the wall and backend
+    keys, and the sha256s of its served spans and its final member."""
+    held = {k: v for k, v in res.summary().items()
+            if k not in BACKEND_KEYS}
+    held.update(spans_sha256=_sha256(res.spans.tobytes()),
+                member_sha256=_sha256(res.member.tobytes()))
+    return held
+
+
+def _routed(np, router, hg):
+    """The router's held values after routing all of ``hg``."""
+    batch = router.route_csr(hg.edge_ptr, hg.edge_nodes)
+    return batch, dict(
+        cover_sha256=_sha256(batch.spans.tobytes()
+                             + batch.cover_parts.tobytes()
+                             + batch.pin_parts.tobytes()),
+        ledger_sha256=_sha256(router.load.tobytes()),
+        avg_span=float(batch.spans.mean()),
+        load_imbalance=router.load_imbalance(),
+        microbatches=router.stats["microbatches"])
+
+
+def online_run(np, name, inp, device, state):
+    """One online run on ``device`` through the port's entry points;
+    returns the values it holds.  ``state`` keeps the router run's layout
+    for the throughput rows and each run's result."""
+    from repro_torch import core, flags
+    from repro_torch.online import ReplicaRouter
+
+    variant = ONLINE_RUNS[name][0]
+    if name == "router":
+        hg = inp["stress"]
+        pl = core.ALGORITHMS["random"](hg, 64, 50, seed=0, device=device)
+        state["router_member"] = pl.member
+        batch, default = _routed(np, ReplicaRouter(pl.member, device=device),
+                                 hg)
+        for e in range(0, hg.num_edges, 97):
+            chosen, accessed = core.cover_for_query(hg.edge(e), pl.member)
+            _require(batch.chosen(e).tolist() == chosen
+                     and [x.tolist() for x in batch.cover(e).values()]
+                     == [x.tolist() for x in accessed],
+                     f"online router: query {e} differs from "
+                     "cover_for_query")
+        flags.set_variant(variant + "+routerbal1")
+        _, balanced = _routed(np, ReplicaRouter(pl.member, device=device), hg)
+        flags.set_variant(variant)
+        return dict(default=default, balanced=balanced)
+    sim = core.Simulator(40, 50, device=device)
+    lmbr = core.ALGORITHMS["lmbr"]
+    if name == "drift":
+        res = sim.run_online(
+            inp["fig6"], lmbr, name="lmbr+drift", trace=inp["splice"],
+            service=core.PlacementService("lmbr", seed=0, device=device),
+            refit_moves=400, seed=0, max_moves=120)
+    elif name == "failover":
+        res = sim.run_online(
+            inp["fig6"], lmbr, name="lmbr", seed=0, max_moves=120,
+            repair_k=1, events=ONLINE_EVENTS["failover"])
+        _require(bool((res.loads <= 50 + 1e-9).all()),
+                 "online failover: a load is over capacity")
+    elif name == "migration":
+        target = lmbr(inp["fig6"], 40, 50, seed=0, max_moves=120,
+                      device=device)
+        events = [(at, kind, target if kind == "migrate" else arg)
+                  for at, kind, arg in ONLINE_EVENTS["migration"]]
+        res = sim.run_online(inp["fig6"], core.ALGORITHMS["random"],
+                             name="random", seed=0, events=events)
+        _require(bool((res.loads <= 50 * 1.10 + 1e-9).all()),
+                 "online migration: a load is over the headroom bound")
+    elif name == "refit-migration":
+        # the fit the other runs make: a service fit fills the space that
+        # LMBR can use, and a refit of it adds no copy
+        pl = lmbr(inp["fig6"], 40, 50, seed=0, max_moves=120, device=device)
+        plan = core.PlacementPlan(pl.member, 50, pl.node_weights, "lmbr",
+                                  device=device)
+        svc = core.PlacementService("lmbr", seed=0, device=device)
+        mp = svc.refit(plan, inp["seed1"], max_moves=64, as_migration=True)
+        _require(mp.num_drops == 0,
+                 "online refit-migration: a warm-started refit dropped "
+                 "a replica")
+        _require(bool((mp.apply(plan.member.copy())
+                       == mp.target.member).all()),
+                 "online refit-migration: the schedule does not land on "
+                 "its target")
+        return dict(json_sha256=_sha256(mp.to_json()),
+                    copies=mp.num_copies, drops=mp.num_drops,
+                    avg_span_before=plan.avg_span(inp["seed1"]),
+                    avg_span_after=mp.target.avg_span(inp["seed1"]))
+    else:
+        raise ValueError(f"unknown online run {name!r}")
+    state[name] = res
+    return online_held(np, res)
+
+
+class _DispatchCount:
+    """Counts the kernel wrapper calls that the span engine and LMBR make
+    (each one a launch on the card), by patching the wrappers where the
+    engine calls them; used on the CPU twin, whose wrappers run the plain
+    versions."""
+
+    def __init__(self):
+        from repro_torch.core import algorithms, setcover
+
+        self.sites = ((setcover, "span_gains", "span_gain",
+                       lambda c, r: c.shape[0] * c.shape[1] > 0),
+                      (setcover, "cover_rounds", "cover_rounds",
+                       lambda c, r: c.shape[0] > 0),
+                      (algorithms, "lockstep_peel", "lockstep_peel",
+                       lambda inc, *_: inc.shape[0] * inc.shape[2] > 0))
+        self.counts = {kernel: 0 for _, _, kernel, _ in self.sites}
+
+    def __enter__(self):
+        self.saved = []
+        for module, attr, kernel, nonempty in self.sites:
+            fn = getattr(module, attr)
+            self.saved.append((module, attr, fn))
+
+            def counted(*args, _fn=fn, _kernel=kernel, _nonempty=nonempty):
+                if _nonempty(*args):
+                    self.counts[_kernel] += 1
+                return _fn(*args)
+            setattr(module, attr, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in self.saved:
+            setattr(module, attr, fn)
+        return False
+
+
+def phase_online(np, torch, kernels, inp):
+    """Every run of ``ONLINE_RUNS`` on the card, each inside its own
+    partition memo, held against the same call on the CPU (also in its own
+    memo) and against ``ONLINE_HELD``.  Each run must launch every kernel
+    that it names, as many times as the CPU twin's dispatch called the
+    kernel's wrapper."""
+    from repro_torch import core, flags
+
+    dev_state, cpu_state, runs = {}, {}, []
+    for name, (variant, need) in ONLINE_RUNS.items():
+        label = f"online {name}"
+        flags.set_variant(variant)
+        _zero_counts(kernels)
+        t0 = time.perf_counter()
+        with core.fresh_partition_cache():
+            held = online_run(np, name, inp, "cuda", dev_state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts(kernels)
+        flags.set_variant(variant)
+        t0 = time.perf_counter()
+        with core.fresh_partition_cache(), _DispatchCount() as dispatch:
+            cpu_held = online_run(np, name, inp, "cpu", cpu_state)
+        cpu_wall = time.perf_counter() - t0
+        flags.reset()
+        _require(held == cpu_held,
+                 f"{label}: {held} differs from the CPU run's {cpu_held}")
+        _require(held == ONLINE_HELD[name],
+                 f"{label}: {held} is not the reference's "
+                 f"{ONLINE_HELD[name]}")
+        if name in dev_state:
+            _compare(np, dev_state[name], cpu_state[name], label)
+        _require(launches == dispatch.counts,
+                 f"{label}: launches {launches} differ from the CPU "
+                 f"dispatch's {dispatch.counts}")
+        for kernel in need:
+            _require(launches[kernel] > 0,
+                     f"{label}: kernel {kernel} never launched")
+        print(f"{label}: {json.dumps(held)} wall_s={wall:.3f} "
+              f"cpu_wall_s={cpu_wall:.3f} cpu_match=bitwise "
+              f"reference_match=exact launches={launches} "
+              f"cpu_dispatch={dispatch.counts}", flush=True)
+        runs.append(dict(name=name, launches=launches, wall=wall,
+                         cpu_wall=cpu_wall))
+        if name == "router":
+            _router_throughput(torch, inp["stress"],
+                               dev_state["router_member"])
+    return runs
+
+
+def _router_throughput(torch, hg, member):
+    """Queries/s of the default router over the whole lmbr-stress trace,
+    best of three, on the card with the kernels pinned, on the card under
+    ``auto`` (the host loop at this microbatch) and on the CPU."""
+    from repro_torch import flags
+    from repro_torch.online import ReplicaRouter
+
+    for label, variant, device in (
+            ("card spandevice+spanrounddevice", "spandevice+spanrounddevice",
+             "cuda"),
+            ("card auto", "baseline", "cuda"),
+            ("cpu auto", "baseline", "cpu")):
+        flags.set_variant(variant)
+        router = ReplicaRouter(member, device=device)
+        router.route_csr(hg.edge_ptr, hg.edge_nodes)
+        best = math.inf
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            router.route_csr(hg.edge_ptr, hg.edge_nodes)
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        flags.reset()
+        print(f"online router throughput {label}: "
+              f"queries_per_s={hg.num_edges / best:.1f} "
+              f"wall_s={best:.4f}", flush=True)
+
+
+def phase_online_profile(torch, inp):
+    """The drift run once more under torch.profiler and the package
+    tracer: the fit, the routing (every microbatch), the refits and the
+    rest, the device's busy time and each placement kernel's device ms per
+    launch.  Numbers are under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import core, flags, obs
+
+    flags.set_variant(ONLINE_RUNS["drift"][0] + "+obstrace")
+    obs.reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with core.fresh_partition_cache():
+            core.Simulator(40, 50).run_online(
+                inp["fig6"], core.ALGORITHMS["lmbr"], name="lmbr+drift",
+                trace=inp["splice"],
+                service=core.PlacementService("lmbr", seed=0),
+                refit_moves=400, seed=0, max_moves=120)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    part = {key: sum(e["dur"] for e in obs.tracer().spans(key)) / 1e6
+            for key in ("fit.place", "serve.microbatch", "drift.refit")}
+    flags.reset()
+    obs.reset()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    rest = wall - sum(part.values())
+    label = "profile online drift"
+    print(f"{label}: wall_s={wall:.3f} fit_s={part['fit.place']:.3f} "
+          f"routing_s={part['serve.microbatch']:.3f} "
+          f"refits_s={part['drift.refit']:.3f} rest_s={rest:.3f} "
+          + (f"device_busy_s={busy:.4f} "
+             f"device_idle_share={1 - busy / wall:.4f}" if rows else
+             "device time not measured (the profiler saw no device "
+             "activity)"), flush=True)
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.key[:70]!r} count={e.count} "
+              f"device_ms={e.self_device_time_total / 1e3:.3f}")
+    for kernel in ("span_gain", "lockstep_peel", "cover_rounds"):
+        _print_kernel_device_ms(rows, label, kernel)
+
+
 def _print_kernel_device_ms(rows, label: str, kernel: str) -> None:
     """One kernel's device ms in all and per launch, from the profiler's
     device rows of a profiled run."""
@@ -1899,6 +2347,14 @@ def main(argv=None) -> int:
             for name in fit_kernels}
         if args.profile:
             phase_api_profile(torch, inp)
+    if "online" in phases:
+        inp = online_inputs(np)
+        online_runs = phase_online(np, torch, fit_kernels, inp)
+        path_launches["online"] = {
+            name: sum(r["launches"][name] for r in online_runs)
+            for name in fit_kernels}
+        if args.profile:
+            phase_online_profile(torch, inp)
     if "serve" in phases:
         served = phase_serve(torch, kernels, dev)
         launches.update({n: served["launches"][n] for n in model_kernels})

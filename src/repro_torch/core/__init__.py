@@ -12,7 +12,8 @@ Layout:
   hpa         — multilevel hypergraph partitioner (hMETIS stand-in)
   algorithms  — IHPA, DS, PRA, LMBR (+ Random, HPA baselines)
   three_way   — fixed RF=3 variants (PRA-3W, SDA, IHPA-3W, Random-3W)
-  simulator   — trace-driven simulator + energy model
+  simulator   — trace-driven simulator + energy model; `run_online` serves
+                the trace through ``repro_torch.online``
   placement_service — fit / refit / hierarchical (pod/host) service API
   expert_placement  — MoE expert->EP-rank placement from routing traces
   shard_placement   — dataset shard->host placement for the input pipeline

@@ -12,7 +12,10 @@ Wraps the paper's algorithms behind a serializable, hierarchical service:
   * PlacementService.refit      — incremental re-placement when the workload
     drifts: LMBR warm-started from the current plan (new replicas only move
     into free space).  A ``dest_mask`` confines new copies to surviving
-    partitions.
+    partitions; ``as_migration=True`` returns the change as a paced
+    `repro_torch.online.MigrationPlan`.
+  * PlacementService.plan_migration — two plans diffed into a
+    `MigrationPlan`.
 
 A copy of the JAX package's ``core/placement_service.py``.  The service
 takes ``device`` (default ``"cuda"``; raises without CUDA unless
@@ -321,13 +324,20 @@ class PlacementService:
         max_moves: int = 64,
         dest_mask: np.ndarray | None = None,
         profile: NodeProfile | None = None,
-    ) -> PlacementPlan:
+        as_migration: bool = False,
+    ):
         """Incremental adaptation to workload drift: LMBR warm-started from
         the current placement; only copies items into free space (existing
         replicas never move).  ``dest_mask`` ((N,) bool) excludes partitions
         from receiving copies (the outage path).  A ``profile`` supplies
         the access-cost vector for the engine's optional
-        ``node_cost_weight`` penalty."""
+        ``node_cost_weight`` penalty.
+
+        ``as_migration=True`` returns the change as a
+        `repro_torch.online.MigrationPlan` (pacing from the ``migration_*``
+        flags, ``.target`` carrying the new `PlacementPlan`) instead of a
+        plan to swap atomically: a warm-started refit only adds replicas,
+        so the schedule is pure copies."""
         hg = Hypergraph.from_edges(
             queries, num_nodes=plan.member.shape[1],
             node_weights=plan.node_weights,
@@ -341,7 +351,30 @@ class PlacementService:
                 device=self.device,
             )
         pl.validate()
-        return PlacementPlan(
+        new_plan = PlacementPlan(
             pl.member, plan.capacity, plan.node_weights,
             f"{plan.algorithm}+refit", stats=pl.stats, device=self.device,
+        )
+        if as_migration:
+            return self.plan_migration(plan, new_plan)
+        return new_plan
+
+    def plan_migration(
+        self,
+        old_plan: PlacementPlan,
+        new_plan: PlacementPlan,
+        bandwidth: float | None = None,
+        concurrency: int | None = None,
+        headroom: float | None = None,
+    ):
+        """Diff two plans into a `repro_torch.online.MigrationPlan`
+        (deterministic copies-before-drops transfer schedule; pacing
+        defaults to the ``migration_*`` flags).  The returned plan's
+        ``.target`` is ``new_plan``."""
+        from ..online.migration import plan_migration as _plan_migration
+
+        return _plan_migration(
+            old_plan, new_plan, node_weights=new_plan.node_weights,
+            bandwidth=bandwidth, concurrency=concurrency, headroom=headroom,
+            target=new_plan,
         )

@@ -23,6 +23,24 @@ bit-identical, so these are performance knobs only.
 ``durability_eps`` (variant ``durab<eps>``) is the per-item loss ceiling
 ``prod fail_prob <= eps`` that `PlacementService` fits meet by adding
 copies after the fit; 0.0 (the default) turns the pass off.
+
+Online serving (``repro_torch.online``, ``Simulator.run_online``):
+
+* ``router_microbatch`` (``routermb<n>``): queries per batched cover call;
+  ``router_balance`` (``routerbal<0|1>``): least-loaded tie-break among
+  equal-gain partitions; ``router_ledger_epsilon`` (``routereps<x>``):
+  ledger shift that re-sorts the tie-break rows (0 re-sorts on any
+  shift); ``router_cost_aware`` (``routercost<0|1>``): sort by load times
+  the profile's routing cost.
+* ``drift_window`` (``driftw<n>``) and ``drift_threshold``
+  (``driftth<x>``): the sketch's window and the windowed-span ratio that
+  triggers a refit.
+* ``migration_bandwidth`` (``migbw<x>``, weight units per served query;
+  0 swaps plans at once), ``migration_concurrency`` (``migconc<n>``,
+  transfers in flight per destination), ``migration_headroom``
+  (``mighead<x>``, capacity slack of the union layout).
+* ``obs_snapshot_every`` (``obssnap<n>``): a metrics snapshot every n
+  served queries (0: none).
 """
 
 from __future__ import annotations
@@ -39,7 +57,17 @@ _DEFAULTS = dict(
     placement_objective="span",
     node_cost_weight=0.0,
     durability_eps=0.0,
+    router_microbatch=384,
+    router_balance=False,
+    router_ledger_epsilon=0.0,
+    router_cost_aware=False,
+    drift_window=512,
+    drift_threshold=1.25,
+    migration_bandwidth=0.0,
+    migration_concurrency=4,
+    migration_headroom=0.10,
     obs_level="off",
+    obs_snapshot_every=0,
 )
 
 FLAGS = dict(_DEFAULTS)
@@ -90,6 +118,44 @@ def set_variant(spec: str):
             if w < 0:
                 raise ValueError(f"node_cost_weight must be >= 0, got {w}")
             FLAGS["node_cost_weight"] = w
+        elif part.startswith("routereps"):
+            eps = float(part[len("routereps"):])
+            if eps < 0:
+                raise ValueError(
+                    f"router_ledger_epsilon must be >= 0, got {eps}")
+            FLAGS["router_ledger_epsilon"] = eps
+        elif part.startswith("routerbal"):
+            FLAGS["router_balance"] = bool(int(part[len("routerbal"):]))
+        elif part.startswith("routermb"):
+            FLAGS["router_microbatch"] = int(part[len("routermb"):])
+        elif part.startswith("routercost"):
+            FLAGS["router_cost_aware"] = bool(int(part[len("routercost"):]))
+        elif part.startswith("driftw"):
+            FLAGS["drift_window"] = int(part[len("driftw"):])
+        elif part.startswith("driftth"):
+            FLAGS["drift_threshold"] = float(part[len("driftth"):])
+        elif part.startswith("migbw"):
+            bw = float(part[len("migbw"):])
+            if bw < 0:
+                raise ValueError(f"migration_bandwidth must be >= 0, got {bw}")
+            FLAGS["migration_bandwidth"] = bw
+        elif part.startswith("migconc"):
+            conc = int(part[len("migconc"):])
+            if conc < 1:
+                raise ValueError(
+                    f"migration_concurrency must be >= 1, got {conc}")
+            FLAGS["migration_concurrency"] = conc
+        elif part.startswith("mighead"):
+            head = float(part[len("mighead"):])
+            if head < 0:
+                raise ValueError(f"migration_headroom must be >= 0, got {head}")
+            FLAGS["migration_headroom"] = head
+        elif part.startswith("obssnap"):
+            every = int(part[len("obssnap"):])
+            if every < 0:
+                raise ValueError(
+                    f"obs_snapshot_every must be >= 0, got {every}")
+            FLAGS["obs_snapshot_every"] = every
         elif part.startswith("obs"):
             lv = part[len("obs"):]
             if lv not in ("off", "counters", "trace"):

@@ -1,8 +1,10 @@
 """``chip_smoke.py``'s tables against the JAX package: every paper-algos
 row's avg_span is what the reference's ``Simulator.run`` gives on the CPU,
 every placement-api value is what the reference's service, 3-way and
-bridge calls give there, and the port's generators build the reference's
-inputs, so the card run is held to the reference without importing it."""
+bridge calls give there, every online value is what the reference's
+router, ``run_online`` and ``refit(as_migration=True)`` give there, and
+the port's generators build the reference's inputs, so the card run is
+held to the reference without importing it."""
 
 import sys
 from pathlib import Path
@@ -11,6 +13,7 @@ import numpy as np
 import pytest
 
 import repro.core as ref_core
+import repro.online as ref_online
 from repro import flags as ref_flags
 from repro.core import ALGORITHMS as REF_ALGORITHMS
 from repro.core import hpa as ref_hpa
@@ -203,3 +206,146 @@ def test_port_generators_build_the_placement_api_inputs():
         assert (getattr(got["profile"], col).tobytes()
                 == getattr(want["profile"], col).tobytes())
     assert got["mask"].tobytes() == want["mask"].tobytes()
+
+
+# ------------------------------------------------------------------- online
+def _online_inputs():
+    """The reference's inputs of the online runs (the port builds the same
+    ones in ``chip_smoke.online_inputs``)."""
+    if "online" not in _GRAPHS:
+        fig6 = ref_core.random_workload(1000, 4000, 3, 11, 20,
+                                        seed=0).hypergraph
+        new = ref_core.random_workload(1000, 4000, 3, 11, 20,
+                                       seed=7).hypergraph
+        _GRAPHS["online"] = dict(
+            stress=ref_core.lmbr_stress_workload(seed=0).hypergraph,
+            fig6=fig6,
+            splice=ref_core.Hypergraph.from_edges(
+                [fig6.edge(e) for e in range(2000)]
+                + [new.edge(e) for e in range(new.num_edges)],
+                num_nodes=1000),
+            seed1=ref_core.random_workload(1000, 4000, 3, 11, 20,
+                                           seed=1).queries,
+        )
+    return _GRAPHS["online"]
+
+
+class _RecordingFailover(ref_online.FailoverManager):
+    """The reference's failover manager, remembering itself: its ``pl``
+    is the final live layout of a ``run_online``."""
+
+    made: list = []
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        _RecordingFailover.made.append(self)
+
+
+def _ref_online_run(monkeypatch, sim, *args, **kw):
+    with monkeypatch.context() as m:
+        m.setattr(ref_online, "FailoverManager", _RecordingFailover)
+        res = sim.run_online(*args, **kw)
+    held = {k: v for k, v in res.summary().items()
+            if k not in chip_smoke.BACKEND_KEYS}
+    held.update(
+        spans_sha256=chip_smoke._sha256(res.spans.tobytes()),
+        member_sha256=chip_smoke._sha256(
+            _RecordingFailover.made[-1].pl.member.tobytes()))
+    return held
+
+
+def _ref_online_held(name, monkeypatch):
+    inp = _online_inputs()
+    lmbr = REF_ALGORITHMS["lmbr"]
+    sim = RefSimulator(40, 50)
+    if name == "router":
+        hg = inp["stress"]
+        pl = REF_ALGORITHMS["random"](hg, 64, 50, seed=0)
+        held = {}
+        for mode, balance in (("default", False), ("balanced", True)):
+            router = ref_online.ReplicaRouter(pl.member, balance=balance)
+            b = router.route_csr(hg.edge_ptr, hg.edge_nodes)
+            held[mode] = dict(
+                cover_sha256=chip_smoke._sha256(
+                    b.spans.tobytes() + b.cover_parts.tobytes()
+                    + b.pin_parts.tobytes()),
+                ledger_sha256=chip_smoke._sha256(router.load.tobytes()),
+                avg_span=float(b.spans.mean()),
+                load_imbalance=router.load_imbalance(),
+                microbatches=router.stats["microbatches"])
+        return held
+    if name == "drift":
+        return _ref_online_run(
+            monkeypatch, sim, inp["fig6"], lmbr, name="lmbr+drift",
+            trace=inp["splice"],
+            service=ref_core.PlacementService("lmbr", seed=0),
+            refit_moves=400, seed=0, max_moves=120)
+    if name == "failover":
+        return _ref_online_run(
+            monkeypatch, sim, inp["fig6"], lmbr, name="lmbr", seed=0,
+            max_moves=120, repair_k=1,
+            events=chip_smoke.ONLINE_EVENTS["failover"])
+    if name == "migration":
+        with ref_hpa.fresh_partition_cache():
+            target = lmbr(inp["fig6"], 40, 50, seed=0, max_moves=120)
+        events = [(at, kind, target if kind == "migrate" else arg)
+                  for at, kind, arg in chip_smoke.ONLINE_EVENTS["migration"]]
+        ref_flags.set_variant("migbw1")
+        try:
+            return _ref_online_run(
+                monkeypatch, sim, inp["fig6"], REF_ALGORITHMS["random"],
+                name="random", seed=0, events=events)
+        finally:
+            ref_flags.reset()
+    if name == "refit-migration":
+        with ref_hpa.fresh_partition_cache():
+            pl = lmbr(inp["fig6"], 40, 50, seed=0, max_moves=120)
+        plan = ref_core.PlacementPlan(pl.member, 50, pl.node_weights, "lmbr")
+        mp = ref_core.PlacementService("lmbr", seed=0).refit(
+            plan, inp["seed1"], max_moves=64, as_migration=True)
+        return dict(json_sha256=chip_smoke._sha256(mp.to_json()),
+                    copies=mp.num_copies, drops=mp.num_drops,
+                    avg_span_before=plan.avg_span(inp["seed1"]),
+                    avg_span_after=mp.target.avg_span(inp["seed1"]))
+    raise ValueError(name)
+
+
+def test_online_table():
+    phases = chip_smoke.PHASES
+    assert phases.index("placement-api") + 1 == phases.index("online") \
+        == phases.index("serve") - 1
+    assert list(chip_smoke.ONLINE_HELD) == list(chip_smoke.ONLINE_RUNS)
+    # the event runs' reference values on the CPU, named one by one
+    held = chip_smoke.ONLINE_HELD
+    assert (held["drift"]["avg_span"], held["drift"]["drift_fires"],
+            held["drift"]["refits"], held["drift"]["plan_swaps"],
+            held["drift"]["windowed_avg_span"]) == (5.6605, 2, 2, 2, 5.5762)
+    assert (held["failover"]["avg_span"], held["failover"]["repaired_items"],
+            held["failover"]["degraded_queries"],
+            held["failover"]["partitions_down"]) == (5.1143, 76, 0, 3)
+    m = held["migration"]
+    assert (m["avg_span"], m["migration_copies"], m["migration_drops"],
+            m["migration_ticks"], m["repaired_items"], m["degraded_queries"],
+            m["migration_done"]) == (5.5365, 1074, 1942, 1322, 24, 0, True)
+    assert held["router"]["default"]["microbatches"] == 27
+    assert held["refit-migration"]["drops"] == 0
+    assert held["refit-migration"]["copies"] > 0
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.ONLINE_HELD))
+def test_online_reference_values(name, monkeypatch):
+    assert _ref_online_held(name, monkeypatch) == \
+        chip_smoke.ONLINE_HELD[name]
+
+
+def test_port_generators_build_the_online_inputs():
+    got = chip_smoke.online_inputs(np)
+    want = _online_inputs()
+    for key in ("stress", "fig6", "splice"):
+        for name in ("edge_ptr", "edge_nodes", "node_weights",
+                     "edge_weights"):
+            assert (getattr(got[key], name).tobytes()
+                    == getattr(want[key], name).tobytes()), (key, name)
+    assert len(got["seed1"]) == 4000
+    for a, b in zip(got["seed1"], want["seed1"]):
+        assert a.tobytes() == b.tobytes()

@@ -5,7 +5,7 @@ destination mask and an access-cost profile under ``nodecost0.5``,
 ``fit_hierarchical``, replica selection, and the plan's JSON (the
 reference's exact string; ``from_json`` restores scalar and vector
 capacities).  Also pins which names of ``repro.core`` the port still
-lacks."""
+lacks, and that ``repro_torch.online`` exports the reference's names."""
 
 import inspect
 
@@ -220,11 +220,11 @@ def test_vector_capacity_json():
         ref_uniform.to_json()).capacity == 150.0
 
 
-# names of the reference that wait for the slices porting repro.scale
-# (web scale) and repro.online (migration); each goes as it is ported
+# names of the reference that wait for the slice porting repro.scale
+# (web scale, sharded fits); each goes as it is ported
 CORE_NOT_YET = {"web_scale_chunks", "web_scale_workload",
                 "WEB_SCALE_DEFAULTS"}
-SERVICE_NOT_YET = {"fit_sharded", "plan_migration"}
+SERVICE_NOT_YET = {"fit_sharded"}
 
 
 def test_port_exports_the_reference_core():
@@ -238,7 +238,22 @@ def test_port_exports_the_reference_core():
             if not n.startswith("__")}
     assert methods - port == SERVICE_NOT_YET
     assert port - methods == set()
-    assert "as_migration" not in inspect.signature(
+    assert "as_migration" in inspect.signature(
         PlacementService.refit).parameters
     assert "as_migration" in inspect.signature(
         ref_core.PlacementService.refit).parameters
+    for name in ("refit", "plan_migration"):
+        assert list(inspect.signature(
+            getattr(PlacementService, name)).parameters) == list(
+            inspect.signature(getattr(ref_core.PlacementService,
+                                      name)).parameters)
+
+
+def test_port_exports_the_reference_online():
+    import repro.online as ref_online
+    import repro_torch.online as online
+
+    want = sorted(n for n in dir(ref_online) if not n.startswith("_")
+                  and not inspect.ismodule(getattr(ref_online, n)))
+    assert sorted(online.__all__) == want
+    assert all(hasattr(online, n) for n in online.__all__)

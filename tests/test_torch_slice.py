@@ -129,10 +129,14 @@ def test_port_imports_neither_jax_nor_the_reference():
         "import sys\n"
         "from repro_torch.core import Simulator, lmbr, random_workload\n"
         "from repro_torch import flags\n"
+        "import repro_torch.online\n"
         "flags.set_variant('peeldevice+spanrounddevice')\n"
         "hg = random_workload(60, 120, density=4, seed=1).hypergraph\n"
         "res = Simulator(6, 14, device='cpu').run(hg, lmbr, max_moves=10)\n"
         "assert res.summary()['fit_peel'] == 'device'\n"
+        "res = Simulator(6, 14, device='cpu').run_online(\n"
+        "    hg, lmbr, max_moves=10, events=[(30, 'down', 1)])\n"
+        "assert res.summary()['partitions_down'] == 1\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"

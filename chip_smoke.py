@@ -136,6 +136,36 @@ Phases, each printed on a line of its own:
                  kernel route against the plain route on the card (logits
                  within 1e-3) and teacher-forced decode after prefill
                  against the cache-free forward (within 2e-3).
+10. health     — ``Simulator(40, 50).run_online`` of fig6's paper default
+                 (lmbr ``max_moves=120``) under the flags-built
+                 ``HealthMonitor`` (``HEALTH_VARIANT``: snapshots every 100
+                 queries, window 4, skew SLO 3.0), with a storm (partitions
+                 3, 5 and 7 down at query 1 000, no automatic repair, a
+                 repair pass at 2 500, back at 2 501) and with no events;
+                 each run on the card and again at ``device="cpu"``, held
+                 against its CPU twin and the JAX package's values
+                 (``HEALTH_HELD``: the summary with ``alerts_fired`` /
+                 ``alerts_resolved``, sha256s of spans and member, the
+                 monitor's transitions); launches as the twin's dispatch.
+                 The storm fires and resolves degraded_rate, and the same
+                 storm unmonitored serves the same spans, access load and
+                 member; the clean replay fires nothing.
+11. scale      — the cluster-scale pipeline at bench_scale's sizes:
+                 ``web_scale_chunks(seed=0)`` (100 000 items, 1 000 000
+                 queries) through ``StreamingHypergraphBuilder``, plain and
+                 with duplicates merged (host only); the sharded lmbr fits
+                 fit-quick (10 000 items, 50 000 queries on 32 x 650, 8
+                 shards) and web-mid (2 500 items, 10 000 queries on 24 x
+                 210, 4 shards), serial, with their avg_span on the span
+                 engine; ``PlacementService.fit_sharded`` of web-mid with
+                 a profile and the durability pass.  Each run is held
+                 against its CPU twin (run after the card runs) and the JAX
+                 package's values (``SCALE_HELD``), with launches as the
+                 twin's dispatch and the peel's launches printed by
+                 (K, U) class; then fit-quick (on
+                 min(8, cores), at least 2, workers) and web-mid (on 2)
+                 once more with their shards on spawned card workers, each
+                 equal to its serial fit.
 
 ``--profile`` runs each fit once more under torch.profiler and the
 package's tracer, and one serving batch (prefill, 8 decode steps) under
@@ -147,7 +177,8 @@ time per launch; for placement-api, service-fit split into HPA, the LMBR
 move loop, the durability pass and the plan's spans, with each placement
 kernel's device time per launch; for online, the drift run split into
 the fit, routing, the refits and the rest, with the device's idle
-share).
+share; for scale, fit-quick's serial fit split into its shard, fit,
+merge and repair stages, with the device's idle share).
 
 Then: the card's name and power limit (nvidia-smi), one JSON line with
 every kernel's numbers, and the device line.  Any failed check raises and
@@ -173,7 +204,8 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12       # H100 SXM non-tensor fp32, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores, data sheet
 PHASES = ("build", "kernels", "fit-stress", "fit-paper", "paper-algos",
-          "placement-api", "online", "serve", "serve-check")
+          "placement-api", "online", "serve", "serve-check", "health",
+          "scale")
 PAPER_NODES = 69429          # ibm10, the largest fig9 circuit
 # paper-algos: the workloads (generator, arguments) and the runs (workload,
 # partitions, capacity, algorithm, extra arguments, avg_span of the JAX
@@ -402,6 +434,173 @@ ONLINE_HELD = {
         "drops": 0,
         "avg_span_before": 6.198,
         "avg_span_after": 5.9755,
+    },
+}
+
+# health: fig6's paper default (lmbr, 120 moves, on 40 x 50) served under
+# the flags-built health monitor, each run with its events and the values
+# it holds, each what the JAX package gives for the same call on the CPU
+# (tests/test_torch_chip_smoke_constants.py recomputes them).  The storm
+# is benchmarks/bench_obs.py:239-244 at N 40: partitions 3, 5 and 7 down at
+# query 1 000 with no automatic repair, a repair pass at 2 500, the
+# partitions back at 2 501; degraded_rate fires and resolves.
+HEALTH_VARIANT = ("peeldevice+spandevice+routermb64+obscounters+obssnap100"
+                  "+obshealth1+healthw4+healthskew3.0")
+HEALTH_OFF_VARIANT = "peeldevice+spandevice+routermb64"
+HEALTH_KERNELS = ("span_gain", "lockstep_peel")
+HEALTH_EVENTS = {
+    "health-storm": ((1000, "down", 3), (1000, "down", 5),
+                     (1000, "down", 7), (2500, "repair", 1),
+                     (2501, "up", 3), (2501, "up", 5), (2501, "up", 7)),
+    "health-clean": (),
+}
+HEALTH_HELD = {
+    "health-storm": {
+        "algorithm": "lmbr",
+        "avg_span": 5.051,
+        "max_span": 11,
+        "energy_kj": 8262.24,
+        "shipped_gb": 16384.0,
+        "rf": 1.205,
+        "load_imbalance": 1.524,
+        "active_machines": 36,
+        "cluster_power_w": 9400.0,
+        "fit_gain_calls": 11160,
+        "fit_gain_cache_hits": 1126,
+        "fit_gain_fp_hits": 2158,
+        "fit_peel_pairs": 7456,
+        "fit_moves": 120,
+        "fit_gain_cache": True,
+        "fit_lmbr_epochs": "item",
+        "fit_cache_hit_rate": 0.2942652329749104,
+        "served_queries": 3471,
+        "microbatches": 65,
+        "plan_swaps": 0,
+        "degraded_queries": 529,
+        "partitions_down": 3,
+        "repaired_items": 73,
+        "unrepairable_items": 0,
+        "alerts_fired": 1,
+        "alerts_resolved": 1,
+        "spans_sha256": "5ef4618ababddc8427fe38c814af3b4b"
+                        "1dfe793dc9e3e196a36d06486e636268",
+        "member_sha256": "fb2a258236d975e82be3f9821ed8ea14"
+                         "fd4dbc777f33a1bbca5259e5a6d3afc3",
+        "history": [["degraded_rate", "fire", 1192.0],
+                    ["degraded_rate", "resolve", 2949.0]],
+    },
+    "health-clean": {
+        "algorithm": "lmbr",
+        "avg_span": 5.155,
+        "max_span": 11,
+        "energy_kj": 9701.92,
+        "shipped_gb": 19338.0,
+        "rf": 1.132,
+        "load_imbalance": 1.344,
+        "active_machines": 36,
+        "cluster_power_w": 9400.0,
+        "fit_gain_calls": 11160,
+        "fit_gain_cache_hits": 1126,
+        "fit_gain_fp_hits": 2158,
+        "fit_peel_pairs": 7456,
+        "fit_moves": 120,
+        "fit_gain_cache": True,
+        "fit_lmbr_epochs": "item",
+        "fit_cache_hit_rate": 0.2942652329749104,
+        "served_queries": 4000,
+        "microbatches": 63,
+        "plan_swaps": 0,
+        "degraded_queries": 0,
+        "partitions_down": 0,
+        "repaired_items": 0,
+        "unrepairable_items": 0,
+        "alerts_fired": 0,
+        "alerts_resolved": 0,
+        "spans_sha256": "a3240cb2093616a28c47ce2edf640071"
+                        "a797bd4b15235495d77873bb2882ad21",
+        "member_sha256": "3ce9afb3ff3a1d59610752b5649abd42"
+                         "b383ef441104c33264ec53ba706a993e",
+        "history": [],
+    },
+}
+
+# scale: benchmarks/bench_scale.py's streaming tier and sharded fits
+# (:127-130, :248-265) through the port's entry points, each run with the
+# kernels it must launch (as often as the CPU twin's dispatch calls their
+# wrappers) and the values it holds, each what the JAX package gives for
+# the same call on the CPU (tests/test_torch_chip_smoke_constants.py
+# recomputes them).  Each fit: the web_scale_workload arguments,
+# partitions, capacity and fit arguments; the pooled runs' worker counts
+# (fit-quick's follows the host's cores, as bench_scale's does).
+SCALE_VARIANT = "peeldevice+spandevice"
+SCALE_RUNS = {
+    "stream": (),
+    "fit-quick": ("span_gain", "lockstep_peel", "cover_rounds"),
+    "web-mid": ("span_gain", "lockstep_peel", "cover_rounds"),
+    "service": ("span_gain", "lockstep_peel"),
+}
+SCALE_FITS = {
+    "fit-quick": (dict(num_items=10_000, num_queries=50_000,
+                       num_clusters=256, seed=0), 32, 650,
+                  dict(num_shards=8, max_moves=100, boundary_repair=64)),
+    "web-mid": (dict(num_items=2500, num_queries=10_000, num_clusters=48,
+                     cross_frac=0.05, seed=0), 24, 210,
+                dict(num_shards=4, max_moves=150, boundary_repair=128)),
+}
+SCALE_POOLED = {"fit-quick": None, "web-mid": 2}
+SCALE_STATS = ("shards", "components", "boundary_edges", "boundary_cost",
+               "shard_moves", "repair_moves")
+SCALE_SECONDS = ("shard_seconds", "fit_seconds", "merge_seconds",
+                 "repair_seconds")
+SCALE_SERVICE_EPS = 0.02
+SCALE_HELD = {
+    "stream": {
+        "plain": {
+            "edges": 1000000,
+            "pins": 4780516,
+            "csr_sha256": "1518c176106344986f15ace5c9fd80b0"
+                          "0aba43b847c485089035d7902c52e59a",
+        },
+        "merged": {
+            "edges": 966454,
+            "pins": 4671425,
+            "csr_sha256": "268999a5a46c625410a2e24e3aaee6be"
+                          "84947030bed31fe8f590cbaa48f1f428",
+        },
+    },
+    "fit-quick": {
+        "shards": 8,
+        "components": 2,
+        "boundary_edges": 7933,
+        "boundary_cost": 10025.0,
+        "shard_moves": 255,
+        "repair_moves": 64,
+        "member_sha256": "e9e1ef48e90f7306536a85d2742081b0"
+                         "bade42de63ff9796eb0446db6b1ef4c1",
+        "avg_span": 1.41094,
+    },
+    "web-mid": {
+        "shards": 4,
+        "components": 1,
+        "boundary_edges": 1783,
+        "boundary_cost": 1799.0,
+        "shard_moves": 232,
+        "repair_moves": 128,
+        "member_sha256": "7f106e3596d76c0185fb0cb77a9f4ee4"
+                         "0f741ca950753eb6baa05614b5ead85f",
+        "avg_span": 1.3408,
+    },
+    "service": {
+        "json_sha256": "65431e2e4484b88fde6f19aadaa69051"
+                       "aaf91937ef981e9904ae633dc40c9884",
+        "algorithm": "lmbr+sharded",
+        "durability_copies": 965,
+        "shards": 4,
+        "components": 1,
+        "boundary_edges": 1783,
+        "boundary_cost": 1799.0,
+        "shard_moves": 232,
+        "repair_moves": 128,
     },
 }
 
@@ -757,14 +956,18 @@ def phase_kernels(np, torch, dev):
                      == bool(lib.lockstep_peel_uses_shared_memory(K, U)),
                      f"lockstep_peel size class of K={K} U={U}: ops.py and "
                      "the source disagree")
-    # pow2 classes of the LMBR dispatch (at most 2^22 floats per launch),
-    # one class in global scratch, then the path's shapes: (128, 64) at G
-    # 1, 8 (the headline) and 512 (a full launch), (64, 64) and (64, 32),
-    # odd K and U, fit-paper's widest class (128, 256), a tie-heavy batch,
-    # and weights too heavy for the packed argmin
+    # pow2 classes of the LMBR dispatch (at most 2^22 floats per launch):
+    # the widest warp class, then the global-scratch class, with the scale
+    # fits' heaviest cells (K, U) (4096, 1024), (4096, 512) and (2048, 512);
+    # then the warp class at fit-stress's and fit-paper's shapes: (128, 64)
+    # at G 1, 8 (the headline) and 512 (a full launch), (64, 64) and
+    # (64, 32), odd K and U, fit-paper's widest class (128, 256), a
+    # tie-heavy batch, and weights too heavy for the packed argmin
     lp = []
     cases = [((256, 256, 64), "random"), ((64, 1024, 64), "random"),
-             ((1, 8192, 512), "random"), ((1, 128, 64), "random"),
+             ((1, 8192, 512), "random"), ((1, 4096, 1024), "random"),
+             ((2, 4096, 512), "random"), ((2, 2048, 512), "random"),
+             ((1, 128, 64), "random"),
              ((8, 128, 64), "random"), ((512, 128, 64), "random"),
              ((3, 64, 64), "random"), ((3, 64, 32), "random"),
              ((4, 101, 97), "random"), ((3, 128, 256), "random"),
@@ -821,10 +1024,11 @@ def phase_kernels(np, torch, dev):
                        design_ops=design_ops,
                        tpu_design_ops=float(rounds.max()) * 2 * K * U * G,
                        **extra))
-    _require(not lp[2]["smem"], "global-scratch peel class not exercised")
-    _require(all(r["smem"] for r in lp[3:]), "a path shape left the warp "
-             "class")
-    rows["lockstep_peel"] = dict(lp[4], shapes=lp)   # (128, 64) at G 8
+    _require(not any(r["smem"] for r in lp[1:6]),
+             "a global-scratch peel shape left its class")
+    _require(all(r["smem"] for r in lp[6:]), "a warp-class peel shape left "
+             "the warp class")
+    rows["lockstep_peel"] = dict(lp[7], shapes=lp)   # (128, 64) at G 8
 
     parts = []
     for name, row in rows.items():
@@ -2244,6 +2448,317 @@ def _print_kernel_device_ms(rows, label: str, kernel: str) -> None:
               "profiler)", flush=True)
 
 
+# ------------------------------------------------------------------ health
+def health_inputs(np):
+    """The health runs' input, made by the port's generator: fig6's paper
+    default (``random_workload(1000, 4000, 3, 11, 20, seed=0)``)."""
+    from repro_torch import core
+
+    return dict(fig6=core.random_workload(1000, 4000, 3, 11, 20,
+                                          seed=0).hypergraph)
+
+
+def health_run(np, name, inp, device, monitored=True):
+    """One health run on ``device``: the storm or the clean replay served
+    under the flags-built monitor (or under no monitor); returns the held
+    values (``online_held`` and, monitored, the monitor's transitions as
+    [alert, kind, t]) and the result."""
+    from repro_torch import core, flags, obs
+
+    flags.set_variant(HEALTH_VARIANT if monitored else HEALTH_OFF_VARIANT)
+    obs.reset()
+    monitor = obs.HealthMonitor.from_flags() if monitored else None
+    res = core.Simulator(40, 50, device=device).run_online(
+        inp["fig6"], core.ALGORITHMS["lmbr"], name="lmbr", seed=0,
+        max_moves=120, events=list(HEALTH_EVENTS[name]), auto_repair=False,
+        health=monitor)
+    obs.reset()
+    held = online_held(np, res)
+    if monitor is not None:
+        held["history"] = [[h["alert"], h["kind"], h["t"]]
+                           for h in monitor.history]
+    return held, res
+
+
+def phase_health(np, torch, kernels, inp):
+    """Every run of ``HEALTH_EVENTS`` on the card, each inside its own
+    partition memo, held against the same call on the CPU (also in its own
+    memo) and against ``HEALTH_HELD``; launches as the CPU twin's dispatch
+    calls the wrappers.  The storm runs once more on the card with no
+    monitor and must serve the same spans, access load and member:
+    observation changes nothing."""
+    from repro_torch import core, flags
+
+    runs = []
+    for name in HEALTH_EVENTS:
+        label = f"health {name}"
+        _zero_counts(kernels)
+        t0 = time.perf_counter()
+        with core.fresh_partition_cache():
+            held, res = health_run(np, name, inp, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts(kernels)
+        t0 = time.perf_counter()
+        with core.fresh_partition_cache(), _DispatchCount() as dispatch:
+            cpu_held, cpu_res = health_run(np, name, inp, "cpu")
+        cpu_wall = time.perf_counter() - t0
+        flags.reset()
+        _require(held == cpu_held,
+                 f"{label}: {held} differs from the CPU run's {cpu_held}")
+        _require(held == HEALTH_HELD[name],
+                 f"{label}: {held} is not the reference's "
+                 f"{HEALTH_HELD[name]}")
+        _compare(np, res, cpu_res, label)
+        _require(launches == dispatch.counts,
+                 f"{label}: launches {launches} differ from the CPU "
+                 f"dispatch's {dispatch.counts}")
+        for kernel in HEALTH_KERNELS:
+            _require(launches[kernel] > 0,
+                     f"{label}: kernel {kernel} never launched")
+        line = ""
+        if HEALTH_EVENTS[name]:
+            _require(held["alerts_fired"] > 0 and held["alerts_resolved"] > 0,
+                     f"{label}: the storm fired or resolved no alert")
+            with core.fresh_partition_cache():
+                _, off = health_run(np, name, inp, "cuda", monitored=False)
+            flags.reset()
+            _require(np.array_equal(off.spans, res.spans)
+                     and np.array_equal(off.access_load, res.access_load)
+                     and np.array_equal(off.member, res.member),
+                     f"{label}: the monitor changed what was served")
+            line = " unmonitored_match=spans,access_load,member"
+        else:
+            _require(held["alerts_fired"] == 0 and not held["history"],
+                     f"{label}: the clean replay fired an alert")
+        print(f"{label}: {json.dumps(held)} wall_s={wall:.3f} "
+              f"cpu_wall_s={cpu_wall:.3f} cpu_match=bitwise "
+              f"reference_match=exact launches={launches} "
+              f"cpu_dispatch={dispatch.counts}{line}", flush=True)
+        runs.append(dict(name=name, launches=launches, wall=wall,
+                         cpu_wall=cpu_wall))
+    return runs
+
+
+# ------------------------------------------------------------------- scale
+def scale_inputs(np):
+    """The sharded fits' workloads, streamed by the port's generator."""
+    from repro_torch import core
+
+    return {name: core.web_scale_workload(**kw).hypergraph
+            for name, (kw, _, _, _) in SCALE_FITS.items()}
+
+
+def _csr_held(hg) -> dict:
+    return dict(edges=hg.num_edges, pins=hg.num_pins,
+                csr_sha256=_sha256(hg.edge_ptr.tobytes()
+                                   + hg.edge_nodes.tobytes()
+                                   + hg.edge_weights.tobytes()))
+
+
+def scale_service_profile(np):
+    """web-mid's partitions as a profile: capacity 210, fail probabilities
+    and access costs from seed 0, so that the durability pass at
+    ``SCALE_SERVICE_EPS`` copies the items held only where p > eps."""
+    from repro_torch import core
+
+    rng = np.random.default_rng(0)
+    return core.NodeProfile(
+        capacity=np.full(24, 210.0), fail_prob=rng.uniform(0.005, 0.05, 24),
+        power_idle=100.0, power_active=250.0,
+        access_cost=rng.uniform(0, 1, 24))
+
+
+def sharded_fit(name, inp, device, workers):
+    """``fit_sharded_placement`` of one of ``SCALE_FITS`` on ``device``."""
+    from repro_torch.scale import fit_sharded_placement
+
+    _, n, cap, kw = SCALE_FITS[name]
+    return fit_sharded_placement(inp[name], n, cap, seed=0, workers=workers,
+                                 device=device, **kw)
+
+
+def scale_run(np, name, inp, device):
+    """One scale run on ``device`` through the port's entry points (the
+    fits serial); returns the values it holds and the pipeline stats."""
+    from repro_torch import core
+    from repro_torch.scale import StreamingHypergraphBuilder
+
+    if name == "stream":
+        held = {}
+        for mode, merge in (("plain", False), ("merged", True)):
+            builder = StreamingHypergraphBuilder(
+                core.WEB_SCALE_DEFAULTS["num_items"], merge_duplicates=merge)
+            for ptr, pins in core.web_scale_chunks(seed=0):
+                builder.add_csr(ptr, pins)
+            held[mode] = _csr_held(builder.build())
+        return held, None
+    if name == "service":
+        _, n, _, kw = SCALE_FITS["web-mid"]
+        service = core.PlacementService("lmbr", seed=0, device=device)
+        plan = service.fit_sharded(
+            inp["web-mid"], n, profile=scale_service_profile(np), workers=1,
+            durability_eps=SCALE_SERVICE_EPS, **kw)
+        return dict(json_sha256=_sha256(plan.to_json()),
+                    algorithm=plan.algorithm,
+                    durability_copies=plan.stats["durability_copies"],
+                    **{k: plan.stats[k] for k in SCALE_STATS}), plan.stats
+    res = sharded_fit(name, inp, device, 1)
+    held = {k: res.stats[k] for k in SCALE_STATS}
+    held.update(member_sha256=_sha256(res.member.tobytes()),
+                avg_span=float(core.spans_for_workload(
+                    inp[name], res.placement, device=device).mean()))
+    return held, res.stats
+
+
+def scale_twins(np, inp) -> dict:
+    """The CPU twins of the scale runs, each inside its own partition memo
+    under ``SCALE_VARIANT``, counting the dispatch."""
+    from repro_torch import core, flags
+
+    out = {}
+    for name in SCALE_RUNS:
+        flags.set_variant(SCALE_VARIANT)
+        t0 = time.perf_counter()
+        with core.fresh_partition_cache(), _DispatchCount() as dispatch:
+            held, _ = scale_run(np, name, inp, "cpu")
+        out[name] = dict(held=held, wall=time.perf_counter() - t0,
+                         dispatch=dispatch.counts)
+        flags.reset()
+    return out
+
+
+def phase_scale(np, torch, kernels, inp):
+    """Every run of ``SCALE_RUNS`` on the card, each inside its own
+    partition memo, held against its CPU twin (``scale_twins``, run after
+    the card runs so that these have the host to themselves) and against
+    ``SCALE_HELD``, with launches as the twin's dispatch calls the
+    wrappers.  ``stream`` is host numpy and launches nothing.  Then the
+    fits of ``SCALE_POOLED`` once more with their shards on spawned card
+    workers: the pool must have run and the member must equal the serial
+    run's.  The pooled runs' launches are the parent's (the repair); the
+    workers' own are not counted."""
+    import os
+
+    from repro_torch import core, flags
+
+    card = {}
+    for name in SCALE_RUNS:
+        flags.set_variant(SCALE_VARIANT)
+        _zero_counts(kernels)
+        t0 = time.perf_counter()
+        with core.fresh_partition_cache():
+            held, stats = scale_run(np, name, inp, "cuda")
+        torch.cuda.synchronize()
+        card[name] = dict(
+            held=held, stats=stats, launches=_counts(kernels),
+            peel_classes=dict(kernels["lockstep_peel"].class_launches),
+            wall=time.perf_counter() - t0)
+        flags.reset()
+    twins = scale_twins(np, inp)
+    runs = []
+    for name, need in SCALE_RUNS.items():
+        label = f"scale {name}"
+        held, launches = card[name]["held"], card[name]["launches"]
+        twin = twins[name]
+        _require(held == twin["held"],
+                 f"{label}: {held} differs from the CPU run's {twin['held']}")
+        _require(held == SCALE_HELD[name],
+                 f"{label}: {held} is not the reference's "
+                 f"{SCALE_HELD[name]}")
+        _require(launches == twin["dispatch"],
+                 f"{label}: launches {launches} differ from the CPU "
+                 f"dispatch's {twin['dispatch']}")
+        for kernel in need:
+            _require(launches[kernel] > 0,
+                     f"{label}: kernel {kernel} never launched")
+        stats = card[name]["stats"] or {}
+        seconds = {k: stats[k] for k in SCALE_SECONDS if k in stats}
+        classes = ", ".join(f"K{k}.U{u}: {c}" for (k, u), c in sorted(
+            card[name]["peel_classes"].items(), key=lambda kv: -kv[1]))
+        print(f"{label}: {json.dumps(held)} wall_s={card[name]['wall']:.3f} "
+              f"cpu_wall_s={twin['wall']:.3f} cpu_match=bitwise "
+              f"reference_match=exact launches={launches} "
+              f"cpu_dispatch={twin['dispatch']}"
+              + (f" stage_s={json.dumps(seconds)}" if seconds else "")
+              + (f" peel_launches_by_class={{{classes}}}" if classes
+                 else ""), flush=True)
+        runs.append(dict(name=name, launches=launches,
+                         wall=card[name]["wall"], cpu_wall=twin["wall"]))
+    for name, workers in SCALE_POOLED.items():
+        if workers is None:
+            workers = max(2, min(8, os.cpu_count() or 1))
+        label = f"scale {name} pooled"
+        flags.set_variant(SCALE_VARIANT)
+        _zero_counts(kernels)
+        t0 = time.perf_counter()
+        with core.fresh_partition_cache():
+            res = sharded_fit(name, inp, "cuda", workers)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts(kernels)
+        flags.reset()
+        _require(res.stats["used_pool"] is True and
+                 res.stats["workers"] == workers,
+                 f"{label}: the shard fits did not run on {workers} "
+                 f"spawned workers: {res.stats}")
+        _require(_sha256(res.member.tobytes())
+                 == SCALE_HELD[name]["member_sha256"],
+                 f"{label}: the member differs from the serial run's")
+        _require({k: res.stats[k] for k in SCALE_STATS}
+                 == {k: card[name]["stats"][k] for k in SCALE_STATS},
+                 f"{label}: stats differ from the serial run's")
+        print(f"{label}: workers={workers} used_pool=True "
+              f"wall_s={wall:.3f} serial_wall_s={card[name]['wall']:.3f} "
+              f"member_match=serial parent_launches={launches} stage_s="
+              f"{json.dumps({k: res.stats[k] for k in SCALE_SECONDS})}",
+              flush=True)
+    return runs
+
+
+def phase_scale_profile(torch, inp):
+    """fit-quick's serial fit once more under torch.profiler and the
+    package tracer: the pipeline's stages (``scale.shard``, ``scale.fit``,
+    ``scale.merge``, ``scale.repair``), the device's busy time and idle
+    share, and each placement kernel's device ms per launch.  Numbers are
+    under the profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import core, flags, obs
+
+    flags.set_variant(SCALE_VARIANT + "+obstrace")
+    obs.reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with core.fresh_partition_cache():
+            sharded_fit("fit-quick", inp, "cuda", 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    stages = {key: sum(e["dur"] for e in obs.tracer().spans(key)) / 1e6
+              for key in ("scale.shard", "scale.fit", "scale.merge",
+                          "scale.repair")}
+    flags.reset()
+    obs.reset()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    label = "profile scale fit-quick"
+    print(f"{label}: wall_s={wall:.3f} "
+          + " ".join(f"{k}_s={v:.3f}" for k, v in stages.items()) + " "
+          + (f"device_busy_s={busy:.4f} "
+             f"device_idle_share={1 - busy / wall:.4f}" if rows else
+             "device time not measured (the profiler saw no device "
+             "activity)"), flush=True)
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.key[:70]!r} count={e.count} "
+              f"device_ms={e.self_device_time_total / 1e3:.3f}")
+    for kernel in ("span_gain", "lockstep_peel", "cover_rounds"):
+        _print_kernel_device_ms(rows, label, kernel)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -2365,6 +2880,19 @@ def main(argv=None) -> int:
             phase_serve_profile(np, torch, dev)
     if "serve-check" in phases:
         phase_serve_check(np, torch, kernels, dev)
+    if "health" in phases:
+        health_runs = phase_health(np, torch, fit_kernels, health_inputs(np))
+        path_launches["health"] = {
+            name: sum(r["launches"][name] for r in health_runs)
+            for name in fit_kernels}
+    if "scale" in phases:
+        inp = scale_inputs(np)
+        scale_runs = phase_scale(np, torch, fit_kernels, inp)
+        path_launches["scale"] = {
+            name: sum(r["launches"][name] for r in scale_runs)
+            for name in fit_kernels}
+        if args.profile:
+            phase_scale_profile(torch, inp)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -6,7 +6,9 @@ attribution) is numpy; device work runs on an explicit ``device`` through
 hand-written CUDA kernels (``repro_torch.kernels``), each with a plain
 PyTorch version that serves CPU tensors.  ``repro_torch.online`` serves
 queries against a changing layout (router, drift refits, failover,
-live migration).  The model stack
+live migration), ``repro_torch.obs`` watches it (metrics, traces, SLO
+health alerts), and ``repro_torch.scale`` fits million-query traces by
+shards (streaming ingestion, sharding, pooled fits).  The model stack
 (``repro_torch.configs``, ``repro_torch.models``,
 ``repro_torch.launch.serve``) serves hymba-1.5b the same way.
 """

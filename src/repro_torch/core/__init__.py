@@ -7,7 +7,7 @@ Layout:
   hypergraph  — workload model (queries = hyperedges over data items)
   cluster     — node profiles, the scalar/vector capacity seam, durability
   workloads   — Random / Snowflake / TPC-H-hetero / LMBR-stress / ISPD-like
-                generators
+                / web-scale generators
   setcover    — greedy replica selection and the batched span engine
   hpa         — multilevel hypergraph partitioner (hMETIS stand-in)
   algorithms  — IHPA, DS, PRA, LMBR (+ Random, HPA baselines)
@@ -70,12 +70,15 @@ from .simulator import EnergyModel, SimulationResult, Simulator  # noqa: F401
 from .workloads import (  # noqa: F401
     LMBR_STRESS_DEFAULTS,
     PAPER_DEFAULTS,
+    WEB_SCALE_DEFAULTS,
     Workload,
     ispd_like_workload,
     lmbr_stress_workload,
     random_workload,
     snowflake_workload,
     tpch_heterogeneous,
+    web_scale_chunks,
+    web_scale_workload,
 )
 from .placement_service import (  # noqa: F401
     HierarchicalPlan,

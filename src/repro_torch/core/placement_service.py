@@ -7,6 +7,9 @@ Wraps the paper's algorithms behind a serializable, hierarchical service:
     selection), span statistics (batched engine on the plan's device).
   * PlacementService.fit        — one-level placement (paper §4), with an
     optional durability pass (`cluster.ensure_durability`).
+  * PlacementService.fit_sharded — cluster-scale fit through the
+    `repro_torch.scale` pipeline (shard, per-shard fits, merge, boundary
+    repair), with the same profile and durability handling.
   * PlacementService.fit_hierarchical — two-level pod/host placement: span
     is minimized at the pod level first, then per pod at the host level.
   * PlacementService.refit      — incremental re-placement when the workload
@@ -262,6 +265,70 @@ class PlacementService:
         return PlacementPlan(
             pl.member, capacity, hg.node_weights, self.algorithm,
             stats=pl.stats, device=self.device,
+        )
+
+    # -------------------------------------------------------------- sharded
+    def fit_sharded(
+        self,
+        workload,
+        num_partitions: int,
+        capacity: float | None = None,
+        num_items: int | None = None,
+        node_weights: np.ndarray | None = None,
+        query_weights: np.ndarray | None = None,
+        num_shards: int | None = None,
+        workers: int | None = None,
+        boundary_repair: int | None = None,
+        profile: NodeProfile | None = None,
+        durability_eps: float | None = None,
+        **algo_kwargs,
+    ) -> PlacementPlan:
+        """Cluster-scale fit through the `repro_torch.scale` pipeline.
+
+        ``workload`` is either a built `Hypergraph` (the streaming-ingestion
+        path — e.g. `StreamingHypergraphBuilder.build()`) or a query list as
+        `fit` takes.  ``num_shards`` / ``workers`` / ``boundary_repair``
+        default to ``flags.FLAGS["scale_shards" / "scale_workers" /
+        "scale_boundary_repair"]``.  The result is deterministic for fixed
+        inputs and seed regardless of worker count (serial and pooled
+        execution are bit-identical), and the returned plan carries the
+        pipeline diagnostics in ``.stats`` (shards, boundary_edges,
+        boundary_cost, per-stage seconds, ...).  The fits run on the
+        service's device, pooled workers included."""
+        from ..scale import fit_sharded_placement
+
+        capacity, profile = self._resolve_profile(
+            profile, num_partitions, capacity
+        )
+        if capacity is None:
+            raise ValueError("pass capacity or a NodeProfile")
+        if isinstance(workload, Hypergraph):
+            hg = workload
+            if node_weights is not None or query_weights is not None:
+                raise ValueError(
+                    "pass weights inside the Hypergraph, not alongside it"
+                )
+        else:
+            hg = Hypergraph.from_edges(
+                workload, num_nodes=num_items,
+                node_weights=node_weights, edge_weights=query_weights,
+            )
+        with _obs.tracer().span("service.fit_sharded",
+                                algorithm=self.algorithm, n=num_partitions):
+            res = fit_sharded_placement(
+                hg, num_partitions, capacity, algorithm=self.algorithm,
+                seed=self.seed, nruns=self.nruns, num_shards=num_shards,
+                workers=workers, boundary_repair=boundary_repair,
+                device=self.device, **algo_kwargs,
+            )
+        res.placement.validate()
+        self._apply_durability(
+            res.placement, profile, num_partitions, capacity, durability_eps
+        )
+        return PlacementPlan(
+            res.placement.member, normalize_capacity(capacity),
+            hg.node_weights, f"{self.algorithm}+sharded", stats=res.stats,
+            device=self.device,
         )
 
     # -------------------------------------------------------------- 2-level

@@ -281,13 +281,14 @@ class Simulator:
         The router, the failover manager, the migration executor and the
         detector's plan share ONE numpy member matrix: masking, repair
         copies and landed transfers are in-place edits that the next
-        microbatch sees.  Health monitoring (``health``, ``on_alert``) is
-        not ported yet and raises NotImplementedError."""
-        if health is not None or on_alert is not None:
-            raise NotImplementedError(
-                "run_online health monitoring is not ported yet "
-                "(ROADMAP Queue 1 item 7)"
-            )
+        microbatch sees.
+
+        ``health`` (a `repro_torch.obs.HealthMonitor`, or one built from
+        the flags under ``obs_health``) observes every periodic registry
+        snapshot, on the attempted-queries time axis; ``on_alert(alert,
+        firing)`` receives its transitions.  It needs ``obs_level`` other
+        than ``"off"`` and ``obs_snapshot_every`` > 0, reads only, and adds
+        ``alerts_fired`` / ``alerts_resolved`` to the serving counters."""
         from .. import flags as _flags
         from ..online import DriftDetector, FailoverManager, ReplicaRouter
         from ..online.migration import (
@@ -318,6 +319,16 @@ class Simulator:
         )
         failover = FailoverManager(live, profile=self.profile)
 
+        _fit_base: list = []  # lazy cache: detector AND health share it
+
+        def _fit_baseline() -> float:
+            if not _fit_base:
+                _fit_base.append(float(batched_spans_csr(
+                    hg.edge_ptr, hg.edge_nodes, pl.member,
+                    device=self.device,
+                ).mean()) if hg.num_edges else 0.0)
+            return _fit_base[0]
+
         detector = None
         if service is not None:
             detector = DriftDetector(
@@ -325,9 +336,7 @@ class Simulator:
                               algo_name, device=self.device),
                 service, refit_moves=refit_moves,
             )
-            detector.set_baseline(float(batched_spans_csr(
-                hg.edge_ptr, hg.edge_nodes, pl.member, device=self.device,
-            ).mean()) if hg.num_edges else 0.0)
+            detector.set_baseline(_fit_baseline())
 
         migrator: MigrationExecutor | None = None
         migration_ticks = 0
@@ -464,6 +473,26 @@ class Simulator:
         _reg = _obs.registry()
         next_snap = snap_every if (snap_every > 0 and _reg.active) else 0
 
+        # health monitoring rides on the periodic snapshots: flags-armed
+        # construction here, or a caller-supplied monitor (inspectable
+        # after the run).  It evaluates between microbatches and changes
+        # no serving state.
+        if health is None and bool(_flags.FLAGS.get("obs_health", False)):
+            from ..obs.health import HealthMonitor
+
+            health = HealthMonitor.from_flags(on_alert=on_alert)
+        if health is not None:
+            if on_alert is not None and health.on_alert is None:
+                health.on_alert = on_alert
+            if not _reg.active or snap_every <= 0:
+                raise ValueError(
+                    "health monitoring needs obs_level != 'off' and "
+                    "obs_snapshot_every > 0 (the monitor consumes the "
+                    "periodic registry snapshots)"
+                )
+            if health.baseline_span is None:
+                health.set_baseline(_fit_baseline())
+
         def _emit_snapshot() -> None:
             served = int(router.stats["served_queries"])
             _reg.set("online_served_queries", served)
@@ -481,6 +510,10 @@ class Simulator:
                     windowed_avg_span=(detector.windowed_avg_span
                                        if detector is not None else 0.0),
                 )
+            if health is not None:
+                # deterministic time axis: attempted queries, so windows
+                # and rates are reproducible run to run
+                health.observe(_reg.snapshot(), t=float(served + degraded))
 
         while pos < nq:
             while ev_i < len(ev) and ev[ev_i][0] <= pos:
@@ -575,6 +608,11 @@ class Simulator:
                 drift_fires=int(detector.stats["drift_fires"]),
                 refits=int(detector.stats["refits"]),
                 windowed_avg_span=round(detector.windowed_avg_span, 4),
+            )
+        if health is not None:
+            online_stats.update(
+                alerts_fired=int(health.stats["alerts_fired"]),
+                alerts_resolved=int(health.stats["alerts_resolved"]),
             )
         if mig_totals["migrations"]:
             if migrator is not None:  # trace ended mid-migration

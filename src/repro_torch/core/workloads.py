@@ -8,7 +8,10 @@
   * lmbr_stress_workload — the LMBR stress tier (2 500 items, 10 000
     queries, density 12, 64 partitions);
   * ispd_like_workload   — sparse hypergraphs matching ISPD98 statistics
-    (density ~1.1, mostly 2-3 pins with a geometric tail).
+    (density ~1.1, mostly 2-3 pins with a geometric tail);
+  * web_scale_chunks / web_scale_workload — the web-scale tier (100 000
+    items in power-law content clusters, a million queries with a thin
+    cross-cluster seam), streamed as raw CSR chunks.
 
 Copies of the JAX package's generators: the same seed gives byte-identical
 CSR arrays and weights.
@@ -25,7 +28,8 @@ from .hypergraph import Hypergraph
 __all__ = [
     "Workload", "random_workload", "snowflake_workload",
     "ispd_like_workload", "tpch_heterogeneous", "lmbr_stress_workload",
-    "PAPER_DEFAULTS", "LMBR_STRESS_DEFAULTS",
+    "PAPER_DEFAULTS", "LMBR_STRESS_DEFAULTS", "WEB_SCALE_DEFAULTS",
+    "web_scale_chunks", "web_scale_workload",
 ]
 
 PAPER_DEFAULTS = dict(
@@ -202,6 +206,81 @@ def lmbr_stress_workload(
     )
     wl.name = f"lmbr-stress(V={num_items},E={num_queries})"
     return wl
+
+
+# the web-scale tier: item catalog clustered into power-law content
+# domains, a million queries with power-law domain popularity and a thin
+# seam of cross-domain queries — the structure repro_torch.scale's sharder
+# exploits.  Capacity is ~2x the feasibility minimum.
+WEB_SCALE_DEFAULTS = dict(
+    num_items=100_000, num_queries=1_000_000, num_partitions=256,
+    capacity=800, num_clusters=2048, min_query=2, max_query=8,
+    cross_frac=0.02,
+)
+
+
+def web_scale_chunks(
+    num_items: int = WEB_SCALE_DEFAULTS["num_items"],
+    num_queries: int = WEB_SCALE_DEFAULTS["num_queries"],
+    num_clusters: int = WEB_SCALE_DEFAULTS["num_clusters"],
+    min_query: int = WEB_SCALE_DEFAULTS["min_query"],
+    max_query: int = WEB_SCALE_DEFAULTS["max_query"],
+    cross_frac: float = WEB_SCALE_DEFAULTS["cross_frac"],
+    skew: float = 1.1,
+    seed: int = 0,
+    chunk: int = 200_000,
+):
+    """Yield the web-scale trace as raw CSR chunks ``(edge_ptr, edge_nodes)``
+    — the streaming ingestion shape
+    (`repro_torch.scale.StreamingHypergraphBuilder.add_csr`).  Pins may
+    repeat within a query (canonicalization dedups).
+
+    Items split into ``num_clusters`` power-law-sized content clusters;
+    each query samples one cluster by power-law popularity and draws
+    ``min_query..max_query`` pins inside it; a ``cross_frac`` fraction
+    draws its second half from another cluster (the cross-shard seam).
+    Vectorized over each chunk; the chunk size shapes the random stream."""
+    num_clusters = min(num_clusters, max(1, num_items // 4))
+    rng = np.random.default_rng(seed)
+    raw = (np.arange(1, num_clusters + 1, dtype=np.float64)) ** (-skew)
+    csize = np.maximum(4, (raw / raw.sum() * num_items).astype(np.int64))
+    # reconcile the rounding drift against the biggest cluster
+    csize[0] += num_items - int(csize.sum())
+    cstart = np.zeros(num_clusters, dtype=np.int64)
+    np.cumsum(csize[:-1], out=cstart[1:])
+    pop = np.cumsum(raw / raw.sum())
+    done = 0
+    while done < num_queries:
+        B = min(chunk, num_queries - done)
+        c1 = np.searchsorted(pop, rng.random(B)).clip(0, num_clusters - 1)
+        c2 = rng.integers(0, num_clusters, size=B)
+        cross = rng.random(B) < cross_frac
+        k = rng.integers(min_query, max_query + 1, size=B)
+        ptr = np.zeros(B + 1, dtype=np.int64)
+        np.cumsum(k, out=ptr[1:])
+        pin_q = np.repeat(np.arange(B, dtype=np.int64), k)
+        pos = np.arange(int(ptr[-1]), dtype=np.int64) - np.repeat(ptr[:-1], k)
+        use2 = cross[pin_q] & (pos >= (k[pin_q] // 2))
+        cl = np.where(use2, c2[pin_q], c1[pin_q])
+        pins = cstart[cl] + rng.integers(0, csize[cl])
+        yield ptr, pins
+        done += B
+
+
+def web_scale_workload(seed: int = 0, chunk: int = 200_000, **kw) -> Workload:
+    """The web-scale tier as a built `Workload`, streamed through
+    `StreamingHypergraphBuilder`.  ``**kw`` forwards to
+    `web_scale_chunks`."""
+    from ..scale.stream import StreamingHypergraphBuilder  # avoid cycle
+
+    params = {k: v for k, v in WEB_SCALE_DEFAULTS.items()
+              if k not in ("num_partitions", "capacity")}
+    params.update(kw)
+    builder = StreamingHypergraphBuilder(params["num_items"])
+    for ptr, pins in web_scale_chunks(seed=seed, chunk=chunk, **params):
+        builder.add_csr(ptr, pins)
+    hg = builder.build()
+    return Workload(hg, f"web-scale(V={hg.num_nodes},E={hg.num_edges})")
 
 
 def ispd_like_workload(

@@ -41,6 +41,29 @@ Online serving (``repro_torch.online``, ``Simulator.run_online``):
   (``mighead<x>``, capacity slack of the union layout).
 * ``obs_snapshot_every`` (``obssnap<n>``): a metrics snapshot every n
   served queries (0: none).
+
+Health monitoring (``repro_torch.obs.health``, ``run_online``):
+
+* ``obs_health`` (``obshealth<0|1>``): arm the flags-built
+  `HealthMonitor` inside ``run_online``; it needs ``obs_level`` other
+  than ``"off"`` and ``obs_snapshot_every`` > 0, and reads only.
+* ``health_window`` (``healthw<n>``, >= 2): snapshots per windowed rule;
+  ``health_hysteresis`` (``healthhyst<n>``, >= 1): clear evaluations
+  before a firing alert resolves.
+* SLO thresholds, 0 turning a rule off: ``health_span_slo``
+  (``healthspan<x>``, windowed avg span over the fit's),
+  ``health_p99_slo`` (``healthp99<x>``, seconds of microbatch latency),
+  ``health_degraded_slo`` (``healthdeg<x>``), ``health_skew_slo``
+  (``healthskew<x>``, p99 / mean partition load delta),
+  ``health_backlog_slo`` (``healthbacklog<x>``, migration in flight);
+  ``health_anomaly_z`` (``healthz<x>``): EWMA z-score anomaly alerts.
+
+Cluster-scale fits (``repro_torch.scale``):
+
+* ``scale_shards`` (``shards<n>``; 0: ``max(1, num_partitions // 8)``),
+  ``scale_workers`` (``scalew<n>``, >= 1; above 1 the shard fits run on
+  spawned worker processes), ``scale_boundary_repair`` (``brepair<n>``:
+  the LMBR move budget over the cross-shard edges; 0 turns it off).
 """
 
 from __future__ import annotations
@@ -68,6 +91,18 @@ _DEFAULTS = dict(
     migration_headroom=0.10,
     obs_level="off",
     obs_snapshot_every=0,
+    obs_health=False,
+    health_window=8,
+    health_hysteresis=2,
+    health_span_slo=1.5,
+    health_p99_slo=0.0,
+    health_degraded_slo=0.02,
+    health_skew_slo=4.0,
+    health_backlog_slo=0.0,
+    health_anomaly_z=0.0,
+    scale_shards=0,
+    scale_workers=1,
+    scale_boundary_repair=256,
 )
 
 FLAGS = dict(_DEFAULTS)
@@ -150,6 +185,25 @@ def set_variant(spec: str):
             if head < 0:
                 raise ValueError(f"migration_headroom must be >= 0, got {head}")
             FLAGS["migration_headroom"] = head
+        elif part.startswith("shards"):
+            shards = int(part[len("shards"):])
+            if shards < 0:
+                raise ValueError(f"scale_shards must be >= 0, got {shards}")
+            FLAGS["scale_shards"] = shards
+        elif part.startswith("scalew"):
+            workers = int(part[len("scalew"):])
+            if workers < 1:
+                raise ValueError(f"scale_workers must be >= 1, got {workers}")
+            FLAGS["scale_workers"] = workers
+        elif part.startswith("brepair"):
+            moves = int(part[len("brepair"):])
+            if moves < 0:
+                raise ValueError(
+                    f"scale_boundary_repair must be >= 0, got {moves}"
+                )
+            FLAGS["scale_boundary_repair"] = moves
+        elif part.startswith("obshealth"):
+            FLAGS["obs_health"] = bool(int(part[len("obshealth"):]))
         elif part.startswith("obssnap"):
             every = int(part[len("obssnap"):])
             if every < 0:
@@ -161,6 +215,31 @@ def set_variant(spec: str):
             if lv not in ("off", "counters", "trace"):
                 raise ValueError(f"unknown obs level {lv!r}")
             FLAGS["obs_level"] = lv
+        elif part.startswith("healthw"):
+            w = int(part[len("healthw"):])
+            if w < 2:
+                raise ValueError(f"health_window must be >= 2, got {w}")
+            FLAGS["health_window"] = w
+        elif part.startswith("healthhyst"):
+            h = int(part[len("healthhyst"):])
+            if h < 1:
+                raise ValueError(f"health_hysteresis must be >= 1, got {h}")
+            FLAGS["health_hysteresis"] = h
+        elif part.startswith("healthspan"):
+            FLAGS["health_span_slo"] = float(part[len("healthspan"):])
+        elif part.startswith("healthp99"):
+            FLAGS["health_p99_slo"] = float(part[len("healthp99"):])
+        elif part.startswith("healthdeg"):
+            FLAGS["health_degraded_slo"] = float(part[len("healthdeg"):])
+        elif part.startswith("healthskew"):
+            FLAGS["health_skew_slo"] = float(part[len("healthskew"):])
+        elif part.startswith("healthbacklog"):
+            FLAGS["health_backlog_slo"] = float(part[len("healthbacklog"):])
+        elif part.startswith("healthz"):
+            z = float(part[len("healthz"):])
+            if z < 0:
+                raise ValueError(f"health_anomaly_z must be >= 0, got {z}")
+            FLAGS["health_anomaly_z"] = z
         elif part.startswith("span"):
             backend = part[len("span"):]
             if backend not in SPAN_BACKENDS:

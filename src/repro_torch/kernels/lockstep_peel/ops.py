@@ -14,7 +14,9 @@ stay below 2^24 (every quantity is then an integer f32 holds exactly); the
 LMBR dispatcher only sends such batches.
 
 * ``lockstep_peel_plain`` — the plain PyTorch version (elementwise
-  products and sums, never a matmul, so no TF32 path exists).
+  products and sums, never a matmul, so no TF32 path exists).  A round
+  touches only the pairs still active and the edges that die in it, so a
+  whole batch costs O(G K U) rather than O(G K U) a round.
 * ``lockstep_peel`` — the wrapper: plain version for CPU tensors, the CUDA
   kernel (``csrc/lockstep_peel.cu``) for CUDA tensors.
   ``lockstep_peel.launches`` counts kernel launches and
@@ -39,39 +41,38 @@ __all__ = ["WARP_MAX_K", "WARP_MAX_U", "lockstep_peel", "lockstep_peel_plain",
 def lockstep_peel_plain(inc, we, nodew, nvalid):
     G, K, U = inc.shape
     dev = inc.device
+    cols = (inc > 0.5).transpose(1, 2).contiguous()     # (G, U, K)
     iota = torch.arange(U, device=dev)[None, :]
-    valid = iota < nvalid[:, None]
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
-    cand = torch.where(valid, (inc * we[:, :, None]).sum(dim=1), inf)
+    cand = torch.where(iota < nvalid[:, None], (inc * we[:, :, None]).sum(1),
+                       torch.tensor(float("inf"), device=dev))
     ealive = torch.ones((G, K), dtype=torch.bool, device=dev)
     ben = we.sum(dim=1)
-    totw = nodew.sum(dim=1)
-    nal = nvalid.clone()
-    peel = torch.full((G, U), -1, dtype=torch.int32, device=dev)
-    rtot = torch.zeros((G, U), dtype=torch.float32, device=dev)
+    peel = torch.full((G, U), -1, dtype=torch.int64, device=dev)
     rben = torch.zeros((G, U), dtype=torch.float32, device=dev)
-    ar = torch.arange(G, device=dev)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
     for r in range(U):
-        act = (ben > 0.5) & (nal > 0)
-        if not bool(act.any()):
+        # a pair that stops never restarts, so one active at round r has
+        # peeled r items
+        act = torch.nonzero((ben > 0.5) & (nvalid > r)).flatten()
+        if not len(act):
             break
-        rtot[:, r] = torch.where(act, totw, zero)
-        rben[:, r] = torch.where(act, ben, zero)
-        j = cand.argmin(dim=1)                   # first minimum
-        hit = inc[ar, :, j] > 0.5                # (G, K)
-        dying = ealive & hit & act[:, None]
-        dw = we * dying
-        ben = ben - dw.sum(dim=1)
-        onehot = (iota == j[:, None]) & act[:, None]
-        cand = torch.where(onehot, inf,
-                           cand - (inc * dw[:, :, None]).sum(dim=1))
-        totw = totw - torch.where(act, nodew[ar, j], zero)
-        nal = nal - act.to(nal.dtype)
-        ealive &= ~dying
-        peel[:, r] = torch.where(act, j.to(torch.int32),
-                                 torch.full_like(peel[:, r], -1))
-    return peel, rtot, rben
+        rben[:, r] = ben
+        j = cand[act].argmin(dim=1)              # first minimum
+        peel[act, r] = j
+        cand[act, j] = float("inf")
+        # only the edges that die this round change a degree
+        rows, edges = torch.nonzero(ealive[act] & cols[act, j],
+                                    as_tuple=True)
+        g = act[rows]
+        dw = we[g, edges]
+        ben.index_add_(0, g, dw, alpha=-1)
+        cand.index_add_(0, g, inc[g, edges] * dw[:, None], alpha=-1)
+        ealive[g, edges] = False
+    done = peel < 0
+    # the pool weight at a round's head: the total less what was peeled
+    pw = nodew.gather(1, peel.clamp(min=0)).masked_fill(done, 0)
+    rtot = nodew.sum(dim=1)[:, None] - (pw.cumsum(dim=1) - pw)
+    return (peel.to(torch.int32), rtot.masked_fill(done, 0),
+            rben.masked_fill(done, 0))
 
 
 # the warp class: every lane holds the 8 alive-edge words of K 256 and the

@@ -1,4 +1,4 @@
-"""repro_torch.obs — metrics registry + structured tracer.
+"""repro_torch.obs — metrics registry, structured tracer, health.
 
 Level selection is flag-driven and re-read on every accessor call:
 
@@ -11,6 +11,11 @@ Level selection is flag-driven and re-read on every accessor call:
 No level may change placement results: hooks only read state.
 ``timed(name, **args)`` always measures (``.seconds`` is valid at every
 level) and records a trace span when ``obs_level == "trace"``.
+
+Health: ``TimeSeriesStore`` keeps ring-buffered history of the periodic
+registry snapshots, ``HealthMonitor`` evaluates SLO rules over it
+(``Simulator.run_online(health=...)``), and ``analyze`` rebuilds span
+trees from a trace for ``python -m repro_torch.obs.report``.
 """
 
 from __future__ import annotations
@@ -21,10 +26,17 @@ from .. import flags as _flags
 from .registry import (Registry, NullRegistry, NULL_REGISTRY,
                        DEFAULT_BUCKETS, parse_prom_text)
 from .trace import Tracer, NullTracer, NULL_TRACER, NULL_SPAN
+from .timeseries import SeriesRing, TimeSeriesStore
+from .health import SLORule, Alert, HealthMonitor
+from .analyze import (load_events, build_span_tree, aggregate_spans,
+                      critical_path, top_slowest, render_report)
 
 __all__ = [
     "Registry", "NullRegistry", "NULL_REGISTRY", "DEFAULT_BUCKETS",
     "parse_prom_text", "Tracer", "NullTracer", "NULL_TRACER", "NULL_SPAN",
+    "SeriesRing", "TimeSeriesStore", "SLORule", "Alert", "HealthMonitor",
+    "load_events", "build_span_tree", "aggregate_spans", "critical_path",
+    "top_slowest", "render_report",
     "level", "registry", "tracer", "reset", "timed",
 ]
 

@@ -6,6 +6,7 @@ router, ``run_online`` and ``refit(as_migration=True)`` give there, and
 the port's generators build the reference's inputs, so the card run is
 held to the reference without importing it."""
 
+import functools
 import sys
 from pathlib import Path
 
@@ -349,3 +350,178 @@ def test_port_generators_build_the_online_inputs():
     assert len(got["seed1"]) == 4000
     for a, b in zip(got["seed1"], want["seed1"]):
         assert a.tobytes() == b.tobytes()
+
+
+# ------------------------------------------------------------------- health
+def _ref_health_held(name, monkeypatch):
+    """The reference's values of one health run: the storm or the clean
+    replay of fig6's paper default under its flags-built monitor."""
+    import repro.obs as ref_obs
+
+    variant = chip_smoke.HEALTH_VARIANT.replace("peeldevice+spandevice+", "")
+    ref_flags.set_variant(variant)
+    ref_obs.reset()
+    try:
+        monitor = ref_obs.HealthMonitor.from_flags()
+        held = _ref_online_run(
+            monkeypatch, RefSimulator(40, 50), _online_inputs()["fig6"],
+            REF_ALGORITHMS["lmbr"], name="lmbr", seed=0, max_moves=120,
+            events=list(chip_smoke.HEALTH_EVENTS[name]), auto_repair=False,
+            health=monitor)
+    finally:
+        ref_flags.reset()
+        ref_obs.reset()
+    held["history"] = [[h["alert"], h["kind"], h["t"]]
+                       for h in monitor.history]
+    return held
+
+
+def test_health_table():
+    assert chip_smoke.PHASES[-2:] == ("health", "scale")
+    assert list(chip_smoke.HEALTH_HELD) == list(chip_smoke.HEALTH_EVENTS)
+    storm = chip_smoke.HEALTH_HELD["health-storm"]
+    assert [(a, k) for a, k, _ in storm["history"]] == [
+        ("degraded_rate", "fire"), ("degraded_rate", "resolve")]
+    assert storm["alerts_fired"] == storm["alerts_resolved"] == 1
+    assert storm["degraded_queries"] > 0
+    clean = chip_smoke.HEALTH_HELD["health-clean"]
+    assert clean["history"] == [] and clean["alerts_fired"] == 0
+    assert clean["degraded_queries"] == 0
+    # the storm is the one of the JAX package's health bench, at N 40
+    assert chip_smoke.HEALTH_VARIANT.endswith(
+        "routermb64+obscounters+obssnap100+obshealth1+healthw4"
+        "+healthskew3.0")
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.HEALTH_EVENTS))
+def test_health_reference_values(name, monkeypatch):
+    assert _ref_health_held(name, monkeypatch) == \
+        chip_smoke.HEALTH_HELD[name]
+
+
+def test_port_generator_builds_the_health_input():
+    got = chip_smoke.health_inputs(np)["fig6"]
+    want = _online_inputs()["fig6"]
+    for name in ("edge_ptr", "edge_nodes", "node_weights", "edge_weights"):
+        assert getattr(got, name).tobytes() == getattr(want, name).tobytes()
+
+
+# -------------------------------------------------------------------- scale
+@functools.lru_cache(maxsize=None)
+def _ref_scale_graph(fit):
+    """The reference's hypergraph of one scale fit, built once a session."""
+    return ref_core.web_scale_workload(
+        **chip_smoke.SCALE_FITS[fit][0]).hypergraph
+
+
+def _ref_scale_held(name):
+    """The reference's values of one scale run (its fits serial)."""
+    from repro.scale import StreamingHypergraphBuilder, fit_sharded_placement
+
+    if name == "stream":
+        held = {}
+        for mode, merge in (("plain", False), ("merged", True)):
+            builder = StreamingHypergraphBuilder(
+                ref_core.WEB_SCALE_DEFAULTS["num_items"],
+                merge_duplicates=merge)
+            for ptr, pins in ref_core.web_scale_chunks(seed=0):
+                builder.add_csr(ptr, pins)
+            held[mode] = chip_smoke._csr_held(builder.build())
+        return held
+    fit = "web-mid" if name == "service" else name
+    _, n, cap, fit_kw = chip_smoke.SCALE_FITS[fit]
+    hg = _ref_scale_graph(fit)
+    if name == "service":
+        rng = np.random.default_rng(0)
+        profile = ref_core.NodeProfile(
+            capacity=np.full(24, 210.0),
+            fail_prob=rng.uniform(0.005, 0.05, 24), power_idle=100.0,
+            power_active=250.0, access_cost=rng.uniform(0, 1, 24))
+        plan = ref_core.PlacementService("lmbr", seed=0).fit_sharded(
+            hg, n, profile=profile, workers=1,
+            durability_eps=chip_smoke.SCALE_SERVICE_EPS, **fit_kw)
+        return dict(json_sha256=chip_smoke._sha256(plan.to_json()),
+                    algorithm=plan.algorithm,
+                    durability_copies=plan.stats["durability_copies"],
+                    **{k: plan.stats[k] for k in chip_smoke.SCALE_STATS})
+    with ref_hpa.fresh_partition_cache():
+        res = fit_sharded_placement(hg, n, cap, seed=0, workers=1, **fit_kw)
+    held = {k: res.stats[k] for k in chip_smoke.SCALE_STATS}
+    held.update(
+        member_sha256=chip_smoke._sha256(res.member.tobytes()),
+        avg_span=float(ref_core.spans_for_workload(hg,
+                                                   res.placement).mean()))
+    return held
+
+
+def test_scale_table():
+    assert list(chip_smoke.SCALE_HELD) == list(chip_smoke.SCALE_RUNS)
+    assert chip_smoke.SCALE_RUNS["stream"] == ()
+    assert set(chip_smoke.SCALE_POOLED) <= set(chip_smoke.SCALE_FITS)
+    held = chip_smoke.SCALE_HELD
+    assert held["stream"]["plain"]["edges"] == 1_000_000
+    assert held["stream"]["merged"]["edges"] < 1_000_000
+    assert held["fit-quick"]["shards"] == 8 and held["web-mid"]["shards"] == 4
+    assert held["service"]["algorithm"] == "lmbr+sharded"
+    assert held["service"]["durability_copies"] > 0
+    for name in ("fit-quick", "web-mid"):
+        assert held[name]["repair_moves"] > 0
+        assert held[name]["boundary_edges"] > 0
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.SCALE_RUNS))
+def test_scale_reference_values(name):
+    assert _ref_scale_held(name) == chip_smoke.SCALE_HELD[name]
+
+
+def test_port_generators_build_the_scale_inputs():
+    got = chip_smoke.scale_inputs(np)
+    assert list(got) == list(chip_smoke.SCALE_FITS)
+    for name in chip_smoke.SCALE_FITS:
+        want = _ref_scale_graph(name)
+        for col in ("edge_ptr", "edge_nodes", "node_weights",
+                    "edge_weights"):
+            assert (getattr(got[name], col).tobytes()
+                    == getattr(want, col).tobytes()), (name, col)
+    profile = chip_smoke.scale_service_profile(np)
+    rng = np.random.default_rng(0)
+    assert profile.fail_prob.tobytes() == rng.uniform(0.005, 0.05,
+                                                      24).tobytes()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_sparse_peel_equals_the_plain_version(seed):
+    """The port's plain lockstep peel, which walks only the edges that die
+    in a round (what the CPU twins run), gives the JAX package's float64
+    oracle's trajectories exactly: 0/1 cells, integer weights (heavy ones
+    included), padded slots, empty pairs and ties, and one batch of the
+    kernels phase's generator at a scale fit's global-class cell (K 2048,
+    U 512)."""
+    import torch
+
+    from repro.kernels.lockstep_peel.ref import lockstep_peel_ref
+    from repro_torch.kernels.lockstep_peel.ops import lockstep_peel_plain
+
+    def check(args, label):
+        got = lockstep_peel_plain(*args)
+        assert got[0].dtype == torch.int32, label
+        assert got[1].dtype == got[2].dtype == torch.float32, label
+        want = lockstep_peel_ref(*(a.numpy() for a in args))
+        for g, w in zip(got, want):
+            assert np.array_equal(g.numpy().astype(w.dtype), w), label
+
+    rng = np.random.default_rng(seed)
+    for trial in range(60):
+        G = int(rng.integers(1, 9))
+        K = int(rng.choice([4, 8, 16, 64, 128]))
+        U = int(rng.choice([4, 8, 32, 64]))
+        nv = rng.integers(0, U + 1, size=G).astype(np.int32)
+        inc = (rng.random((G, K, U)) < rng.uniform(0.02, 0.6)).astype(
+            np.float32)
+        inc *= np.arange(U)[None, None, :] < nv[:, None, None]
+        we = rng.integers(0, 1000 if trial % 3 == 0 else 3,
+                          size=(G, K)).astype(np.float32)
+        nodew = rng.integers(1, 4, size=(G, U)).astype(np.float32)
+        check([torch.from_numpy(x) for x in (inc, we, nodew, nv)], trial)
+    check(chip_smoke._peel_inputs(np, torch, rng, 2, 2048, 512, "cpu"),
+          "G2.K2048.U512")

@@ -619,15 +619,42 @@ def test_run_online_snapshots_match_reference(fitted):
 
 
 def test_run_online_unknown_event_and_health_raise(fitted):
-    _, phg, _ = fitted
+    """An unknown event still raises; ``health=`` and ``on_alert=`` are
+    served: a monitor over a clean replay fires nothing, as the
+    reference's, and ``on_alert`` alone arms nothing without
+    ``obs_health``."""
+    from repro import obs as ref_obs
+    from repro_torch import obs
+
+    hg, phg, _ = fitted
     sim = Simulator(N, CAP, device="cpu")
     with pytest.raises(ValueError, match="unknown online event"):
         sim.run_online(phg, ALGORITHMS["lmbr"], seed=0, max_moves=40,
                        events=[(0, "explode", 1)])
-    for kw in (dict(health=object()), dict(on_alert=print)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            sim.run_online(phg, ALGORITHMS["lmbr"], seed=0, max_moves=40,
-                           **kw)
+    seen = []
+    res = sim.run_online(phg, ALGORITHMS["lmbr"], seed=0, max_moves=40,
+                         on_alert=lambda a, f: seen.append(a.name))
+    assert "alerts_fired" not in res.summary() and seen == []
+    variant = "obscounters+obssnap50+healthw4"
+    flags.set_variant(variant)
+    ref_flags.set_variant(variant)
+    obs.reset()
+    ref_obs.reset()
+    mon, ref_mon = obs.HealthMonitor.from_flags(), \
+        ref_obs.HealthMonitor.from_flags()
+    got = sim.run_online(phg, ALGORITHMS["lmbr"], seed=0, max_moves=40,
+                         health=mon, on_alert=print)
+    want = ref_core.Simulator(N, CAP).run_online(
+        hg, ref_core.ALGORITHMS["lmbr"], seed=0, max_moves=40,
+        health=ref_mon, on_alert=print)
+    a, b = got.summary(), want.summary()
+    a.pop("placement_s")
+    b.pop("placement_s")
+    assert a == b and a["alerts_fired"] == 0
+    assert mon.on_alert is print and mon.stats == ref_mon.stats
+    assert mon.baseline_span == ref_mon.baseline_span
+    obs.reset()
+    ref_obs.reset()
 
 
 # ------------------------------------------------------ devices, names

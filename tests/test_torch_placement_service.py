@@ -220,11 +220,10 @@ def test_vector_capacity_json():
         ref_uniform.to_json()).capacity == 150.0
 
 
-# names of the reference that wait for the slice porting repro.scale
-# (web scale, sharded fits); each goes as it is ported
-CORE_NOT_YET = {"web_scale_chunks", "web_scale_workload",
-                "WEB_SCALE_DEFAULTS"}
-SERVICE_NOT_YET = {"fit_sharded"}
+# names of the reference that the port does not have yet; each went as it
+# was ported, and the web-scale generators and fit_sharded were the last
+CORE_NOT_YET = set()
+SERVICE_NOT_YET = set()
 
 
 def test_port_exports_the_reference_core():
@@ -242,7 +241,7 @@ def test_port_exports_the_reference_core():
         PlacementService.refit).parameters
     assert "as_migration" in inspect.signature(
         ref_core.PlacementService.refit).parameters
-    for name in ("refit", "plan_migration"):
+    for name in ("refit", "plan_migration", "fit_sharded"):
         assert list(inspect.signature(
             getattr(PlacementService, name)).parameters) == list(
             inspect.signature(getattr(ref_core.PlacementService,
@@ -257,3 +256,18 @@ def test_port_exports_the_reference_online():
                   and not inspect.ismodule(getattr(ref_online, n)))
     assert sorted(online.__all__) == want
     assert all(hasattr(online, n) for n in online.__all__)
+
+
+@pytest.mark.parametrize("package", ["obs", "scale"])
+def test_port_exports_the_reference_obs_and_scale(package):
+    import importlib
+
+    ref = importlib.import_module(f"repro.{package}")
+    port = importlib.import_module(f"repro_torch.{package}")
+    want = sorted(n for n in dir(ref) if not n.startswith("_")
+                  and not inspect.ismodule(getattr(ref, n)))
+    have = sorted(n for n in dir(port) if not n.startswith("_")
+                  and not inspect.ismodule(getattr(port, n)))
+    assert have == want
+    if package == "obs":
+        assert port.__all__ == ref.__all__

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the placement pipeline
-and the hymba-1.5b serving path.
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU: the placement pipeline,
+the hymba-1.5b serving path and the dense-GQA serving path (glm4-9b,
+olmo-1b, h2o-danube-1.8b, nemotron-4-15b).
 
     python3 chip_smoke.py                      # every phase, as CI runs it
     python3 chip_smoke.py --phases build,kernels
@@ -10,9 +11,13 @@ Phases, each printed on a line of its own:
 1. build       — compile the six CUDA kernels from ``src/repro_torch/csrc``;
                  the line gives the registers and spills of the tensor-core
                  (wgmma) instance of flash_attention, of the serving
-                 path's decode_attention instance (bf16, G 5) and of every
-                 ssd_scan instance (state, chain and output pass), and
-                 requires no spills in the serving path's ssd passes.
+                 path's decode_attention instance (bf16, G 5), of the
+                 dense path's instances (``DENSE_INSTANCES``: flash bf16 at
+                 D 128 and 80, decode bf16 blocks of 8, 6, 4 and 1 heads)
+                 and of every ssd_scan instance (state, chain and output
+                 pass), and requires no spills in the serving path's ssd
+                 passes, the dense flash instances and glm4-9b's decode
+                 instance (bf16, blocks of 8 heads).
 2. kernels     — hold each kernel against its plain PyTorch version on the
                  card and time kernel, plain version, library call (where
                  one PyTorch call computes the same function) and the
@@ -55,6 +60,20 @@ Phases, each printed on a line of its own:
                  tied best gains (the lowest id must win) and on queries
                  that go bad after good rounds; its rows add
                  ``device_ms``.
+                 The dense configs by the same rules: flash_attention on
+                 the CUDA-core instance at their prefill (``DENSE_FLASH``:
+                 B 8, S = T 2048; glm4-9b H 32 / K 2, nemotron-4-15b 48 /
+                 8, olmo-1b 16 / 16 at D 128, h2o-danube-1.8b 32 / 8 at
+                 D 80, global and window 1024; f32 at glm4's and danube's),
+                 at S = T 1528 (D 128) and at D 32; decode_attention at
+                 their serving cache (``DENSE_DECODE``: B 8, T 2112, a
+                 wrapped ring with empty slots and per-row q_pos; G 16 in
+                 two head groups, 6, 4 with window 40, 1) and at G 2, 3,
+                 7, 9, 10 and 12; the serving rows add ``device_ms`` and
+                 SDPA's ``library_ms`` / ``library_device_ms``.  Every
+                 CUDA-core flash and every decode instance the build made
+                 must run in some row, and the wrapper's head groups must
+                 be the source's.
 3. fit-stress  — ``Simulator(64, 50).run(lmbr_stress_workload(seed=0), lmbr,
                  seed=0, max_moves=1200)`` on the card with the dense peel
                  and the span_gain kernel pinned; the summary and member
@@ -136,7 +155,20 @@ Phases, each printed on a line of its own:
                  kernel route against the plain route on the card (logits
                  within 1e-3) and teacher-forced decode after prefill
                  against the cache-free forward (within 2e-3).
-10. health     — ``Simulator(40, 50).run_online`` of fig6's paper default
+10. serve-dense — ``repro_torch.launch.serve`` on the dense configs at full
+                 width (bf16, random weights from seed 0, one model on the
+                 card at a time): glm4-9b at its full depth (40 layers)
+                 with serve's traffic, olmo-1b, h2o-danube-1.8b and
+                 nemotron-4-15b at 4 layers with one batch of 8 (prompt
+                 2048, 32 decode steps) (``DENSE_SERVES``); finite logits
+                 of shape (8, vocab), prefill tokens/s, decode ms/step,
+                 peak memory, launches L x batches (flash, every one on
+                 the CUDA-core instance) and L x steps x batches (decode),
+                 no ssd_scan.
+11. serve-dense-check — ``DENSE_CHECKS`` (glm4-9b; h2o-danube-1.8b with its
+                 window cut to 1024) at full width and 4 layers in f32 with
+                 TF32 off, prompt 1536, held as serve-check holds hymba.
+12. health     — ``Simulator(40, 50).run_online`` of fig6's paper default
                  (lmbr ``max_moves=120``) under the flags-built
                  ``HealthMonitor`` (``HEALTH_VARIANT``: snapshots every 100
                  queries, window 4, skew SLO 3.0), with a storm (partitions
@@ -150,7 +182,7 @@ Phases, each printed on a line of its own:
                  The storm fires and resolves degraded_rate, and the same
                  storm unmonitored serves the same spans, access load and
                  member; the clean replay fires nothing.
-11. scale      — the cluster-scale pipeline at bench_scale's sizes:
+13. scale      — the cluster-scale pipeline at bench_scale's sizes:
                  ``web_scale_chunks(seed=0)`` (100 000 items, 1 000 000
                  queries) through ``StreamingHypergraphBuilder``, plain and
                  with duplicates merged (host only); the sharded lmbr fits
@@ -168,8 +200,9 @@ Phases, each printed on a line of its own:
                  equal to its serial fit.
 
 ``--profile`` runs each fit once more under torch.profiler and the
-package's tracer, and one serving batch (prefill, 8 decode steps) under
-torch.profiler, and prints where the time goes (for the fits also
+package's tracer, and one serving batch (prefill, 8 decode steps) of
+hymba-1.5b (serve) and of glm4-9b (serve-dense) under torch.profiler,
+and prints where the time goes (for the fits also
 lockstep_peel's device time per launch and per peel round and
 cover_rounds' device time per launch; for
 paper-algos, fig9's IHPA fit with span_gain's and cover_rounds' device
@@ -204,8 +237,8 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12       # H100 SXM non-tensor fp32, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores, data sheet
 PHASES = ("build", "kernels", "fit-stress", "fit-paper", "paper-algos",
-          "placement-api", "online", "serve", "serve-check", "health",
-          "scale")
+          "placement-api", "online", "serve", "serve-check", "serve-dense",
+          "serve-dense-check", "health", "scale")
 PAPER_NODES = 69429          # ibm10, the largest fig9 circuit
 # paper-algos: the workloads (generator, arguments) and the runs (workload,
 # partitions, capacity, algorithm, extra arguments, avg_span of the JAX
@@ -780,6 +813,29 @@ def _ssd_instance(entry: str):
             int(p.group(1)))
 
 
+def _attention_instance(entry: str):
+    """(kernel, dtype, D or G) of a CUDA-core flash_attention or a
+    decode_attention instance's mangled name: ("flash", "bf16", 128) for
+    flash_attention_kernel<__nv_bfloat16, 128, 2>, ("decode", "f32", 8)
+    for decode_attention_kernel<float, 8>; None for any other entry."""
+    m = re.search(r"(flash|decode)_attention_kernelI(13__nv_bfloat16|f)"
+                  r"Li(\d+)E", entry)
+    if not m:
+        return None
+    return (m.group(1), "bf16" if m.group(2) != "f" else "f32",
+            int(m.group(3)))
+
+
+# instances of the dense serving path: flash at D 128 (glm4-9b, olmo-1b,
+# nemotron-4-15b) and D 80 (h2o-danube-1.8b), and the decode blocks of 8
+# (glm4's G 16 in two groups), 6, 4 and 1 query heads; the first three
+# (flash, and glm4's decode) must not spill
+DENSE_INSTANCES = (("flash", "bf16", 128), ("flash", "bf16", 80),
+                   ("decode", "bf16", 8), ("decode", "bf16", 6),
+                   ("decode", "bf16", 4), ("decode", "bf16", 1))
+DENSE_NO_SPILL = DENSE_INSTANCES[:3]
+
+
 def phase_build(_build):
     so = _build.build(force=True)
     entries = _ptxas_entries(_build.BUILD_INFO["ptxas"])
@@ -807,19 +863,36 @@ def phase_build(_build):
         f"registers={e['registers']} spills={e['spill_stores']}/"
         f"{e['spill_loads']}"
         for k, e in sorted(ssd.items(), key=lambda kv: str(kv[0])))
+    # every CUDA-core flash and decode instance; the dense path's spill
+    # nothing
+    att = {_attention_instance(e["entry"]): e for e in entries
+           if _attention_instance(e["entry"])}
+    for inst in DENSE_INSTANCES:
+        _require(inst in att, f"build: no ptxas report of {inst}")
+    dense_line = ", ".join(
+        f"{k} {dt} {'D' if k == 'flash' else 'G'} {n} "
+        f"registers={att[k, dt, n]['registers']} "
+        f"spills={att[k, dt, n]['spill_stores']}/{att[k, dt, n]['spill_loads']}"
+        for k, dt, n in DENSE_INSTANCES)
     print(f"build: {_build.BUILD_INFO['seconds']:.2f} s -> {Path(so).name} "
           f"flash_attention wgmma instance: registers={tc[0]['registers']} "
           f"spill_stores={tc[0]['spill_stores']} "
           f"spill_loads={tc[0]['spill_loads']}; decode_attention bf16 G 5 "
           f"instance: registers={dec[0]['registers']} "
           f"spill_stores={dec[0]['spill_stores']} "
-          f"spill_loads={dec[0]['spill_loads']}; ssd_scan instances "
+          f"spill_loads={dec[0]['spill_loads']}; dense path instances "
+          f"(spill stores/loads bytes): {dense_line}; ssd_scan instances "
           f"(spill stores/loads bytes): {ssd_line}", flush=True)
     for e in entries:
         print(f"  {e['source']} {e['entry'][:60]} registers={e['registers']} "
               f"spill_stores={e['spill_stores']} "
               f"spill_loads={e['spill_loads']}")
-    return set(ssd)
+    for inst in DENSE_NO_SPILL:
+        e = att[inst]
+        _require(e["spill_stores"] == 0 and e["spill_loads"] == 0,
+                 f"build: the dense path's instance {inst} spills "
+                 f"({e['spill_stores']} / {e['spill_loads']} bytes)")
+    return set(ssd), set(att)
 
 
 def phase_kernels(np, torch, dev):
@@ -1088,9 +1161,11 @@ def _attention_check(torch, label, dtype, got, want, plain32, unmasked):
     return out
 
 
-def _flash_rows(torch, randn, dev, dtype, peak, B, S, H, K, D):
+def _flash_rows(torch, randn, dev, dtype, peak, B, S, H, K, D,
+                windows=(None, 1024), label=""):
     """flash_attention at (B, S = T, H, K, D) in the global and window-1024
-    layers: the check against the plain version and the times."""
+    layers (or ``windows``): the check against the plain version and the
+    times, kernel and SDPA each also as profiler device time per call."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import (
@@ -1102,7 +1177,7 @@ def _flash_rows(torch, randn, dev, dtype, peak, B, S, H, K, D):
     k, v = randn(B, S, K, D).to(dtype), randn(B, S, K, D).to(dtype)
     qT, kT, vT = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     wants, rows = {}, []
-    for window in (None, 1024):
+    for window in windows:
         got = flash_attention(q, k, v, window=window)
         wants[window] = want = flash_attention_plain(q, k, v, window=window)
         plain32 = (flash_attention_plain(q.float(), k.float(), v.float(),
@@ -1121,16 +1196,24 @@ def _flash_rows(torch, randn, dev, dtype, peak, B, S, H, K, D):
         pairs = float(mask.sum())
         nbytes = (2 * B * S * H * D + 2 * B * S * K * D) * esz
         bound, by = _bound_ms(nbytes, 4.0 * D * pairs * B * H, peak)
+
+        def kern():
+            return flash_attention(q, k, v, window=window)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qT, kT, vT, attn_mask=mask, enable_gqa=True)
+
         rows.append(dict(
-            shape=f"B{B}.S{S}.H{H}.K{K}.D{D}.{tag}.w{window}",
-            instance=instance(dtype, D),
+            shape=f"{label}B{B}.S{S}.H{H}.K{K}.D{D}.{tag}.w{window}",
+            instance=instance(dtype, D), kernel_instance=f"{tag}.D{D}",
             **check,
-            ms=_cuda_ms(torch, lambda: flash_attention(
-                q, k, v, window=window), 5),
+            ms=_cuda_ms(torch, kern, 5),
+            device_ms=_device_ms(torch, kern, 5),
             plain_ms=_cuda_ms(torch, lambda: flash_attention_plain(
                 q, k, v, window=window), 2),
-            library_ms=_cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                qT, kT, vT, attn_mask=mask, enable_gqa=True), 5),
+            library_ms=_cuda_ms(torch, sdpa, 5),
+            library_device_ms=_device_ms(torch, sdpa, 5),
             bound_ms=bound, bound_by=by))
     return rows
 
@@ -1209,7 +1292,112 @@ def _decode_domain_rows(torch, dev, dtype):
                 torch, f"decode_attention {label} {tag} window={window}",
                 dtype, got, want, plain32, wants[None] if hides else None)
             rows.append(dict(shape=f"{label}.B{B}.T{T}.H{H}.K{K}.D{D}.{tag}"
-                             f".w{window}", splits=ns, **check))
+                             f".w{window}", kernel_instance=f"{tag}.G{H // K}",
+                             splits=ns, **check))
+    return rows
+
+
+# the dense configs' prefill (B 8, S = T 2048): label, H, K, D, windows
+DENSE_FLASH = (
+    ("glm4-9b", 32, 2, 128, (None,)),
+    ("nemotron-4-15b", 48, 8, 128, (None,)),
+    ("olmo-1b", 16, 16, 128, (None,)),
+    ("h2o-danube-1.8b", 32, 8, 80, (None, 1024)),
+)
+# their decode over the serving cache (B 8, T 2112): label, H, K, D, windows
+DENSE_DECODE = (
+    ("glm4-9b", 32, 2, 128, (None,)),              # G 16: two head groups
+    ("nemotron-4-15b", 48, 8, 128, (None,)),       # G 6
+    ("h2o-danube-1.8b", 32, 8, 80, (None, 40)),    # G 4
+    ("olmo-1b", 16, 16, 128, (None,)),             # G 1
+)
+# decode's other group sizes (D 64, small): every block instance G 1..8
+# runs in some row, and G 9, 10 and 12 take 3, 2 and 2 head groups
+DECODE_GROUPS = (2, 3, 7, 9, 10, 12)
+
+
+def _decode_dense_rows(torch, dev, dtype, peak):
+    """decode_attention at the dense configs' serving cache (B 8, T 2112)
+    over a wrapped ring buffer with empty slots and per-row q_pos, checked
+    and timed beside SDPA; then the ``DECODE_GROUPS`` rows, checked."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_plain, head_groups,
+        resident_blocks, split_plan)
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    esz = torch.finfo(dtype).bits // 8
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    Bs, Ts = SERVE["batch"], SERVE["prefill_len"] + SERVE["decode_len"]
+    cases = ([(label, Bs, H, K, D, Ts, windows, True)
+              for label, H, K, D, windows in DENSE_DECODE]
+             + [(f"G{g}", 2, 2 * g, 2, 64, 300, (None,), False)
+                for g in DECODE_GROUPS])
+    rows = []
+    for label, B, H, K, D, T, windows, timed in cases:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        q = randn(B, H, D).to(dtype)
+        k, v = randn(B, T, K, D).to(dtype), randn(B, T, K, D).to(dtype)
+        slot = torch.arange(T, device=dev, dtype=torch.int32)
+        roll = torch.randint(0, T, (B,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        kv_pos = ((slot[None] - roll[:, None]) % T).to(torch.int32)
+        kv_pos[1, :30] = -1
+        q_pos = torch.randint(T - 64, T, (B,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        g = H // K
+        ng = head_groups(g)
+        ns = split_plan(B, K * ng, T, resident_blocks(
+            torch.cuda.current_device(), g // ng))
+        wants = {}
+        for window in windows:
+            got = decode_attention(q, k, v, kv_pos, q_pos, window=window)
+            wants[window] = want = decode_attention_plain(
+                q, k, v, kv_pos, q_pos, window=window)
+            plain32 = (decode_attention_plain(q.float(), k.float(),
+                                              v.float(), kv_pos, q_pos,
+                                              window=window)
+                       if dtype == torch.bfloat16 else None)
+            torch.cuda.synchronize()
+            check = _attention_check(
+                torch, f"decode_attention {label} {tag} window={window}",
+                dtype, got, want, plain32,
+                wants[None] if window is not None else None)
+            row = dict(shape=f"{label}.B{B}.T{T}.H{H}.K{K}.D{D}.{tag}"
+                       f".w{window}", kernel_instance=f"{tag}.G{g // ng}",
+                       head_groups=ng, splits=ns, **check)
+            if timed:
+                vis = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+                if window is not None:
+                    vis &= kv_pos > q_pos[:, None] - window
+                nvis = float(vis.sum())
+                nbytes = (nvis * K * D * 2 * esz + B * T * 4 + B * 4
+                          + 2 * B * H * D * esz)
+                bound, by = _bound_ms(nbytes, 4.0 * D * H * nvis, peak)
+                qT, kT, vT = (q[:, :, None], k.transpose(1, 2).contiguous(),
+                              v.transpose(1, 2).contiguous())
+                mask = vis[:, None, None, :]
+
+                def kern():
+                    return decode_attention(q, k, v, kv_pos, q_pos,
+                                            window=window)
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        qT, kT, vT, attn_mask=mask, enable_gqa=True)
+
+                row.update(
+                    ms=_cuda_ms(torch, kern, 50),
+                    device_ms=_device_ms(torch, kern, 50),
+                    plain_ms=_cuda_ms(torch, lambda: decode_attention_plain(
+                        q, k, v, kv_pos, q_pos, window=window), 10),
+                    library_ms=_cuda_ms(torch, sdpa, 50),
+                    library_device_ms=_device_ms(torch, sdpa, 50),
+                    bound_ms=bound, bound_by=by)
+            rows.append(row)
     return rows
 
 
@@ -1370,6 +1558,21 @@ def phase_model_kernels(np, torch, dev):
         for fb, fs, rnd in shapes if tag == "bf16" else shapes[:1]:
             rows["flash_attention"] += _flash_rows(
                 torch, rnd, dev, dtype, peak, fb, fs, H, K, D)
+        # the dense configs' prefill on the CUDA-core instance at D 128 and
+        # 80 (in f32 glm4's and danube's), serve-dense-check's prefill
+        # length S = T 1528 at D 128, and D 32 (so that every CUDA-core
+        # instance the build makes runs in some row)
+        for label, dh, dk, dd, windows in DENSE_FLASH:
+            if tag == "bf16" or label in ("glm4-9b", "h2o-danube-1.8b"):
+                rows["flash_attention"] += _flash_rows(
+                    torch, randn, dev, dtype, peak, B, S, dh, dk, dd,
+                    windows=windows, label=label + ".")
+        rows["flash_attention"] += _flash_rows(
+            torch, randn_ragged, dev, dtype, peak, 2, 1528, 32, 2, 128,
+            windows=(None,), label="ragged.")
+        rows["flash_attention"] += _flash_rows(
+            torch, randn_ragged, dev, dtype, peak, 2, 777, 4, 4, 32,
+            windows=(None, 40), label="D32.")
 
         # decode_attention: one step in the middle of decode (2080 of the
         # 2112 slots filled), global and window-1024 layers
@@ -1413,7 +1616,7 @@ def phase_model_kernels(np, torch, dev):
 
             rows["decode_attention"].append(dict(
                 shape=f"B{B}.T{Tc}.fill{fill}.H{H}.K{K}.D{D}.{tag}.w{window}",
-                **check,
+                kernel_instance=f"{tag}.G{H // K}", **check,
                 ms=_cuda_ms(torch, kern, 50),
                 device_ms=_device_ms(torch, kern, 50),
                 plain_ms=_cuda_ms(torch, lambda: decode_attention_plain(
@@ -1423,6 +1626,8 @@ def phase_model_kernels(np, torch, dev):
                 bound_ms=bound, bound_by=by))
         del q, k, v, qT, kT, vT, wants, want
         rows["decode_attention"] += _decode_domain_rows(torch, dev, dtype)
+        rows["decode_attention"] += _decode_dense_rows(torch, dev, dtype,
+                                                       peak)
 
         # ssd_scan: prefill of the SSM branch from a nonzero state, then
         # the domain rows
@@ -1496,18 +1701,19 @@ def phase_serve(torch, kernels, dev):
                 decode_ms_per_step=decode_ms, peak_mem_gb=peak_gb)
 
 
-def phase_serve_profile(np, torch, dev):
-    """One serving batch once more under torch.profiler: the prefill, then
-    8 decode steps, each with its device busy time, idle share and device
-    time by kernel group.  Numbers are under the profiler (its per-op cost
-    inflates the host-bound decode's wall time)."""
+def phase_serve_profile(np, torch, dev, arch="hymba-1.5b"):
+    """One serving batch of ``arch`` (full width and depth) once more under
+    torch.profiler: the prefill, then 8 decode steps, each with its device
+    busy time, idle share and device time by kernel group.  Numbers are
+    under the profiler (its per-op cost inflates the host-bound decode's
+    wall time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.serve import load_model
     from repro_torch.models import decode_step, prefill
 
-    cfg, params = load_model("hymba-1.5b", device=dev, seed=0)
+    cfg, params = load_model(arch, device=dev, seed=0)
     B, S, n_dec = SERVE["batch"], SERVE["prefill_len"], 8
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, S))).to(dev)
@@ -1541,8 +1747,8 @@ def phase_serve_profile(np, torch, dev):
                 if e.device_type == DeviceType.CUDA
                 and e.self_device_time_total]
         if not rows:
-            print(f"profile serve {label}: wall_s={wall:.3f} device time not "
-                  "measured (the profiler saw no device activity)")
+            print(f"profile serve {arch} {label}: wall_s={wall:.3f} device "
+                  "time not measured (the profiler saw no device activity)")
             continue
         busy = sum(e.self_device_time_total for e in rows) / 1e6
         by_group = {g: 0.0 for g, _ in groups}
@@ -1552,7 +1758,7 @@ def phase_serve_profile(np, torch, dev):
             g = next((g for g, keys in groups
                       if any(k in name for k in keys)), "other")
             by_group[g] += e.self_device_time_total / 1e6
-        print(f"profile serve {label}: wall_s={wall:.3f} "
+        print(f"profile serve {arch} {label}: wall_s={wall:.3f} "
               f"device_launches={sum(e.count for e in rows)} "
               f"device_busy_s={busy:.4f} device_idle_share="
               f"{1 - busy / wall:.4f} device_s_by_group="
@@ -1562,6 +1768,7 @@ def phase_serve_profile(np, torch, dev):
             print(f"  {e.key[:70]!r} count={e.count} "
                   f"device_ms={e.self_device_time_total / 1e3:.3f}")
     del params, state
+    torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -1654,6 +1861,153 @@ def phase_serve_check(np, torch, kernels, dev):
           f"(tol 1e-3) decode_vs_forward_max_abs={tf_err:.3e} (tol 2e-3) "
           f"max_abs_logit={float(full.abs().max()):.4f} "
           f"launches={kern_launches}", flush=True)
+
+
+# serve-dense: arch, layers (None: the published depth), requests and
+# decode steps; batches of 8, prompt 2048, bf16, random weights from seed 0
+DENSE_SERVES = (
+    ("glm4-9b", None, SERVE["requests"], SERVE["decode_len"]),
+    ("olmo-1b", 4, 8, 32),
+    ("h2o-danube-1.8b", 4, 8, 32),
+    ("nemotron-4-15b", 4, 8, 32),
+)
+# serve-dense-check: arch and config overrides (4 layers, f32); danube's
+# window cut to 1024 so that it bites inside the 1536-token prompt
+DENSE_CHECKS = (
+    ("glm4-9b", {}),
+    ("h2o-danube-1.8b", {"sliding_window": 1024}),
+)
+
+
+def phase_serve_dense(torch, kernels, dev):
+    """The dense-GQA configs through ``repro_torch.launch.serve`` at full
+    width, bf16, random weights from seed 0: glm4-9b at its full depth (40
+    layers) with serve's traffic (16 requests in batches of 8, prompt 2048,
+    64 greedy decode steps), the other three at 4 layers with one batch of
+    8 (32 decode steps).  One model on the card at a time.  Returns each
+    kernel's launches summed over the four."""
+    from repro_torch.kernels.decode_attention.ops import head_groups
+    from repro_torch.launch.serve import load_model, serve
+
+    total = {name: 0 for name in kernels}
+    for arch, layers, requests, decode_len in DENSE_SERVES:
+        t0 = time.perf_counter()
+        extra = {} if layers is None else {"num_layers": layers}
+        cfg, params = load_model(arch, device=dev, seed=0, **extra)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        nparams = sum(t.numel() for t in _leaves(params))
+        serve(cfg, params, requests=1, batch=1, prefill_len=16, decode_len=2)
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(kernels)
+        res = serve(cfg, params, requests=requests, batch=SERVE["batch"],
+                    prefill_len=SERVE["prefill_len"], decode_len=decode_len)
+        launches = _counts(kernels)
+        flash_instances = dict(kernels["flash_attention"].instance_launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        L, nb = cfg.num_layers, res["batches"]
+        want = {"flash_attention": L * nb,
+                "decode_attention": L * decode_len * nb, "ssd_scan": 0}
+        for name, n in want.items():
+            _require(launches[name] == n, f"serve-dense {arch}: {name} "
+                     f"launched {launches[name]} times, want {n}")
+        _require(flash_instances == {"wgmma": 0, "fma": L * nb},
+                 f"serve-dense {arch}: flash_attention instances "
+                 f"{flash_instances}, want every launch on the CUDA-core "
+                 "(fma) instance")
+        _require(bool(torch.isfinite(res["logits"]).all()),
+                 f"serve-dense {arch}: non-finite logits")
+        _require(res["logits"].shape == (SERVE["batch"], cfg.vocab_size),
+                 f"serve-dense {arch}: logits shape")
+        g = cfg.num_heads // cfg.num_kv_heads
+        prefill_tps = res["prefill_tokens"] / res["prefill_s"]
+        decode_ms = res["decode_s"] * 1e3 / (nb * decode_len)
+        print(f"serve-dense: {arch} layers={L} d_model={cfg.d_model} "
+              f"head_dim={cfg.resolved_head_dim} G={g} "
+              f"head_groups={head_groups(g)} window={cfg.sliding_window} "
+              f"vocab={cfg.vocab_size} params={nparams} bf16 "
+              f"init_s={init_s:.2f} requests={requests} "
+              f"batch={SERVE['batch']} prefill_len={SERVE['prefill_len']} "
+              f"decode_len={decode_len} prefill_s={res['prefill_s']:.3f} "
+              f"prefill_tok_per_s={prefill_tps:.1f} "
+              f"decode_s={res['decode_s']:.3f} "
+              f"decode_ms_per_step={decode_ms:.3f} peak_mem_gb={peak_gb:.3f} "
+              f"launches={ {n: launches[n] for n in want} } "
+              f"flash_attention_instances={flash_instances}", flush=True)
+        for name in kernels:
+            total[name] += launches[name]
+        del params, res
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_serve_dense_check(np, torch, kernels, dev):
+    """``DENSE_CHECKS`` at full width and 4 layers in f32 (TF32 off),
+    prompt 1536: the kernel route against the plain route on the card
+    (logits within 1e-3), teacher-forced decode after prefill against the
+    cache-free forward (within 2e-3), and no launch on the plain route."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention_plain
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    from repro_torch.launch.serve import load_model
+    from repro_torch.models import attention, layer_windows
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, S, n_prefill = 2, 1536, 1528
+    for arch, overrides in DENSE_CHECKS:
+        cfg, params = load_model(arch, device=dev, seed=1, num_layers=4,
+                                 dtype="float32", **overrides)
+        wins = layer_windows(cfg)
+        rng = np.random.default_rng(6)
+        tokens = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
+        _zero_counts(kernels)
+        kern = _route_run(torch, cfg, params, tokens, n_prefill)
+        kern_launches = _counts(kernels)
+        _require(kern_launches["flash_attention"] > 0
+                 and kern_launches["decode_attention"] > 0
+                 and kern_launches["ssd_scan"] == 0,
+                 f"serve-dense-check {arch}: kernel route launches "
+                 f"{kern_launches}")
+        patched = [(attention, "flash_attention", flash_attention_plain),
+                   (attention, "decode_attention", decode_attention_plain)]
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+        _zero_counts(kernels)
+        try:
+            for mod, name, fn in patched:
+                setattr(mod, name, fn)
+            plain = _route_run(torch, cfg, params, tokens, n_prefill)
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+        _require(all(n == 0 for n in _counts(kernels).values()),
+                 f"serve-dense-check {arch}: the plain route launched a "
+                 "kernel")
+        route_err = _max_abs(kern, plain)
+        _require(_close(torch, kern, plain, dict(rtol=1e-3, atol=1e-3)),
+                 f"serve-dense-check {arch}: kernel vs plain route "
+                 f"max|diff| {route_err}")
+        full, last, steps = kern
+        tf_err = _max_abs([last, steps],
+                          [full[:, n_prefill - 1], full[:, n_prefill:]])
+        _require(_close(torch, [last, steps],
+                        [full[:, n_prefill - 1], full[:, n_prefill:]],
+                        dict(rtol=2e-3, atol=2e-3)),
+                 f"serve-dense-check {arch}: decode vs forward max|diff| "
+                 f"{tf_err}")
+        _require(all(bool(torch.isfinite(t).all()) for t in kern),
+                 f"serve-dense-check {arch}: non-finite logits")
+        print(f"serve-dense-check: {arch} full width, layers=4 "
+              f"head_dim={cfg.resolved_head_dim} "
+              f"G={cfg.num_heads // cfg.num_kv_heads} windows={wins} f32 "
+              f"tf32=off batch={B} prompt={S} prefill={n_prefill} "
+              f"decode={S - n_prefill} kernel_vs_plain_max_abs="
+              f"{route_err:.3e} (tol 1e-3) decode_vs_forward_max_abs="
+              f"{tf_err:.3e} (tol 2e-3) max_abs_logit="
+              f"{float(full.abs().max()):.4f} launches={kern_launches}",
+              flush=True)
+        del params, kern, plain, full, last, steps
+        torch.cuda.empty_cache()
 
 
 def _zero_counts(kernels):
@@ -2809,9 +3163,9 @@ def main(argv=None) -> int:
     launches = {}
     path_launches = {}   # phase -> kernel -> launches on that path
     flash_instances = None
-    ssd_built = None
+    ssd_built = att_built = None
     if "build" in phases:
-        ssd_built = phase_build(_build)
+        ssd_built, att_built = phase_build(_build)
     if "kernels" in phases:
         rows = phase_kernels(np, torch, dev)
         rows.update(phase_model_kernels(np, torch, dev))
@@ -2821,6 +3175,22 @@ def main(argv=None) -> int:
             missed = sorted(f"{d}.P{p}" for _, d, p in ssd_built
                             if d is not None and f"{d}.P{p}" not in ran)
             _require(not missed, f"kernels: no ssd_scan row ran {missed}")
+            # ... and every CUDA-core flash and every decode instance
+            ran = {(name, r["kernel_instance"]) for name in
+                   ("flash_attention", "decode_attention")
+                   for r in rows[name]["shapes"]}
+            built = {(f"{kind}_attention",
+                      f"{d}.{'D' if kind == 'flash' else 'G'}{n}")
+                     for kind, d, n in att_built}
+            missed = sorted(built - ran)
+            _require(not missed, f"kernels: no row ran {missed}")
+            # the wrapper's head groups are the C side's
+            from repro_torch.kernels.decode_attention.ops import (
+                MAX_GROUP, head_groups)
+            _require(all(head_groups(g)
+                         == _build.lib().decode_attention_head_groups(g)
+                         for g in range(1, MAX_GROUP + 1)),
+                     "kernels: decode head groups differ from the source")
     if "fit-stress" in phases:
         hg = lmbr_stress_workload(seed=0).hypergraph
         stress = phase_fit(np, torch, fit_kernels, "fit-stress", hg,
@@ -2880,6 +3250,13 @@ def main(argv=None) -> int:
             phase_serve_profile(np, torch, dev)
     if "serve-check" in phases:
         phase_serve_check(np, torch, kernels, dev)
+    if "serve-dense" in phases:
+        dense = phase_serve_dense(torch, kernels, dev)
+        path_launches["serve-dense"] = {n: dense[n] for n in model_kernels}
+        if args.profile:
+            phase_serve_profile(np, torch, dev, "glm4-9b")
+    if "serve-dense-check" in phases:
+        phase_serve_dense_check(np, torch, kernels, dev)
     if "health" in phases:
         health_runs = phase_health(np, torch, fit_kernels, health_inputs(np))
         path_launches["health"] = {

@@ -50,6 +50,7 @@ _SIGNATURES = {
     "flash_attention_launch": ([_P] * 4 + [_I] * 10 + [_P], _I),
     "decode_attention_launch": ([_P] * 8 + [_I] * 9 + [_P], _I),
     "decode_attention_blocks_per_sm": ([_I], _I),
+    "decode_attention_head_groups": ([_I], _I),
     "ssd_scan_launch": ([_P] * 9 + [_I] * 8 + [_P], _I),
     "repro_torch_error_string": ([_I], ctypes.c_char_p),
 }

@@ -44,9 +44,18 @@
 //   Slots that are not visible (empty, beyond the query, outside the
 //   window) are never read, and a split with none visible loads no K or V.
 // * One launch.  Each block writes its split's (accumulator, max, sum) and
-//   arrives on a per-(b, kv head) counter; the last block to arrive merges
-//   the splits, writes the output and resets the counter to zero (with one
-//   split, the block itself).
+//   arrives on a per-(b, kv head, head group) counter; the last block to
+//   arrive merges the splits, writes the output and resets the counter to
+//   zero (with one split, the block itself).
+// * Head groups.  A block takes at most kBlockG = 8 query heads: at G 16
+//   (glm4-9b) the G accumulators of a bf16 D 128 lane alone would take
+//   128 registers.  A KV head with G > 8 query heads is split into
+//   head_groups(G) groups of G / head_groups(G) heads (the fewest groups
+//   that divide G), each its own blocks on the grid's y axis, so the
+//   instances of G <= 8 serve every G up to kMaxG = 16.  A group reads its
+//   KV head's cache once more; the second read mostly hits L2.  The split
+//   plan, the partials and the arrival counters are per (b, kv head, head
+//   group): the kernel sees the groups as GQA heads of their own.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,7 +67,8 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRows = 4;          // cache rows per lane per ring stage
 constexpr int kStages = 2;        // ring stages per warp
-constexpr int kMaxG = 8;          // query heads per kv head
+constexpr int kMaxG = 16;         // query heads per kv head
+constexpr int kBlockG = 8;        // query heads per block (a head group)
 constexpr int kMaxD = 128;
 constexpr int kChunk = 64;       // cache slots per chunk
 constexpr int kMaxSplit = 2048;   // slots per split (32 chunks), at most
@@ -134,9 +144,19 @@ __device__ __forceinline__ void fence_acq_rel() {
   asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
 }
 
-// part: (B, K, ns, G, D + 4) f32: a split's unnormalised accumulator, then
-// its max (base 2) and sum (rows padded to 16 bytes).  count: (B, K) int32
-// arrival counters, zero between launches.
+// The fewest head groups that divide G with at most kBlockG heads each.
+constexpr int head_groups(int g) {
+  int n = (g + kBlockG - 1) / kBlockG;
+  while (g % n) ++n;
+  return n;
+}
+
+// G is the heads of one head group, and the grid's y axis runs over the
+// K ng (kv head, head group) pairs: pair y reads kv head y / ng, and its
+// query heads are y G .. y G + G - 1.  part: (B, K ng, ns, G, D + 4) f32:
+// a split's unnormalised accumulator, then its max (base 2) and sum (rows
+// padded to 16 bytes).  count: (B, K ng) int32 arrival counters, zero
+// between launches.
 template <typename T, int G>
 __global__ void __launch_bounds__(kThreads, blocks_per_sm(G))
     decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -144,8 +164,8 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(G))
                             const int* __restrict__ kv_pos,
                             const int* __restrict__ q_pos,
                             float* __restrict__ part, int* __restrict__ count,
-                            T* __restrict__ out, int Tk, int K, int D,
-                            int window, float scale) {
+                            T* __restrict__ out, int Tk, int K, int ng,
+                            int D, int window, float scale) {
   constexpr int VEC = Piece<T>::n;
   constexpr int kScan = kMaxSplit / kThreads;  // positions per thread
   constexpr int kQ = (G * kMaxD + kThreads - 1) / kThreads;
@@ -155,10 +175,12 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(G))
   __shared__ int last;
 
   const int split = blockIdx.x;
-  const int kh = blockIdx.y;
+  const int pair = blockIdx.y;     // (kv head, head group)
+  const int kh = pair / ng;
   const int b = blockIdx.z;
   const int ns = gridDim.x;
-  const int H = K * G;
+  const int KG = gridDim.y;        // K ng
+  const int H = KG * G;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -176,7 +198,7 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(G))
 
   // q of the G heads, in fp32, and which of the split's slots are visible;
   // every load of both is in flight before the first is used
-  const T* qb = q + ((long long)b * H + kh * G) * D;
+  const T* qb = q + ((long long)b * H + pair * G) * D;
   T qv[kQ];
 #pragma unroll
   for (int i = 0; i < kQ; ++i) {
@@ -378,8 +400,8 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(G))
   __syncthreads();
 
   // merge the warps: the split's (accumulator, max, sum) per (g, d)
-  float* pb = part + (((long long)b * K + kh) * ns + split) * G * P;
-  T* ob = out + ((long long)b * H + kh * G) * D;
+  float* pb = part + (((long long)b * KG + pair) * ns + split) * G * P;
+  T* ob = out + ((long long)b * H + pair * G) * D;
   for (int e = tid; e < G * D; e += kThreads) {
     const int g = e / D;
     const int d = e - g * D;
@@ -404,21 +426,21 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(G))
     }
   }
 
-  // arrive; the last block of this (b, kv head) merges the splits.  The
+  // arrive; the last block of this (b, pair) merges the splits.  The
   // barrier orders the block's partial stores before thread 0's release
   // fence and counter update; the last block's acquire fence and barrier
   // order its reads of the others' partials after their arrivals.
   __syncthreads();
   if (tid == 0) {
     fence_acq_rel();
-    last = atomicAdd(count + b * K + kh, 1) == ns - 1;
+    last = atomicAdd(count + b * KG + pair, 1) == ns - 1;
     if (last) fence_acq_rel();
   }
   __syncthreads();
   if (!last) return;
   // four dims a thread; the splits' (max, sum, accumulator) are loaded
   // kMergeBatch at a time, each batch's loads in flight together
-  const float* pk = part + ((long long)b * K + kh) * ns * G * P;
+  const float* pk = part + ((long long)b * KG + pair) * ns * G * P;
   for (int e = tid; e < G * D / 4; e += kThreads) {
     const int g = 4 * e / D;
     const int d = 4 * e - g * D;
@@ -459,14 +481,15 @@ __global__ void __launch_bounds__(kThreads, blocks_per_sm(G))
     store_f(o + 2, a.z / sm);
     store_f(o + 3, a.w / sm);
   }
-  if (tid == 0) count[b * K + kh] = 0;
+  if (tid == 0) count[b * KG + pair] = 0;
 }
 
 template <typename T, int G>
 cudaError_t launch_g(const void* q, const void* k, const void* v,
                      const void* kv_pos, const void* q_pos, void* part,
-                     void* count, void* out, int B, int Tk, int K, int D,
-                     int window, int ns, int device, cudaStream_t stream) {
+                     void* count, void* out, int B, int Tk, int K, int ng,
+                     int D, int window, int ns, int device,
+                     cudaStream_t stream) {
   // the dynamic shared memory limit is set once per device
   static unsigned long long attr_set = 0;
   if (device >= 64 || !(attr_set >> device & 1)) {
@@ -476,10 +499,11 @@ cudaError_t launch_g(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return err;
     if (device < 64) attr_set |= 1ull << device;
   }
-  decode_attention_kernel<T, G><<<dim3(ns, K, B), kThreads, kSmem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)kv_pos,
-      (const int*)q_pos, (float*)part, (int*)count, (T*)out, Tk, K, D,
-      window, 1.0f / sqrtf((float)D));
+  decode_attention_kernel<T, G>
+      <<<dim3(ns, K * ng, B), kThreads, kSmem, stream>>>(
+          (const T*)q, (const T*)k, (const T*)v, (const int*)kv_pos,
+          (const int*)q_pos, (float*)part, (int*)count, (T*)out, Tk, K, ng,
+          D, window, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
@@ -489,11 +513,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    void* count, void* out, int B, int Tk, int G, int K,
                    int D, int window, int ns, int device,
                    cudaStream_t st) {
-  switch (G) {
+  const int ng = head_groups(G);
+  switch (G / ng) {
 #define REPRO_DECODE_G(g)                                                  \
   case g:                                                                  \
     return launch_g<T, g>(q, k, v, kv_pos, q_pos, part, count, out, B, Tk, \
-                          K, D, window, ns, device, st);
+                          K, ng, D, window, ns, device, st);
     REPRO_DECODE_G(1)
     REPRO_DECODE_G(2)
     REPRO_DECODE_G(3)
@@ -509,11 +534,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  splits: blocks per (b, kv head), each
-// taking every splits-th 64-slot chunk of the cache and at most 32 chunks;
-// part is (B, K, splits, G, D + 4) f32 scratch and count
-// (B, K) int32 counters that are zero, both from the wrapper; the launch
-// leaves count zero again.  k and v must be 16-byte aligned (their rows
+// dtype: 0 = float32, 1 = bfloat16.  G = H / K <= 16 query heads per kv
+// head run as ng = head_groups(G) groups of G / ng.  splits: blocks per
+// (b, kv head, head group), each taking every splits-th 64-slot chunk of
+// the cache and at most 32 chunks; part is (B, K ng, splits, G / ng,
+// D + 4) f32 scratch and count (B, K ng) int32 counters that are zero, both
+// from the wrapper; the launch leaves count zero again.  k and v must be 16-byte aligned (their rows
 // are copied in 16-byte pieces); q is read element by element.
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* kv_pos,
@@ -524,7 +550,8 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
                                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (K <= 0 || K > 65535 || H % K || H / K > kMaxG || H <= 0 || D <= 0 ||
+  if (K <= 0 || H % K || H / K > kMaxG || H <= 0 ||
+      K * head_groups(H / K) > 65535 || D <= 0 ||
       D > kMaxD || D % 8 || B <= 0 || B > 65535 || Tk <= 0 || splits <= 0 ||
       splits > (Tk + kChunk - 1) / kChunk ||
       ((Tk + kChunk - 1) / kChunk + splits - 1) / splits * kChunk > kMaxSplit)
@@ -542,6 +569,11 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
+// g: query heads of one block (a head group)
 extern "C" int decode_attention_blocks_per_sm(int g) {
   return blocks_per_sm(g);
+}
+
+extern "C" int decode_attention_head_groups(int g) {
+  return g >= 1 && g <= kMaxG ? head_groups(g) : 0;
 }

@@ -17,8 +17,10 @@
 //
 // * bf16 with D = 64 (every launch of the hymba serving path):
 //   flash_attention_wgmma_kernel, both products on the tensor cores;
-// * f32 (D 32, 64) and bf16 with D = 32: flash_attention_kernel, both
-//   products as fp32 FMAs on the CUDA cores.
+// * f32 (D 32, 64, 80, 128) and bf16 with D = 32, 80 or 128 (the dense
+//   configs: h2o-danube-1.8b has D 80, glm4-9b, olmo-1b and nemotron-4-15b
+//   D 128): flash_attention_kernel, both products as fp32 FMAs on the CUDA
+//   cores.
 //
 // What bounds it on an H100: operations.  At the serving path's shapes
 // (B 8, H 25, S = T 2048, D 64) the visible (i, j) pairs need 4 D flops
@@ -53,15 +55,20 @@
 // edge or the end of the keys.  GQA reads kv head
 // h / G in place; the G query heads that share it hit L2.
 //
-// CUDA-core instance.  One thread per query row keeps the row's q and its
-// accumulator (2 D floats) in registers; a block of 64 rows stages each
+// CUDA-core instance.  TPR threads per query row (1 at D 32 and 64, 2 at
+// D 80 and 128) keep the row's q and its accumulator (2 D / TPR floats a
+// thread) in registers: at D 128 one thread a row would hold ~290 values
+// with the 32 scores, over the 255-register limit.  Thread p of a row owns
+// the 16-byte pieces p, p + TPR, p + 2 TPR, ... of it, so the TPR threads
+// of a row read neighbouring pieces of a key (no bank conflict) and one
+// xor shuffle per key finishes its score.  A block of 64 rows stages each
 // 32-key tile of K and V in shared memory once and every thread reads it
-// as a broadcast, so each key costs 2 D register FMAs and D / 2 broadcast
-// 16-byte loads.  KV tiles that the causal or window mask removes for the
-// whole block are never loaded (the loop runs over [q0 - window + 1, last
-// row] only).  The ragged last query tile and the ragged last key tile are
-// masked in the kernel, so any S and T run (the TPU kernel needs multiples
-// of its block).
+// as a broadcast, so each key costs 2 D / TPR register FMAs a thread.  KV
+// tiles that the causal or window mask removes for the whole block are
+// never loaded (the loop runs over [q0 - window + 1, last row] only).  The
+// ragged last query tile and the ragged last key tile are masked in the
+// kernel, so any S and T run (the TPU kernel needs multiples of its
+// block).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,12 +89,16 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kRows)
+template <typename T, int D, int TPR>
+__global__ void __launch_bounds__(kRows * TPR)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
                            int S, int Tk, int H, int K, int causal, int window,
                            float scale) {
+  static_assert(D % (4 * TPR) == 0, "a thread holds whole 16-byte pieces");
+  constexpr int DT = D / TPR;     // dims of a row that one thread holds
+  constexpr int NP = DT / 4;      // its 16-byte pieces
+  constexpr int kThreads = kRows * TPR;
   __shared__ __align__(16) float ks[kKeys][D];
   __shared__ __align__(16) float vs[kKeys][D];
 
@@ -95,19 +106,23 @@ __global__ void __launch_bounds__(kRows)
   const int b = blockIdx.z;
   const int kh = h / (H / K);
   const int q0 = blockIdx.x * kRows;
-  const int i = q0 + threadIdx.x;
+  const int part = threadIdx.x % TPR;
+  const int i = q0 + threadIdx.x / TPR;
   const bool active = i < S;
+  // the row's element of this thread's dim c: piece c / 4 of the thread is
+  // piece (c / 4) TPR + part of the row
+  auto dim = [&](int c) { return 4 * ((c >> 2) * TPR + part) + (c & 3); };
 
-  float qr[D];
-  float acc[D];
+  float qr[DT];
+  float acc[DT];
   float m = kNegInf;
   float l = 0.f;
   {
     const T* qrow = q + (((long long)b * S + (active ? i : 0)) * H + h) * D;
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      qr[d] = active ? to_f(qrow[d]) : 0.f;
-      acc[d] = 0.f;
+    for (int c = 0; c < DT; ++c) {
+      qr[c] = active ? to_f(qrow[dim(c)]) : 0.f;
+      acc[c] = 0.f;
     }
   }
 
@@ -117,7 +132,7 @@ __global__ void __launch_bounds__(kRows)
 
   for (int t0 = kv_begin; t0 < kv_end; t0 += kKeys) {
     __syncthreads();  // every thread is done with the previous tile
-    for (int e = threadIdx.x; e < kKeys * D; e += kRows) {
+    for (int e = threadIdx.x; e < kKeys * D; e += kThreads) {
       const int j = e / D;
       const int d = e - j * D;
       const int t = t0 + j;
@@ -131,26 +146,32 @@ __global__ void __launch_bounds__(kRows)
       vs[j][d] = vv;
     }
     __syncthreads();
-    if (!active) continue;
+    // the threads of a row shuffle together, so with TPR > 1 an inactive
+    // row runs the tile with every key masked
+    if (TPR == 1 && !active) continue;
 
     float s[kKeys];
     float mt = m;
 #pragma unroll
     for (int j = 0; j < kKeys; ++j) {
       const int t = t0 + j;
-      const bool ok = t < kv_end && (!causal || t <= i) &&
+      const bool ok = active && t < kv_end && (!causal || t <= i) &&
                       (window <= 0 || t > i - window);
-      const float4* kr = reinterpret_cast<const float4*>(ks[j]);
+      const float4* kr = reinterpret_cast<const float4*>(ks[j]) + part;
       float s0 = 0.f, s1 = 0.f, s2 = 0.f, s3 = 0.f;
 #pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 kk = kr[d4];
+      for (int d4 = 0; d4 < NP; ++d4) {
+        const float4 kk = kr[d4 * TPR];
         s0 = fmaf(qr[4 * d4 + 0], kk.x, s0);
         s1 = fmaf(qr[4 * d4 + 1], kk.y, s1);
         s2 = fmaf(qr[4 * d4 + 2], kk.z, s2);
         s3 = fmaf(qr[4 * d4 + 3], kk.w, s3);
       }
-      s[j] = ok ? ((s0 + s1) + (s2 + s3)) * scale : kNegInf;
+      float dot = (s0 + s1) + (s2 + s3);
+#pragma unroll
+      for (int o = 1; o < TPR; o <<= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      s[j] = ok ? dot * scale : kNegInf;
       mt = fmaxf(mt, s[j]);
     }
     mt = fmaxf(mt, -1e4f);  // masked-tile guard, as the reference
@@ -163,14 +184,14 @@ __global__ void __launch_bounds__(kRows)
     }
     l = l * corr + psum;
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= corr;
+    for (int c = 0; c < DT; ++c) acc[c] *= corr;
 #pragma unroll
     for (int j = 0; j < kKeys; ++j) {
-      const float4* vr = reinterpret_cast<const float4*>(vs[j]);
+      const float4* vr = reinterpret_cast<const float4*>(vs[j]) + part;
       const float p = s[j];
 #pragma unroll
-      for (int d4 = 0; d4 < D / 4; ++d4) {
-        const float4 vv = vr[d4];
+      for (int d4 = 0; d4 < NP; ++d4) {
+        const float4 vv = vr[d4 * TPR];
         acc[4 * d4 + 0] = fmaf(p, vv.x, acc[4 * d4 + 0]);
         acc[4 * d4 + 1] = fmaf(p, vv.y, acc[4 * d4 + 1]);
         acc[4 * d4 + 2] = fmaf(p, vv.z, acc[4 * d4 + 2]);
@@ -184,16 +205,18 @@ __global__ void __launch_bounds__(kRows)
     T* orow = out + (((long long)b * S + i) * H + h) * D;
     const float inv = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int d = 0; d < D; ++d) store_f(orow + d, acc[d] / inv);
+    for (int c = 0; c < DT; ++c) store_f(orow + dim(c), acc[c] / inv);
   }
 }
 
-template <typename T, int D>
+// TPR threads per query row: 2 at D 80 and 128, whose q and accumulator
+// would not fit one thread's registers beside the scores
+template <typename T, int D, int TPR = (D > 64 ? 2 : 1)>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int S, int Tk, int H, int K, int causal, int window,
                    cudaStream_t stream) {
   dim3 grid((S + kRows - 1) / kRows, H, B);
-  flash_attention_kernel<T, D><<<grid, kRows, 0, stream>>>(
+  flash_attention_kernel<T, D, TPR><<<grid, kRows * TPR, 0, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)out, S, Tk, H, K, causal,
       window, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
@@ -524,9 +547,10 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  D must be 32 or 64 (the wrapper
-// checks); anything else returns cudaErrorInvalidValue.  bf16 with D 64
-// runs the tensor-core instance, which needs 16-byte aligned pointers.
+// dtype: 0 = float32, 1 = bfloat16.  D must be 32, 64, 80 or 128 (the
+// wrapper checks); anything else returns cudaErrorInvalidValue.  bf16 with
+// D 64 runs the tensor-core instance, which needs 16-byte aligned pointers;
+// the rest run the CUDA-core instance.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
                                       int Tk, int H, int K, int D, int causal,
@@ -549,5 +573,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (dtype == 1 && D == 64)
     return (int)launch_wgmma(q, k, v, out, B, S, Tk, H, K, causal, window,
                              st);
+  if (dtype == 0 && D == 80)
+    return (int)launch<float, 80>(q, k, v, out, B, S, Tk, H, K, causal,
+                                  window, st);
+  if (dtype == 0 && D == 128)
+    return (int)launch<float, 128>(q, k, v, out, B, S, Tk, H, K, causal,
+                                   window, st);
+  if (dtype == 1 && D == 80)
+    return (int)launch<__nv_bfloat16, 80>(q, k, v, out, B, S, Tk, H, K,
+                                          causal, window, st);
+  if (dtype == 1 && D == 128)
+    return (int)launch<__nv_bfloat16, 128>(q, k, v, out, B, S, Tk, H, K,
+                                           causal, window, st);
   return (int)cudaErrorInvalidValue;
 }

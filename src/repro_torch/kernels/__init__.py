@@ -5,7 +5,7 @@ launch counter.  The placement pipeline's:
   cover_rounds      — every greedy round of a word-count bucket
   lockstep_peel     — the dense Algorithm-5 peel of LMBR
 
-and the model stack's (the hymba serving path):
+and the model stack's (the hymba and dense-GQA serving paths):
 
   flash_attention   — causal / sliding-window GQA prefill attention
   decode_attention  — one-token GQA flash-decode over a KV cache

@@ -14,9 +14,11 @@ dtype.
   CUDA kernel (``csrc/decode_attention.cu``) for CUDA tensors.
   ``decode_attention.launches`` counts kernel launches (one per call: the
   splits and their merge run in one launch).
-* ``split_plan`` — how the kernel cuts the cache into splits, one block
-  each per (split, kv head, batch row); ``resident_blocks`` — the wave it
-  fills on a card.
+* ``head_groups`` — how many groups the G query heads of a KV head are
+  cut into (at most ``BLOCK_GROUP`` heads a block; two at glm4-9b's G 16);
+  ``split_plan`` — how the kernel cuts the cache into splits, one block
+  each per (split, head group of a kv head, batch row);
+  ``resident_blocks`` — the wave it fills on a card.
 """
 
 from __future__ import annotations
@@ -28,21 +30,35 @@ import torch
 from ... import _build
 from .. import check_same_device, launch_args
 
-__all__ = ["decode_attention", "decode_attention_plain", "resident_blocks",
-           "split_plan"]
+__all__ = ["decode_attention", "decode_attention_plain", "head_groups",
+           "resident_blocks", "split_plan"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CHUNK = 64                # must equal kChunk in csrc/decode_attention.cu
 MAX_CHUNKS = 32           # chunks per split: kMaxSplit / kChunk
-MAX_GROUP = 8             # must equal kMaxG
+MAX_GROUP = 16            # query heads per kv head; must equal kMaxG
+BLOCK_GROUP = 8           # query heads per block; must equal kBlockG
 # (device index, stream) -> the kernel's int32 arrival counters, one per
-# (batch row, kv head); each launch leaves them at zero again
+# (batch row, kv head, head group); each launch leaves them at zero again
 _COUNTERS: dict = {}
 
 
+def head_groups(g: int) -> int:
+    """Groups that the G query heads of a KV head are cut into: the fewest
+    that divide G with at most ``BLOCK_GROUP`` heads each (the C side's
+    ``head_groups``).  Each group is its own blocks, over the same cache."""
+    if not 1 <= g <= MAX_GROUP:
+        raise ValueError(f"G must be in 1..{MAX_GROUP}, got {g}")
+    n = -(-g // BLOCK_GROUP)
+    while g % n:
+        n += 1
+    return n
+
+
 def split_plan(b: int, kh: int, t: int, resident: int) -> int:
-    """Blocks (splits) per (batch row, kv head) for a cache of ``t`` slots.
+    """Blocks (splits) per (batch row, kv head) for a cache of ``t`` slots;
+    the kernel passes the (kv head, head group) pairs as ``kh``.
     The cache is cut into 64-slot chunks and split s takes chunks s, s + ns,
     s + 2 ns, ..., so a window's visible chunks spread over every split.
     As many splits as one wave of ``resident`` blocks (the card's SMs times
@@ -56,8 +72,9 @@ def split_plan(b: int, kh: int, t: int, resident: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def resident_blocks(index: int, g: int) -> int:
-    """Blocks of the kernel's G instance that one wave holds on card
-    ``index``, the blocks per SM taken from the kernel itself."""
+    """Blocks of the kernel's G instance (``g`` query heads a block) that
+    one wave holds on card ``index``, the blocks per SM taken from the
+    kernel itself."""
     return (torch.cuda.get_device_properties(index).multi_processor_count
             * _build.lib().decode_attention_blocks_per_sm(g))
 
@@ -121,9 +138,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     index, stream = launch_args(dev)
-    ns = split_plan(b, kh, t, resident_blocks(index, g))
-    part = torch.empty((b, kh, ns, g, d + 4), dtype=torch.float32, device=dev)
-    count = _counters(dev, index, stream, b * kh)
+    ng = head_groups(g)
+    ns = split_plan(b, kh * ng, t, resident_blocks(index, g // ng))
+    part = torch.empty((b, kh * ng, ns, g // ng, d + 4), dtype=torch.float32,
+                       device=dev)
+    count = _counters(dev, index, stream, b * kh * ng)
     err = _build.lib().decode_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_pos.data_ptr(),
         q_pos.data_ptr(), part.data_ptr(), count.data_ptr(), out.data_ptr(),

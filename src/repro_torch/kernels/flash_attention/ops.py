@@ -16,8 +16,8 @@ q's dtype.
   ``flash_attention.launches`` counts kernel launches, and
   ``flash_attention.instance_launches`` splits them by the kernel's two
   instances: ``"wgmma"`` (bf16 with head_dim 64, both products on the
-  tensor cores) and ``"fma"`` (f32, and bf16 with head_dim 32, on the CUDA
-  cores).
+  tensor cores) and ``"fma"`` (f32, and bf16 with head_dim 32, 80 or 128,
+  on the CUDA cores).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ __all__ = ["flash_attention", "flash_attention_plain", "instance",
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64)
+_HEAD_DIMS = (32, 64, 80, 128)   # the C dispatch's
 
 
 def _mask(s: int, t: int, causal: bool, window, device) -> torch.Tensor:

@@ -1,9 +1,11 @@
 """Batched serving driver: prefill, then greedy decode.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \\
         --requests 16 --batch 8 --prefill-len 2048 --decode-len 64
 
-The reference driver (``repro.launch.serve``) with the same CLI plus
+``--arch`` takes the ported architectures: hymba-1.5b (hybrid) and the
+dense-GQA glm4-9b, olmo-1b, h2o-danube-1.8b and nemotron-4-15b.  The
+reference driver (``repro.launch.serve``) with the same CLI plus
 ``--device`` (default "cuda"; raises without CUDA unless "cpu" is given):
 random prompts from ``numpy.random.default_rng(seed)``, one prefill per
 batch of requests into a cache of ``prefill_len + decode_len`` slots,
@@ -11,7 +13,7 @@ then ``decode_len`` greedy (argmax) steps; the last logits of every batch
 must be finite.  Weights are random, from the port's ``init_params`` with
 a seeded generator.  Prints tokens per second with the device's name.
 The MoE expert-placement refit of the reference waits with MoE (ROADMAP
-Queue 1 item 12).
+Queue 1 item 9.2).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from .. import device as device_mod
-from ..configs import get_config, reduce_config
+from ..configs import get_config, list_configs, reduce_config
 from ..models import decode_step, init_params, prefill
 
 __all__ = ["load_model", "serve", "main"]
@@ -95,7 +97,7 @@ def serve(cfg, params, *, requests: int = 16, prefill_len: int = 64,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True, choices=list_configs())
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--prefill-len", type=int, default=64)

@@ -1,4 +1,5 @@
-"""The model stack of the port: the hybrid (hymba) serving path."""
+"""The model stack of the port: the serving path of the hybrid (hymba)
+and dense-GQA (glm4, olmo, h2o-danube, nemotron) families."""
 
 from .convert import params_from_jax  # noqa: F401
 from .model import (  # noqa: F401

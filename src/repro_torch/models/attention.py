@@ -15,7 +15,7 @@ Any other case (a prefill into a non-empty cache, positions other than
 0..S-1 without a cache) raises; serving never makes one.  The kernels'
 plain versions are the port's model-level oracle; the tests hold them
 against the reference's ``chunked_attention``.  MLA is not ported
-(ROADMAP Queue 1 item 12).
+(ROADMAP Queue 1 item 9.3).
 """
 
 from __future__ import annotations

@@ -1,9 +1,15 @@
 """Blocks: init + apply for one layer.
 
-Ported family: hybrid (hymba) — pre-norm, then GQA attention AND mamba2
-in PARALLEL on the same input, each path RMS-normalized, averaged, added
-to the residual, then the pre-norm SwiGLU FFN (the reference's
-``models/blocks.py``).  The other families raise NotImplementedError.
+Ported families (the reference's ``models/blocks.py``):
+
+* dense GQA (glm4, olmo, h2o-danube, nemotron): pre-norm GQA attention ->
+  residual -> pre-norm MLP (SwiGLU or non-gated) -> residual;
+* hybrid (hymba): pre-norm, then GQA attention AND mamba2 in PARALLEL on
+  the same input, each path RMS-normalized, averaged, added to the
+  residual, then the pre-norm SwiGLU FFN.
+
+The other families raise NotImplementedError, naming the ROADMAP Queue 1
+sub-item that holds them.
 """
 
 from __future__ import annotations
@@ -12,59 +18,79 @@ from . import attention as attn
 from . import ssm as ssm_mod
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 
-__all__ = ["init_block", "apply_block", "init_block_cache"]
+__all__ = ["init_block", "apply_block", "init_block_cache", "block_kind"]
 
 
-def _require_hybrid(cfg) -> None:
-    if cfg.attention == "hybrid" and not cfg.moe and not cfg.encoder_layers:
-        return
+def block_kind(cfg) -> str:
+    """"hybrid" or "dense" (GQA); raises on the families the port does not
+    run yet."""
+    if cfg.encoder_layers or cfg.frontend:
+        item = "9.4: the encoder-decoder and VLM frontends"
+    elif cfg.moe:
+        item = "9.2: MoE"
+    elif cfg.attention == "mla":
+        item = "9.3: MLA"
+    elif cfg.attention == "none":
+        item = "9.1: the pure-SSM (mamba2) block"
+    elif cfg.mtp_depth:
+        item = "9.2: multi-token prediction"
+    elif cfg.attention == "hybrid":
+        return "hybrid"
+    else:
+        return "dense"
     raise NotImplementedError(
         f"{cfg.name} ({cfg.family}, attention={cfg.attention!r}): only the "
-        "hybrid GQA+mamba2 block is ported; dense-GQA, pure-SSM, MoE, MLA "
-        "and encoder-decoder blocks wait in ROADMAP Queue 1 item 12")
+        "dense-GQA and hybrid GQA+mamba2 blocks are ported; this family "
+        f"waits in ROADMAP Queue 1 item {item}")
 
 
 def init_block(gen, cfg, dtype, device=None) -> dict:
-    _require_hybrid(cfg)
+    kind = block_kind(cfg)
     d = cfg.d_model
-    return {
+    p = {
         "ln_attn": init_norm(cfg.norm, d, dtype, device),
         "attn": attn.init_gqa(gen, cfg, dtype, device),
+    }
+    if kind == "hybrid":
         # the reference creates ln_ssm for every SSM-carrying block; the
         # hybrid branch does not read it
-        "ln_ssm": init_norm(cfg.norm, d, dtype, device),
-        "ssm": ssm_mod.init_mamba2(gen, cfg, dtype, device),
-        "out_norm_attn": init_norm("rmsnorm", d, dtype, device),
-        "out_norm_ssm": init_norm("rmsnorm", d, dtype, device),
-        "ln_mlp": init_norm(cfg.norm, d, dtype, device),
-        "mlp": init_mlp(gen, cfg.mlp, d, cfg.d_ff, dtype, device),
-    }
+        p["ln_ssm"] = init_norm(cfg.norm, d, dtype, device)
+        p["ssm"] = ssm_mod.init_mamba2(gen, cfg, dtype, device)
+        p["out_norm_attn"] = init_norm("rmsnorm", d, dtype, device)
+        p["out_norm_ssm"] = init_norm("rmsnorm", d, dtype, device)
+    p["ln_mlp"] = init_norm(cfg.norm, d, dtype, device)
+    p["mlp"] = init_mlp(gen, cfg.mlp, d, cfg.d_ff, dtype, device)
+    return p
 
 
 def apply_block(params: dict, cfg, x, positions, *, window=None,
                 cache: dict | None = None):
     """x (B, S, d), positions (B, S).  Returns (y, new_cache)."""
-    _require_hybrid(cfg)
+    kind = block_kind(cfg)
     h = apply_norm(cfg.norm, params["ln_attn"], x)
     a_out, c_attn = attn.gqa_attention(
         params["attn"], cfg, h, positions, window=window,
         kv_cache=cache["attn"] if cache else None)
-    s_out, c_ssm = ssm_mod.apply_mamba2(
-        params["ssm"], cfg, h, cache=cache["ssm"] if cache else None)
-    a_n = apply_norm("rmsnorm", params["out_norm_attn"], a_out)
-    s_n = apply_norm("rmsnorm", params["out_norm_ssm"], s_out)
-    x = x + 0.5 * (a_n + s_n)
+    new_cache = dict(attn=c_attn) if cache is not None else None
+    if kind == "hybrid":
+        s_out, c_ssm = ssm_mod.apply_mamba2(
+            params["ssm"], cfg, h, cache=cache["ssm"] if cache else None)
+        a_n = apply_norm("rmsnorm", params["out_norm_attn"], a_out)
+        s_n = apply_norm("rmsnorm", params["out_norm_ssm"], s_out)
+        x = x + 0.5 * (a_n + s_n)
+        if new_cache is not None:
+            new_cache["ssm"] = c_ssm
+    else:
+        x = x + a_out
     h = apply_norm(cfg.norm, params["ln_mlp"], x)
     x = x + apply_mlp(cfg.mlp, params["mlp"], h)
-    new_cache = dict(attn=c_attn, ssm=c_ssm) if cache is not None else None
     return x, new_cache
 
 
 def init_block_cache(cfg, batch: int, max_len: int, dtype, *, window=None,
                      device=None) -> dict:
-    _require_hybrid(cfg)
-    return {
-        "attn": attn.init_gqa_cache(cfg, batch, max_len, dtype,
-                                    window=window, device=device),
-        "ssm": ssm_mod.init_ssm_cache(cfg, batch, dtype, device=device),
-    }
+    c = {"attn": attn.init_gqa_cache(cfg, batch, max_len, dtype,
+                                     window=window, device=device)}
+    if block_kind(cfg) == "hybrid":
+        c["ssm"] = ssm_mod.init_ssm_cache(cfg, batch, dtype, device=device)
+    return c

@@ -7,6 +7,7 @@ returns the port's parameters: the same nested dicts, with the
 layer-stacked ``blocks`` (leading axis = layer) split into a list of
 per-layer dicts.  Leaf dtypes are kept; a bfloat16 leaf (numpy's
 ``ml_dtypes`` bfloat16) goes through float32, which holds it exactly.
+Empty groups (the non-parametric LayerNorm's ``{}``) stay empty.
 """
 
 from __future__ import annotations
@@ -39,7 +40,9 @@ def params_from_jax(cfg, tree: dict, device=None) -> dict:
     if extra:
         raise NotImplementedError(
             f"parameter groups {sorted(extra)} belong to families the port "
-            "does not run yet (ROADMAP Queue 1 item 12)")
+            "does not run yet (ROADMAP Queue 1 item 9: MoE's dense_blocks "
+            "and mtp in 9.2, the encoder-decoder and VLM frontends' "
+            "enc_blocks and frontend_proj in 9.4)")
     out = {k: _map(v, lambda a: _leaf(a, dev))
            for k, v in tree.items() if k != "blocks"}
     out["blocks"] = [_map(tree["blocks"], lambda a, i=i: _leaf(a[i], dev))

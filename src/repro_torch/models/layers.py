@@ -30,37 +30,60 @@ def dense_init(gen: torch.Generator, shape, dtype, scale: float = 1.0,
 def init_norm(kind: str, d: int, dtype, device=None) -> dict:
     if kind == "rmsnorm":
         return {"scale": torch.ones((d,), dtype=dtype, device=device)}
-    raise NotImplementedError(
-        f"norm {kind!r}: only rmsnorm is ported (ROADMAP Queue 1 item 12)")
+    if kind == "layernorm":
+        return {"scale": torch.ones((d,), dtype=dtype, device=device),
+                "bias": torch.zeros((d,), dtype=dtype, device=device)}
+    if kind == "nonparametric_ln":
+        return {}
+    raise ValueError(kind)
 
 
 def apply_norm(kind: str, params: dict, x: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {kind!r}: only rmsnorm is ported (ROADMAP Queue 1 item 12)")
     xf = x.float()
-    y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return (y * params["scale"].float()).to(x.dtype)
+    if kind == "rmsnorm":
+        y = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        return (y * params["scale"].float()).to(x.dtype)
+    if kind not in ("layernorm", "nonparametric_ln"):
+        raise ValueError(kind)
+    # layernorm family: centre and scale by the population variance (the
+    # reference's jnp.var; torch.var would divide by n - 1)
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if kind == "layernorm":
+        y = y * params["scale"].float() + params["bias"].float()
+    # nonparametric_ln (olmo): no affine parameters
+    return y.to(x.dtype)
 
 
 # -------------------------------------------------------------------- MLPs
 def init_mlp(gen, kind: str, d: int, ff: int, dtype, device=None) -> dict:
-    if kind != "swiglu":
-        raise NotImplementedError(
-            f"mlp {kind!r}: only swiglu is ported (ROADMAP Queue 1 item 12)")
+    if kind == "swiglu":
+        return {
+            "wi_gate": dense_init(gen, (d, ff), dtype, device=device),
+            "wi_up": dense_init(gen, (d, ff), dtype, device=device),
+            "wo": dense_init(gen, (ff, d), dtype, device=device),
+        }
+    # non-gated: squared_relu (nemotron) / gelu (seamless)
     return {
-        "wi_gate": dense_init(gen, (d, ff), dtype, device=device),
-        "wi_up": dense_init(gen, (d, ff), dtype, device=device),
+        "wi": dense_init(gen, (d, ff), dtype, device=device),
         "wo": dense_init(gen, (ff, d), dtype, device=device),
     }
 
 
 def apply_mlp(kind: str, params: dict, x: torch.Tensor) -> torch.Tensor:
-    if kind != "swiglu":
-        raise NotImplementedError(
-            f"mlp {kind!r}: only swiglu is ported (ROADMAP Queue 1 item 12)")
-    h = F.silu(x @ params["wi_gate"]) * (x @ params["wi_up"])
+    if kind == "swiglu":
+        h = F.silu(x @ params["wi_gate"]) * (x @ params["wi_up"])
+    else:
+        h = x @ params["wi"]
+        if kind == "squared_relu":
+            h = torch.square(F.relu(h))
+        elif kind == "gelu":
+            # jax.nn.gelu's default is the tanh approximation
+            h = F.gelu(h, approximate="tanh")
+        else:
+            raise ValueError(kind)
     return h @ params["wo"]
 
 
@@ -74,9 +97,24 @@ def embed_lookup(params: dict, ids: torch.Tensor) -> torch.Tensor:
     return params["table"][ids]
 
 
+UNEMBED_ROWS = 16384   # vocabulary rows widened to fp32 at a time
+
+
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Logits in fp32."""
-    return x.float() @ params["table"].float().T
+    """Logits in fp32: x and the table widened to fp32, as the reference
+    does.  The table is widened ``UNEMBED_ROWS`` rows at a time into the
+    output's columns, so a call holds at most that many fp32 rows of it
+    (a whole fp32 copy is 2.5 GB at glm4-9b's vocabulary and 6.3 GB at
+    nemotron-4-15b's)."""
+    table = params["table"]
+    xf = x.float()
+    out = torch.empty(x.shape[:-1] + (table.shape[0],), dtype=torch.float32,
+                      device=x.device)
+    x2, o2 = xf.reshape(-1, xf.shape[-1]), out.view(-1, table.shape[0])
+    for r0 in range(0, table.shape[0], UNEMBED_ROWS):
+        rows = table[r0:r0 + UNEMBED_ROWS].float()
+        o2[:, r0:r0 + rows.shape[0]] = x2 @ rows.T
+    return out
 
 
 # -------------------------------------------------------------------- RoPE

@@ -4,7 +4,10 @@ The reference (``models/model.py``) stores parameters layer-stacked and
 scans over them; the port keeps a Python list of per-layer dicts and loops
 (PyTorch runs eagerly, so there is nothing to trace).  Each layer carries
 its own cache (hymba's global layers and window layers may differ in
-shape), as the reference's unrolled serving path does.
+shape), as the reference's unrolled serving path does; for the dense
+family the reference scans over layer-stacked caches instead, which hold
+the same numbers slice by slice.  A tied-embedding model (olmo) has no
+``unembed`` group and unembeds with the embedding table.
 
 Cache layout: {"layers": [block cache per layer], "encoder": None}.
 """

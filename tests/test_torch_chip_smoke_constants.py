@@ -7,6 +7,7 @@ the port's generators build the reference's inputs, so the card run is
 held to the reference without importing it."""
 
 import functools
+import re
 import sys
 from pathlib import Path
 
@@ -525,3 +526,71 @@ def test_sparse_peel_equals_the_plain_version(seed):
         check([torch.from_numpy(x) for x in (inc, we, nodew, nv)], trial)
     check(chip_smoke._peel_inputs(np, torch, rng, 2, 2048, 512, "cpu"),
           "G2.K2048.U512")
+
+
+# ------------------------------------------------------- the dense slice
+def _source(name):
+    return (ROOT / "src" / "repro_torch" / "csrc" / name).read_text()
+
+
+def test_decode_group_limits_match_the_kernel_source():
+    from repro_torch.kernels.decode_attention.ops import (BLOCK_GROUP,
+                                                          MAX_GROUP,
+                                                          head_groups)
+    src = _source("decode_attention.cu")
+    limits = {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                  src).group(1))
+              for name in ("kMaxG", "kBlockG")}
+    assert limits == {"kMaxG": MAX_GROUP, "kBlockG": BLOCK_GROUP}
+    # glm4-9b's 32 / 2 query heads per KV head fit, in two head groups
+    assert MAX_GROUP >= 16 and head_groups(16) == 2
+    # the launch switch has one instance per head-group size 1..kBlockG
+    cases = re.findall(r"REPRO_DECODE_G\((\d+)\)", src)
+    assert sorted(map(int, cases)) == list(range(1, BLOCK_GROUP + 1))
+
+
+def test_flash_head_dims_match_the_kernel_dispatch():
+    from repro_torch.kernels.flash_attention.ops import _HEAD_DIMS, instance
+    src = _source("flash_attention.cu")
+    body = src[src.index('extern "C" int flash_attention_launch'):]
+    pairs = set(re.findall(r"dtype == (\d) && D == (\d+)", body))
+    assert pairs == {(dt, str(d)) for dt in "01" for d in _HEAD_DIMS}
+    assert [d for d in _HEAD_DIMS if d not in (32, 64)] == [80, 128]
+    # the dense configs' dims run on the CUDA-core instance
+    import torch
+    for d in (80, 128):
+        assert instance(torch.bfloat16, d) == instance(torch.float32, d) \
+            == "fma"
+
+
+def test_serve_dense_configs_are_the_reference_configs():
+    import dataclasses
+
+    from repro.configs import get_config as ref_get_config
+    from repro_torch.configs import get_config
+    from repro_torch.models import layer_windows
+
+    archs = {row[0] for row in chip_smoke.DENSE_SERVES}
+    assert archs == {"glm4-9b", "olmo-1b", "h2o-danube-1.8b",
+                     "nemotron-4-15b"}
+    for arch, layers, requests, decode_len in chip_smoke.DENSE_SERVES:
+        cfg, ref = get_config(arch), ref_get_config(arch)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+        assert cfg.family == "dense"
+        assert layers is None or layers < ref.num_layers
+    # glm4-9b at its published depth, with serve's traffic
+    assert chip_smoke.DENSE_SERVES[0] == (
+        "glm4-9b", None, chip_smoke.SERVE["requests"],
+        chip_smoke.SERVE["decode_len"])
+    assert ref_get_config("glm4-9b").num_layers == 40
+    assert {a for a, _ in chip_smoke.DENSE_CHECKS} <= archs
+    # the kernel rows sit at each config's (H, K, D) and window
+    for table in (chip_smoke.DENSE_FLASH, chip_smoke.DENSE_DECODE):
+        assert {row[0] for row in table} == archs
+        for label, h, k, d, windows in table:
+            ref = ref_get_config(label)
+            assert (h, k, d) == (ref.num_heads, ref.num_kv_heads,
+                                 ref.resolved_head_dim)
+            assert windows[0] is None
+            assert all(w is None for w in layer_windows(
+                get_config(label))) == (len(windows) == 1)

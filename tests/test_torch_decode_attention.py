@@ -15,10 +15,11 @@ from repro.kernels.decode_attention.kernel import decode_attention as ref_kernel
 from repro.kernels.decode_attention.ref import decode_attention_ref
 from repro.models.attention import chunked_attention as ref_chunked
 from repro_torch import _build
-from repro_torch.kernels.decode_attention.ops import (CHUNK, MAX_CHUNKS,
-                                                      MAX_GROUP,
+from repro_torch.kernels.decode_attention.ops import (BLOCK_GROUP, CHUNK,
+                                                      MAX_CHUNKS, MAX_GROUP,
                                                       decode_attention,
                                                       decode_attention_plain,
+                                                      head_groups,
                                                       split_plan)
 
 jax = pytest.importorskip("jax")
@@ -63,6 +64,10 @@ SHAPES = [   # b, h, kh, t, d, window, fill (tests/test_kernels.py + G=5)
     (2, 4, 1, 512, 64, None, 300),
     (1, 2, 2, 256, 32, 128, 256),
     (2, 10, 2, 256, 64, 100, 200),
+    # the dense configs: G 16 at D 128 (glm4-9b) and D 80, G 6 (nemotron)
+    (2, 32, 2, 256, 128, None, 200),
+    (1, 16, 1, 256, 80, 100, 256),
+    (2, 12, 2, 256, 128, 40, 200),
 ]
 
 
@@ -170,7 +175,8 @@ def test_split_plan_stays_in_the_kernel_domain(b, kh, resident):
 
 @pytest.mark.parametrize("name,value", [("kChunk", CHUNK),
                                         ("kMaxSplit", CHUNK * MAX_CHUNKS),
-                                        ("kMaxG", MAX_GROUP)])
+                                        ("kMaxG", MAX_GROUP),
+                                        ("kBlockG", BLOCK_GROUP)])
 def test_wrapper_constants_match_the_kernel(name, value):
     # the wrapper plans the grid and checks the domain with its own copies
     src = (_build.CSRC / "decode_attention.cu").read_text()
@@ -239,3 +245,27 @@ def test_split_then_combine_matches_plain(split, window):
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL32)
     assert torch.equal(got[3:], torch.zeros_like(got[3:]))
     assert torch.equal(want[3:], torch.zeros_like(want[3:]))
+
+
+def test_head_groups_are_the_fewest_that_fit_a_block():
+    # G > 8 query heads of a KV head run as head groups of at most 8, each
+    # its own blocks; glm4-9b's G 16 is two groups of 8
+    assert head_groups(16) == 2 and head_groups(5) == 1
+    for g in range(1, MAX_GROUP + 1):
+        n = head_groups(g)
+        assert g % n == 0 and g // n <= BLOCK_GROUP
+        assert all(g % m or g // m > BLOCK_GROUP for m in range(1, n))
+    for g in (0, MAX_GROUP + 1):
+        with pytest.raises(ValueError):
+            head_groups(g)
+
+
+def test_head_groups_follow_the_kernel_source():
+    # the C side's head_groups: start at ceil(G / kBlockG), step up to a
+    # divisor of G
+    src = (_build.CSRC / "decode_attention.cu").read_text()
+    body = re.search(r"constexpr int head_groups\(int g\) \{(.*?)\n\}", src,
+                     re.S)
+    assert body is not None
+    assert "int n = (g + kBlockG - 1) / kBlockG;" in body.group(1)
+    assert "while (g % n) ++n;" in body.group(1)

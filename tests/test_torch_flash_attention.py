@@ -50,6 +50,11 @@ SHAPES = [   # b, h, kh, s, d, causal, window (tests/test_kernels.py + G=5)
     (1, 2, 1, 256, 32, True, 128),
     (1, 2, 2, 128, 32, False, None),
     (2, 10, 2, 128, 64, True, 64),
+    # the dense configs' head dims: D 128 at G 16 (glm4-9b), D 80 (danube)
+    (1, 16, 1, 128, 128, True, None),
+    (1, 32, 2, 128, 128, True, 64),
+    (1, 8, 2, 128, 80, True, None),
+    (1, 8, 2, 128, 80, True, 64),
 ]
 
 
@@ -107,7 +112,9 @@ def test_cpu_tensors_run_the_plain_version():
 
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 32, "fma"),
-    (torch.float32, 64, "fma"), (torch.float32, 32, "fma")])
+    (torch.float32, 64, "fma"), (torch.float32, 32, "fma"),
+    (torch.bfloat16, 80, "fma"), (torch.bfloat16, 128, "fma"),
+    (torch.float32, 80, "fma"), (torch.float32, 128, "fma")])
 def test_instance_follows_the_kernel_dispatch(dtype, d, want):
     # flash_attention_launch sends bf16 with head_dim 64 to the tensor-core
     # instance and everything else to the CUDA-core one

@@ -137,6 +137,13 @@ def test_port_imports_neither_jax_nor_the_reference():
         "res = Simulator(6, 14, device='cpu').run_online(\n"
         "    hg, lmbr, max_moves=10, events=[(30, 'down', 1)])\n"
         "assert res.summary()['partitions_down'] == 1\n"
+        "import torch\n"
+        "from repro_torch.configs import get_config, reduce_config\n"
+        "from repro_torch.models import forward, init_params\n"
+        "cfg = reduce_config(get_config('glm4-9b'), dtype='float32')\n"
+        "logits, _ = forward(cfg, init_params(cfg, device='cpu'),\n"
+        "                    torch.zeros((1, 8), dtype=torch.long))\n"
+        "assert logits.shape == (1, 8, cfg.vocab_size)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"

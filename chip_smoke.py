@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the placement pipeline,
-the hymba-1.5b serving path and the dense-GQA serving path (glm4-9b,
-olmo-1b, h2o-danube-1.8b, nemotron-4-15b).
+the hymba-1.5b serving path, the dense-GQA serving path (glm4-9b,
+olmo-1b, h2o-danube-1.8b, nemotron-4-15b) and the pure-SSM serving path
+(mamba2-2.7b).
 
     python3 chip_smoke.py                      # every phase, as CI runs it
     python3 chip_smoke.py --phases build,kernels
@@ -38,15 +39,20 @@ Phases, each printed on a line of its own:
                  split, q at an odd offset); its serving rows add
                  ``device_ms``, the profiler's device time per call, for the
                  kernel and SDPA.  ssd_scan (y and h_last, f32 for either x
-                 dtype, within 2e-4) must also reject the scan with h0
-                 dropped; its serving rows add ``device_ms`` in total and
+                 dtype, within 2e-4 of the plain version at the requested
+                 chunk) must also reject the scan with h0 dropped; its
+                 serving rows (``SSD_SERVING``: hymba-1.5b's prefill, 50
+                 heads at N 16, and mamba2-2.7b's, 80 heads at N 128, whose
+                 passes run at chunk 128) add ``device_ms`` in total and
                  per pass.  It is also checked at serve's warm-up (S 16),
                  serve-check's prompt (S 1536) and prefill (S 1528), P 16
-                 and P 32, N 64 at chunk 64 and 256, N 128 at chunk 128,
-                 odd N and chunk, and x at an odd element offset; every
-                 ssd instance the build made must have run in one of these
-                 rows, and N 128 at chunk 256 must be refused before any
-                 launch.  lockstep_peel is checked at LMBR's pow2 classes,
+                 and P 32, N 64 at chunk 64 and 256, N 128 at chunk 128 and
+                 256, serve-ssm-check's prefill (S 1528 at N 128), N 72 at
+                 chunk 256 (run at 224), odd N and chunk, and x at an odd
+                 element offset; each row's passes must run at the chunk
+                 ``run_chunk`` gives, every ssd instance the build made must
+                 have run in one of these rows, and N 129 must be refused
+                 before any launch.  lockstep_peel is checked at LMBR's pow2 classes,
                  in both size classes (the C side's class choice must agree
                  with ``uses_shared_memory`` at the class edges), at the
                  fit's shapes ((K, U) 128 x 64 at G 1, 8 and 512, 64 x 64
@@ -168,7 +174,18 @@ Phases, each printed on a line of its own:
 11. serve-dense-check — ``DENSE_CHECKS`` (glm4-9b; h2o-danube-1.8b with its
                  window cut to 1024) at full width and 4 layers in f32 with
                  TF32 off, prompt 1536, held as serve-check holds hymba.
-12. health     — ``Simulator(40, 50).run_online`` of fig6's paper default
+12. serve-ssm  — ``repro_torch.launch.serve`` on mamba2-2.7b at full
+                 width and depth (64 layers, 80 SSM heads of 64, state 128,
+                 chunk 256, no FFN; bf16, random weights from seed 0) with
+                 serve's traffic; finite logits of shape (8, vocab),
+                 prefill tokens/s, decode ms/step, peak memory, launches
+                 64 x 2 (ssd_scan, every one with its passes at chunk 128)
+                 and none of flash or decode.
+13. serve-ssm-check — mamba2-2.7b at full width and 4 layers in f32 with
+                 TF32 off, prompt 1536, prefill 1528, held as serve-check
+                 holds hymba (``ssd_scan`` patched to its plain version on
+                 the plain route).
+14. health     — ``Simulator(40, 50).run_online`` of fig6's paper default
                  (lmbr ``max_moves=120``) under the flags-built
                  ``HealthMonitor`` (``HEALTH_VARIANT``: snapshots every 100
                  queries, window 4, skew SLO 3.0), with a storm (partitions
@@ -182,7 +199,7 @@ Phases, each printed on a line of its own:
                  The storm fires and resolves degraded_rate, and the same
                  storm unmonitored serves the same spans, access load and
                  member; the clean replay fires nothing.
-13. scale      — the cluster-scale pipeline at bench_scale's sizes:
+15. scale      — the cluster-scale pipeline at bench_scale's sizes:
                  ``web_scale_chunks(seed=0)`` (100 000 items, 1 000 000
                  queries) through ``StreamingHypergraphBuilder``, plain and
                  with duplicates merged (host only); the sharded lmbr fits
@@ -201,7 +218,8 @@ Phases, each printed on a line of its own:
 
 ``--profile`` runs each fit once more under torch.profiler and the
 package's tracer, and one serving batch (prefill, 8 decode steps) of
-hymba-1.5b (serve) and of glm4-9b (serve-dense) under torch.profiler,
+hymba-1.5b (serve), glm4-9b (serve-dense) and mamba2-2.7b (serve-ssm)
+under torch.profiler,
 and prints where the time goes (for the fits also
 lockstep_peel's device time per launch and per peel round and
 cover_rounds' device time per launch; for
@@ -235,10 +253,12 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12       # H100 SXM non-tensor fp32, NVIDIA data sheet
+TF32_OPS_PER_S = 495e12      # H100 SXM dense tf32 tensor cores, data sheet
 BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores, data sheet
 PHASES = ("build", "kernels", "fit-stress", "fit-paper", "paper-algos",
           "placement-api", "online", "serve", "serve-check", "serve-dense",
-          "serve-dense-check", "health", "scale")
+          "serve-dense-check", "serve-ssm", "serve-ssm-check", "health",
+          "scale")
 PAPER_NODES = 69429          # ibm10, the largest fig9 circuit
 # paper-algos: the workloads (generator, arguments) and the runs (workload,
 # partitions, capacity, algorithm, extra arguments, avg_span of the JAX
@@ -639,8 +659,14 @@ SCALE_HELD = {
 
 def _bound_ms(nbytes: float, ops: float,
               peak: float = FP32_OPS_PER_S) -> tuple[float, str]:
+    return _bound_ms_by_type(nbytes, ((ops, peak),))
+
+
+def _bound_ms_by_type(nbytes: float, work) -> tuple[float, str]:
+    """The bound of work done as (ops, peak) parts, each at the card's
+    peak for its type and one after another, against ``nbytes`` moved."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / peak
+    t_ops = sum(ops / peak for ops, peak in work)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1401,17 +1427,40 @@ def _decode_dense_rows(torch, dev, dtype, peak):
     return rows
 
 
-def _ssd_serving_row(torch, randn, dtype):
-    """ssd_scan at hymba-1.5b's prefill (B 8, S 2048, 50 heads of 64, state
-    16, chunk 256) from a nonzero h0: the check against the plain version
-    (which must also refuse the scan with h0 dropped), times per call and
-    per pass, and the bound of the work."""
+# ssd_scan at the serving prefills: label, SSM heads, state N (B 8, S 2048,
+# P 64, chunk 256); mamba2's N 128 runs its passes at chunk 128
+SSD_SERVING = (("hymba-1.5b", 50, 16), ("mamba2-2.7b", 80, 128))
+
+
+def _ssd_work(bf16: bool, B, S, NH, P, N, Lr) -> tuple:
+    """(ops, peak) of ssd_scan's passes at run chunk ``Lr``, a chunk of one
+    head and batch each: the state pass's x^T (w B) in fp32 FMA; the
+    output pass's C B^T (lower triangle) and C h^T as split TF32 (three
+    products each) and att . x as three bf16 products (bf16 x) or split
+    TF32 (f32 x); the chain's multiply-add per state element."""
+    nch = B * NH * -(-S // Lr)
+    tri = Lr * (Lr + 1) / 2
+    attx = 3 * tri * 2 * P * nch
+    return ((nch * (2 * Lr * P * N + 2 * P * N), FP32_OPS_PER_S),
+            (3 * nch * (tri * 2 * N + 2 * Lr * P * N)
+             + (0 if bf16 else attx), TF32_OPS_PER_S),
+            (attx if bf16 else 0, BF16_OPS_PER_S))
+
+
+def _ssd_serving_row(torch, randn, dtype, label, NH, N):
+    """ssd_scan at a serving prefill (B 8, S 2048, ``NH`` heads of 64,
+    state ``N``, chunk 256) from a nonzero h0: the check against the plain
+    version at chunk 256 (which must also refuse the scan with h0
+    dropped), times per call and per pass, and the bound of the work the
+    passes do at the chunk they run at."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan.ops import (run_chunk, ssd_scan,
+                                                  ssd_scan_plain)
 
     B, S = SERVE["batch"], SERVE["prefill_len"]
-    NH, P, N, L = 50, 64, 16, 256
+    P, L = 64, 256
+    Lr = run_chunk(N, L)
     esz = torch.finfo(dtype).bits // 8
     tag = "bf16" if dtype == torch.bfloat16 else "f32"
     x = randn(B, S, NH, P).to(dtype)
@@ -1419,30 +1468,33 @@ def _ssd_serving_row(torch, randn, dtype):
     a = -torch.exp(randn(NH, scale=0.3))
     bm, cm = randn(B, S, N, scale=0.3), randn(B, S, N, scale=0.3)
     h0 = randn(B, NH, P, N, scale=0.1)
+    ran = dict(ssd_scan.chunk_launches)
     got = ssd_scan(x, dt, a, bm, cm, chunk=L, h0=h0)
+    _require(ssd_scan.chunk_launches.get(Lr, 0) == ran.get(Lr, 0) + 1,
+             f"ssd_scan {label} {tag}: the passes did not run at chunk {Lr}")
     want = ssd_scan_plain(x, dt, a, bm, cm, chunk=L, h0=h0)
     torch.cuda.synchronize()
     err = _max_abs(got, want)
     _require(_close(torch, got, want, TOL32),
-             f"ssd_scan {tag}: max|diff| {err}")
+             f"ssd_scan {label} {tag}: max|diff| {err}")
     # a kernel that dropped h0 (started from zero) must fail the check
     no_h0 = ssd_scan_plain(x, dt, a, bm, cm, chunk=L)
     no_h0_err = _max_abs(no_h0, want)
     _require(not _close(torch, no_h0, want, TOL32),
-             f"ssd_scan {tag}: the check cannot see a dropped h0")
+             f"ssd_scan {label} {tag}: the check cannot see a dropped h0")
     del got, want, no_h0
-    nch = -(-S // L)
-    ops = B * NH * nch * (L * (L + 1) / 2 * 2 * (N + P) + 4 * L * P * N)
     nbytes = (B * S * NH * P * (esz + 4) + B * S * NH * 4 + NH * 4
               + 2 * B * S * N * 4 + 2 * B * NH * P * N * 4)
-    bound, by = _bound_ms(nbytes, ops, FP32_OPS_PER_S)
+    bound, by = _bound_ms_by_type(nbytes, _ssd_work(dtype == torch.bfloat16,
+                                                    B, S, NH, P, N, Lr))
 
     def kern():
         return ssd_scan(x, dt, a, bm, cm, chunk=L, h0=h0)
 
     times = _device_times(torch, kern, 20)
     return dict(
-        shape=f"B{B}.S{S}.H{NH}.P{P}.N{N}.L{L}.{tag}", instance=f"{tag}.P{P}",
+        shape=f"{label}.B{B}.S{S}.H{NH}.P{P}.N{N}.L{L}.{tag}",
+        instance=f"{tag}.P{P}", run_chunk=Lr,
         max_abs_err=err, no_h0_err=no_h0_err,
         ms=_cuda_ms(torch, kern, 20),
         device_ms=sum(times.values()) if times else None,
@@ -1465,11 +1517,14 @@ SSD_DOMAIN = (
     ("N64.L64", 2, 1000, 8, 64, 64, 64),
     ("N64.L256", 1, 1000, 8, 64, 64, 256),      # the most shared memory
     ("N128.L128", 1, 2048, 80, 64, 128, 128),   # mamba2-2.7b's SSM widths
+    ("N128.L256", 1, 2048, 80, 64, 128, 256),   # ... at its chunk (run 128)
+    ("mamba2-ragged", 2, 1528, 80, 64, 128, 256),  # serve-ssm-check's prefill
+    ("N72.L256", 1, 1000, 8, 64, 72, 256),      # run at 224
     ("N12.L100", 2, 777, 8, 32, 12, 100),       # N, chunk and S unpadded
     ("P16.N24.L72", 2, 500, 4, 16, 24, 72),
     ("x-offset", 1, 300, 4, 32, 16, 128),       # x at an odd element offset
 )
-SSD_REFUSED = (64, 128, 256)   # P, N, chunk: B and C overflow shared memory
+SSD_REFUSED = (64, 129, 256)   # P, N, chunk: N past the domain's 128
 
 
 def _ssd_domain_rows(torch, dev, dtype):
@@ -1479,7 +1534,7 @@ def _ssd_domain_rows(torch, dev, dtype):
     import torch.nn.functional as F
 
     from repro_torch.kernels.ssd_scan.ops import (
-        kernel_takes, ssd_scan, ssd_scan_plain)
+        kernel_takes, run_chunk, ssd_scan, ssd_scan_plain)
 
     gen = torch.Generator(device=dev).manual_seed(18)
     tag = "bf16" if dtype == torch.bfloat16 else "f32"
@@ -1501,14 +1556,20 @@ def _ssd_domain_rows(torch, dev, dtype):
             x = torch.empty(x.numel() + 1, dtype=dtype,
                             device=dev)[1:].view_as(x).copy_(x)
             _require(x.data_ptr() % 16 != 0, "ssd_scan x-offset: x aligned")
+        Lr = run_chunk(N, L)
+        ran = ssd_scan.chunk_launches.get(Lr, 0)
         got = ssd_scan(x, dt, a, bm, cm, chunk=L, h0=h0)
+        _require(ssd_scan.chunk_launches.get(Lr, 0) == ran + 1,
+                 f"ssd_scan {label} {tag}: the passes did not run at chunk "
+                 f"{Lr}")
         want = ssd_scan_plain(x, dt, a, bm, cm, chunk=L, h0=h0)
         torch.cuda.synchronize()
         err = _max_abs(got, want)
         _require(_close(torch, got, want, TOL32),
                  f"ssd_scan {label} {tag}: max|diff| {err}")
         rows.append(dict(shape=f"{label}.B{B}.S{S}.H{H}.P{P}.N{N}.L{L}.{tag}",
-                         instance=f"{tag}.P{P}", max_abs_err=err))
+                         instance=f"{tag}.P{P}", run_chunk=Lr,
+                         max_abs_err=err))
     P, N, L = SSD_REFUSED
     _require(not kernel_takes(P, N, L), "ssd_scan: the refused shape is in "
              "the domain")
@@ -1631,7 +1692,9 @@ def phase_model_kernels(np, torch, dev):
 
         # ssd_scan: prefill of the SSM branch from a nonzero state, then
         # the domain rows
-        rows["ssd_scan"].append(_ssd_serving_row(torch, randn, dtype))
+        for label, nh, n in SSD_SERVING:
+            rows["ssd_scan"].append(_ssd_serving_row(torch, randn, dtype,
+                                                     label, nh, n))
         rows["ssd_scan"] += _ssd_domain_rows(torch, dev, dtype)
 
     out = {}
@@ -1652,53 +1715,89 @@ def phase_model_kernels(np, torch, dev):
     return out
 
 
+def _load_timed(torch, arch, dev, **overrides):
+    """(cfg, params, init seconds, parameter count) of ``arch`` at
+    published widths, bf16, random weights from seed 0."""
+    from repro_torch.launch.serve import load_model
+
+    t0 = time.perf_counter()
+    cfg, params = load_model(arch, device=dev, seed=0, **overrides)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    return cfg, params, init_s, sum(t.numel() for t in _leaves(params))
+
+
+def _measured_serve(torch, kernels, label, cfg, params, requests,
+                    decode_len):
+    """``repro_torch.launch.serve`` in batches of 8 with prompt 2048, after
+    a warm-up (cuBLAS handles, allocator) outside the measured run: the
+    result with each kernel's launches, the peak memory, prefill tokens/s
+    and decode ms/step.  The last batch's logits must be finite, (8,
+    vocab)."""
+    from repro_torch.launch.serve import serve
+
+    serve(cfg, params, requests=1, batch=1, prefill_len=16, decode_len=2)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(kernels)
+    res = serve(cfg, params, requests=requests, batch=SERVE["batch"],
+                prefill_len=SERVE["prefill_len"], decode_len=decode_len)
+    res["launches"] = _counts(kernels)
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    res["prefill_tok_per_s"] = res["prefill_tokens"] / res["prefill_s"]
+    res["decode_ms_per_step"] = (res["decode_s"] * 1e3
+                                 / (res["batches"] * decode_len))
+    _require(bool(torch.isfinite(res["logits"]).all()),
+             f"{label}: non-finite logits")
+    _require(res["logits"].shape == (SERVE["batch"], cfg.vocab_size),
+             f"{label}: logits shape")
+    return res
+
+
+def _serve_line(res) -> str:
+    return (f"prefill_len={res['prefill_len']} "
+            f"decode_len={res['decode_len']} prefill_s={res['prefill_s']:.3f} "
+            f"prefill_tok_per_s={res['prefill_tok_per_s']:.1f} "
+            f"decode_s={res['decode_s']:.3f} "
+            f"decode_ms_per_step={res['decode_ms_per_step']:.3f} "
+            f"peak_mem_gb={res['peak_gb']:.3f}")
+
+
+def _require_launches(label, launches, want):
+    for name, n in want.items():
+        _require(launches[name] == n,
+                 f"{label}: {name} launched {launches[name]} times, want {n}")
+
+
 def phase_serve(torch, kernels, dev):
     """The full-width, full-depth hymba-1.5b serving run through
     ``repro_torch.launch.serve``: 16 requests in batches of 8, prompt 2048,
     64 greedy decode steps, bf16, random weights from seed 0."""
-    from repro_torch.launch.serve import load_model, serve
-
-    t0 = time.perf_counter()
-    cfg, params = load_model("hymba-1.5b", device=dev, seed=0)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    nparams = sum(t.numel() for t in _leaves(params))
-    # warm-up (cuBLAS handles, allocator), outside the measured run
-    serve(cfg, params, requests=1, batch=1, prefill_len=16, decode_len=2)
-    torch.cuda.reset_peak_memory_stats()
-    _zero_counts(kernels)
-    res = serve(cfg, params, **SERVE)
-    launches = _counts(kernels)
+    cfg, params, init_s, nparams = _load_timed(torch, "hymba-1.5b", dev)
+    res = _measured_serve(torch, kernels, "serve", cfg, params,
+                          SERVE["requests"], SERVE["decode_len"])
+    launches = res["launches"]
     flash_instances = dict(kernels["flash_attention"].instance_launches)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    chunks = dict(kernels["ssd_scan"].chunk_launches)
     L, nb = cfg.num_layers, res["batches"]
     want = {"flash_attention": L * nb,
             "decode_attention": L * SERVE["decode_len"] * nb,
             "ssd_scan": L * nb}
-    for name, n in want.items():
-        _require(launches[name] == n,
-                 f"serve: {name} launched {launches[name]} times, want {n}")
+    _require_launches("serve", launches, want)
     _require(flash_instances == {"wgmma": L * nb, "fma": 0},
              f"serve: flash_attention instances {flash_instances}, want "
              f"every launch on the tensor-core (wgmma) instance")
-    _require(bool(torch.isfinite(res["logits"]).all()),
-             "serve: non-finite logits")
-    _require(res["logits"].shape == (SERVE["batch"], cfg.vocab_size),
-             "serve: logits shape")
-    prefill_tps = res["prefill_tokens"] / res["prefill_s"]
-    decode_ms = res["decode_s"] * 1e3 / (nb * SERVE["decode_len"])
+    _require(chunks == {cfg.ssm.chunk_size: L * nb},
+             f"serve: ssd_scan launches by chunk run {chunks}, want every "
+             f"launch at chunk {cfg.ssm.chunk_size}")
     print(f"serve: hymba-1.5b layers={L} d_model={cfg.d_model} "
           f"params={nparams} bf16 init_s={init_s:.2f} "
           f"requests={SERVE['requests']} batch={SERVE['batch']} "
-          f"prefill_len={SERVE['prefill_len']} "
-          f"decode_len={SERVE['decode_len']} prefill_s={res['prefill_s']:.3f} "
-          f"prefill_tok_per_s={prefill_tps:.1f} decode_s={res['decode_s']:.3f} "
-          f"decode_ms_per_step={decode_ms:.3f} peak_mem_gb={peak_gb:.3f} "
+          f"{_serve_line(res)} "
           f"launches={ {n: launches[n] for n in want} } "
-          f"flash_attention_instances={flash_instances}", flush=True)
+          f"flash_attention_instances={flash_instances} "
+          f"ssd_scan_chunk_launches={chunks}", flush=True)
     return dict(launches=launches, flash_instances=flash_instances,
-                prefill_tok_per_s=prefill_tps,
-                decode_ms_per_step=decode_ms, peak_mem_gb=peak_gb)
+                chunk_launches=chunks)
 
 
 def phase_serve_profile(np, torch, dev, arch="hymba-1.5b"):
@@ -1801,6 +1900,53 @@ def _route_run(torch, cfg, params, tokens, n_prefill):
     return full, last, torch.stack(steps, dim=1)
 
 
+def _hold_routes(torch, kernels, label, cfg, params, tokens, n_prefill,
+                 patched):
+    """``_route_run`` on the kernel route, then on the plain route with
+    each (module, name, plain version) of ``patched`` swapped in: no
+    launch on the plain route, the routes' logits within 1e-3, and
+    teacher-forced decode after prefill within 2e-3 of the cache-free
+    forward, all finite.  Returns the kernel route's launches and ssd
+    launches by chunk run, both max|diff|s and the largest |logit|."""
+    _zero_counts(kernels)
+    kern = _route_run(torch, cfg, params, tokens, n_prefill)
+    launches = _counts(kernels)
+    chunks = dict(kernels["ssd_scan"].chunk_launches)
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+    _zero_counts(kernels)
+    try:
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+        plain = _route_run(torch, cfg, params, tokens, n_prefill)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    _require(all(n == 0 for n in _counts(kernels).values()),
+             f"{label}: the plain route launched a kernel")
+    route_err = _max_abs(kern, plain)
+    _require(_close(torch, kern, plain, dict(rtol=1e-3, atol=1e-3)),
+             f"{label}: kernel vs plain route max|diff| {route_err}")
+    full, last, steps = kern
+    forward_tail = [full[:, n_prefill - 1], full[:, n_prefill:]]
+    tf_err = _max_abs([last, steps], forward_tail)
+    _require(_close(torch, [last, steps], forward_tail,
+                    dict(rtol=2e-3, atol=2e-3)),
+             f"{label}: decode vs forward max|diff| {tf_err}")
+    _require(all(bool(torch.isfinite(t).all()) for t in kern),
+             f"{label}: non-finite logits")
+    return dict(launches=launches, chunk_launches=chunks,
+                route_err=route_err, tf_err=tf_err,
+                max_abs_logit=float(full.abs().max()))
+
+
+def _routes_line(held, n_prefill, S) -> str:
+    return (f"prompt={S} prefill={n_prefill} decode={S - n_prefill} "
+            f"kernel_vs_plain_max_abs={held['route_err']:.3e} (tol 1e-3) "
+            f"decode_vs_forward_max_abs={held['tf_err']:.3e} (tol 2e-3) "
+            f"max_abs_logit={held['max_abs_logit']:.4f} "
+            f"launches={held['launches']}")
+
+
 def phase_serve_check(np, torch, kernels, dev):
     """hymba-1.5b at full width and 4 layers (global, window, window,
     global; window 1024) in f32, prompt 1536: the kernel route against the
@@ -1822,45 +1968,17 @@ def phase_serve_check(np, torch, kernels, dev):
     B, S, n_prefill = 2, 1536, 1528
     rng = np.random.default_rng(5)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
-
-    _zero_counts(kernels)
-    kern = _route_run(torch, cfg, params, tokens, n_prefill)
-    kern_launches = _counts(kernels)
+    held = _hold_routes(
+        torch, kernels, "serve-check", cfg, params, tokens, n_prefill,
+        [(attention, "flash_attention", flash_attention_plain),
+         (attention, "decode_attention", decode_attention_plain),
+         (ssm, "ssd_scan", ssd_scan_plain)])
     for name in ("flash_attention", "decode_attention", "ssd_scan"):
-        _require(kern_launches[name] > 0,
+        _require(held["launches"][name] > 0,
                  f"serve-check: kernel route never launched {name}")
-    patched = [(attention, "flash_attention", flash_attention_plain),
-               (attention, "decode_attention", decode_attention_plain),
-               (ssm, "ssd_scan", ssd_scan_plain)]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
-    _zero_counts(kernels)
-    try:
-        for mod, name, fn in patched:
-            setattr(mod, name, fn)
-        plain = _route_run(torch, cfg, params, tokens, n_prefill)
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-    _require(all(n == 0 for n in _counts(kernels).values()),
-             "serve-check: the plain route launched a kernel")
-    route_err = _max_abs(kern, plain)
-    _require(_close(torch, kern, plain, dict(rtol=1e-3, atol=1e-3)),
-             f"serve-check: kernel vs plain route max|diff| {route_err}")
-    full, last, steps = kern
-    tf_err = _max_abs([last, steps],
-                      [full[:, n_prefill - 1], full[:, n_prefill:]])
-    _require(_close(torch, [last, steps],
-                    [full[:, n_prefill - 1], full[:, n_prefill:]],
-                    dict(rtol=2e-3, atol=2e-3)),
-             f"serve-check: decode vs forward max|diff| {tf_err}")
-    _require(all(bool(torch.isfinite(t).all()) for t in kern),
-             "serve-check: non-finite logits")
     print(f"serve-check: hymba-1.5b full width, layers=4 windows={wins} f32 "
-          f"tf32=off batch={B} prompt={S} prefill={n_prefill} "
-          f"decode={S - n_prefill} kernel_vs_plain_max_abs={route_err:.3e} "
-          f"(tol 1e-3) decode_vs_forward_max_abs={tf_err:.3e} (tol 2e-3) "
-          f"max_abs_logit={float(full.abs().max()):.4f} "
-          f"launches={kern_launches}", flush=True)
+          f"tf32=off batch={B} {_routes_line(held, n_prefill, S)}",
+          flush=True)
 
 
 # serve-dense: arch, layers (None: the published depth), requests and
@@ -1887,51 +2005,30 @@ def phase_serve_dense(torch, kernels, dev):
     8 (32 decode steps).  One model on the card at a time.  Returns each
     kernel's launches summed over the four."""
     from repro_torch.kernels.decode_attention.ops import head_groups
-    from repro_torch.launch.serve import load_model, serve
 
     total = {name: 0 for name in kernels}
     for arch, layers, requests, decode_len in DENSE_SERVES:
-        t0 = time.perf_counter()
         extra = {} if layers is None else {"num_layers": layers}
-        cfg, params = load_model(arch, device=dev, seed=0, **extra)
-        torch.cuda.synchronize()
-        init_s = time.perf_counter() - t0
-        nparams = sum(t.numel() for t in _leaves(params))
-        serve(cfg, params, requests=1, batch=1, prefill_len=16, decode_len=2)
-        torch.cuda.reset_peak_memory_stats()
-        _zero_counts(kernels)
-        res = serve(cfg, params, requests=requests, batch=SERVE["batch"],
-                    prefill_len=SERVE["prefill_len"], decode_len=decode_len)
-        launches = _counts(kernels)
+        cfg, params, init_s, nparams = _load_timed(torch, arch, dev, **extra)
+        label = f"serve-dense {arch}"
+        res = _measured_serve(torch, kernels, label, cfg, params, requests,
+                              decode_len)
+        launches = res["launches"]
         flash_instances = dict(kernels["flash_attention"].instance_launches)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         L, nb = cfg.num_layers, res["batches"]
         want = {"flash_attention": L * nb,
                 "decode_attention": L * decode_len * nb, "ssd_scan": 0}
-        for name, n in want.items():
-            _require(launches[name] == n, f"serve-dense {arch}: {name} "
-                     f"launched {launches[name]} times, want {n}")
+        _require_launches(label, launches, want)
         _require(flash_instances == {"wgmma": 0, "fma": L * nb},
-                 f"serve-dense {arch}: flash_attention instances "
-                 f"{flash_instances}, want every launch on the CUDA-core "
-                 "(fma) instance")
-        _require(bool(torch.isfinite(res["logits"]).all()),
-                 f"serve-dense {arch}: non-finite logits")
-        _require(res["logits"].shape == (SERVE["batch"], cfg.vocab_size),
-                 f"serve-dense {arch}: logits shape")
+                 f"{label}: flash_attention instances {flash_instances}, "
+                 "want every launch on the CUDA-core (fma) instance")
         g = cfg.num_heads // cfg.num_kv_heads
-        prefill_tps = res["prefill_tokens"] / res["prefill_s"]
-        decode_ms = res["decode_s"] * 1e3 / (nb * decode_len)
         print(f"serve-dense: {arch} layers={L} d_model={cfg.d_model} "
               f"head_dim={cfg.resolved_head_dim} G={g} "
               f"head_groups={head_groups(g)} window={cfg.sliding_window} "
               f"vocab={cfg.vocab_size} params={nparams} bf16 "
               f"init_s={init_s:.2f} requests={requests} "
-              f"batch={SERVE['batch']} prefill_len={SERVE['prefill_len']} "
-              f"decode_len={decode_len} prefill_s={res['prefill_s']:.3f} "
-              f"prefill_tok_per_s={prefill_tps:.1f} "
-              f"decode_s={res['decode_s']:.3f} "
-              f"decode_ms_per_step={decode_ms:.3f} peak_mem_gb={peak_gb:.3f} "
+              f"batch={SERVE['batch']} {_serve_line(res)} "
               f"launches={ {n: launches[n] for n in want} } "
               f"flash_attention_instances={flash_instances}", flush=True)
         for name in kernels:
@@ -1961,53 +2058,96 @@ def phase_serve_dense_check(np, torch, kernels, dev):
         rng = np.random.default_rng(6)
         tokens = torch.from_numpy(
             rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
-        _zero_counts(kernels)
-        kern = _route_run(torch, cfg, params, tokens, n_prefill)
-        kern_launches = _counts(kernels)
-        _require(kern_launches["flash_attention"] > 0
-                 and kern_launches["decode_attention"] > 0
-                 and kern_launches["ssd_scan"] == 0,
-                 f"serve-dense-check {arch}: kernel route launches "
-                 f"{kern_launches}")
-        patched = [(attention, "flash_attention", flash_attention_plain),
-                   (attention, "decode_attention", decode_attention_plain)]
-        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
-        _zero_counts(kernels)
-        try:
-            for mod, name, fn in patched:
-                setattr(mod, name, fn)
-            plain = _route_run(torch, cfg, params, tokens, n_prefill)
-        finally:
-            for mod, name, fn in saved:
-                setattr(mod, name, fn)
-        _require(all(n == 0 for n in _counts(kernels).values()),
-                 f"serve-dense-check {arch}: the plain route launched a "
-                 "kernel")
-        route_err = _max_abs(kern, plain)
-        _require(_close(torch, kern, plain, dict(rtol=1e-3, atol=1e-3)),
-                 f"serve-dense-check {arch}: kernel vs plain route "
-                 f"max|diff| {route_err}")
-        full, last, steps = kern
-        tf_err = _max_abs([last, steps],
-                          [full[:, n_prefill - 1], full[:, n_prefill:]])
-        _require(_close(torch, [last, steps],
-                        [full[:, n_prefill - 1], full[:, n_prefill:]],
-                        dict(rtol=2e-3, atol=2e-3)),
-                 f"serve-dense-check {arch}: decode vs forward max|diff| "
-                 f"{tf_err}")
-        _require(all(bool(torch.isfinite(t).all()) for t in kern),
-                 f"serve-dense-check {arch}: non-finite logits")
+        label = f"serve-dense-check {arch}"
+        held = _hold_routes(
+            torch, kernels, label, cfg, params, tokens, n_prefill,
+            [(attention, "flash_attention", flash_attention_plain),
+             (attention, "decode_attention", decode_attention_plain)])
+        launches = held["launches"]
+        _require(launches["flash_attention"] > 0
+                 and launches["decode_attention"] > 0
+                 and launches["ssd_scan"] == 0,
+                 f"{label}: kernel route launches {launches}")
         print(f"serve-dense-check: {arch} full width, layers=4 "
               f"head_dim={cfg.resolved_head_dim} "
               f"G={cfg.num_heads // cfg.num_kv_heads} windows={wins} f32 "
-              f"tf32=off batch={B} prompt={S} prefill={n_prefill} "
-              f"decode={S - n_prefill} kernel_vs_plain_max_abs="
-              f"{route_err:.3e} (tol 1e-3) decode_vs_forward_max_abs="
-              f"{tf_err:.3e} (tol 2e-3) max_abs_logit="
-              f"{float(full.abs().max()):.4f} launches={kern_launches}",
+              f"tf32=off batch={B} {_routes_line(held, n_prefill, S)}",
               flush=True)
-        del params, kern, plain, full, last, steps
+        del params
         torch.cuda.empty_cache()
+
+
+# serve-ssm: mamba2-2.7b at its published widths and depth with serve's
+# traffic; serve-ssm-check: the same widths at 4 layers in f32
+SSM_ARCH = "mamba2-2.7b"
+SSM_CHECK_LAYERS = 4
+
+
+def phase_serve_ssm(torch, kernels, dev):
+    """mamba2-2.7b through ``repro_torch.launch.serve`` at full width and
+    depth (64 layers, bf16, random weights from seed 0) with serve's
+    traffic (16 requests in batches of 8, prompt 2048, 64 greedy decode
+    steps): every prefill layer on ssd_scan with its passes at the chunk
+    ``run_chunk`` gives (128 at N 128), no attention kernel.  Returns the
+    launches and the ssd launches by chunk run."""
+    from repro_torch.kernels.ssd_scan.ops import run_chunk
+
+    cfg, params, init_s, nparams = _load_timed(torch, SSM_ARCH, dev)
+    res = _measured_serve(torch, kernels, "serve-ssm", cfg, params,
+                          SERVE["requests"], SERVE["decode_len"])
+    launches = res["launches"]
+    chunks = dict(kernels["ssd_scan"].chunk_launches)
+    L, nb = cfg.num_layers, res["batches"]
+    _require_launches("serve-ssm", launches, {
+        "flash_attention": 0, "decode_attention": 0, "ssd_scan": L * nb})
+    s_cfg = cfg.ssm
+    lr = run_chunk(s_cfg.state_dim, s_cfg.chunk_size)
+    _require(chunks == {lr: L * nb}, f"serve-ssm: ssd_scan launches by "
+             f"chunk run {chunks}, want {{{lr}: {L * nb}}}")
+    print(f"serve-ssm: {SSM_ARCH} layers={L} d_model={cfg.d_model} "
+          f"ssm_heads={cfg.d_model * s_cfg.expand // s_cfg.head_dim} "
+          f"head_dim={s_cfg.head_dim} state={s_cfg.state_dim} "
+          f"chunk={s_cfg.chunk_size} run_chunk={lr} vocab={cfg.vocab_size} "
+          f"params={nparams} bf16 init_s={init_s:.2f} "
+          f"requests={SERVE['requests']} batch={SERVE['batch']} "
+          f"{_serve_line(res)} launches={launches} "
+          f"ssd_scan_chunk_launches={chunks}", flush=True)
+    del params, res
+    torch.cuda.empty_cache()
+    return dict(launches=launches, chunk_launches=chunks)
+
+
+def phase_serve_ssm_check(np, torch, kernels, dev):
+    """mamba2-2.7b at full width and 4 layers in f32 with TF32 off, batch
+    2, prompt 1536, prefill 1528 (a part chunk at the end): the kernel
+    route against the plain route on the card (logits within 1e-3),
+    teacher-forced decode after prefill against the cache-free forward
+    (within 2e-3), and no launch on the plain route."""
+    from repro_torch.kernels.ssd_scan.ops import run_chunk, ssd_scan_plain
+    from repro_torch.launch.serve import load_model
+    from repro_torch.models import ssm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, params = load_model(SSM_ARCH, device=dev, seed=1,
+                             num_layers=SSM_CHECK_LAYERS, dtype="float32")
+    B, S, n_prefill = 2, 1536, 1528
+    rng = np.random.default_rng(7)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
+    held = _hold_routes(torch, kernels, "serve-ssm-check", cfg, params,
+                        tokens, n_prefill, [(ssm, "ssd_scan", ssd_scan_plain)])
+    # forward and prefill: one launch a layer each, at the chunk run
+    lr = run_chunk(cfg.ssm.state_dim, cfg.ssm.chunk_size)
+    n = 2 * cfg.num_layers
+    _require(held["launches"] == {**{k: 0 for k in kernels}, "ssd_scan": n}
+             and held["chunk_launches"] == {lr: n},
+             f"serve-ssm-check: kernel route launches {held['launches']}, "
+             f"by chunk run {held['chunk_launches']}")
+    print(f"serve-ssm-check: {SSM_ARCH} full width, layers={cfg.num_layers} "
+          f"f32 tf32=off batch={B} {_routes_line(held, n_prefill, S)} "
+          f"ssd_scan_chunk_launches={held['chunk_launches']}", flush=True)
+    del params, held
+    torch.cuda.empty_cache()
 
 
 def _zero_counts(kernels):
@@ -2016,6 +2156,7 @@ def _zero_counts(kernels):
         for inst in getattr(fn, "instance_launches", {}):
             fn.instance_launches[inst] = 0
         getattr(fn, "class_launches", {}).clear()
+        getattr(fn, "chunk_launches", {}).clear()
 
 
 def _counts(kernels):
@@ -3162,6 +3303,7 @@ def main(argv=None) -> int:
     rows = {}
     launches = {}
     path_launches = {}   # phase -> kernel -> launches on that path
+    ssd_chunks = {}      # phase -> ssd_scan launches by the chunk run
     flash_instances = None
     ssd_built = att_built = None
     if "build" in phases:
@@ -3246,6 +3388,7 @@ def main(argv=None) -> int:
         path_launches["serve"] = {n: served["launches"][n]
                                   for n in model_kernels}
         flash_instances = served["flash_instances"]
+        ssd_chunks["serve"] = served["chunk_launches"]
         if args.profile:
             phase_serve_profile(np, torch, dev)
     if "serve-check" in phases:
@@ -3257,6 +3400,15 @@ def main(argv=None) -> int:
             phase_serve_profile(np, torch, dev, "glm4-9b")
     if "serve-dense-check" in phases:
         phase_serve_dense_check(np, torch, kernels, dev)
+    if "serve-ssm" in phases:
+        served = phase_serve_ssm(torch, kernels, dev)
+        path_launches["serve-ssm"] = {n: served["launches"][n]
+                                      for n in model_kernels}
+        ssd_chunks["serve-ssm"] = served["chunk_launches"]
+        if args.profile:
+            phase_serve_profile(np, torch, dev, SSM_ARCH)
+    if "serve-ssm-check" in phases:
+        phase_serve_ssm_check(np, torch, kernels, dev)
     if "health" in phases:
         health_runs = phase_health(np, torch, fit_kernels, health_inputs(np))
         path_launches["health"] = {
@@ -3307,6 +3459,8 @@ def main(argv=None) -> int:
             # ms is the instance's that the serving path runs
             report[-1].update(instance=row.get("instance"),
                               instance_launches=flash_instances)
+        if name == "ssd_scan":
+            report[-1].update(chunk_launches_by_path=ssd_chunks)
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

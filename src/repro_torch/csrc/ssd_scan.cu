@@ -17,11 +17,13 @@
 // The ragged last chunk is padded in shared memory with dt = x = B = C = 0,
 // which leaves the state unchanged, so any S runs.
 //
-// What bounds it on an H100: at the serving shapes (B 8, S 2048, H 50,
-// P 64, N 16, chunk 256) the products are ~10 G multiply-adds per call
-// against ~0.3 GB of x, y, B, C and dt, so operations on the CUDA cores
-// (0.30 ms at the fp32 peak) and bytes (0.09 ms) are both below what a
-// sequential walk over the chunks reaches.  The TPU kernel walks the
+// What bounds it on an H100 (data-sheet peaks, 700 W): at hymba's serving
+// shape (B 8, S 2048, H 50, P 64, N 16, chunk 256) the products are ~10 G
+// multiply-adds per call against ~0.3 GB of x, y, B, C and dt, so
+// operations, each at its type's peak (0.10 ms: the state pass in fp32,
+// the output pass's split products on the tensor cores), and bytes
+// (0.10 ms) are both below what a sequential walk over the chunks
+// reaches.  The TPU kernel walks the
 // chunks in order with the state in VMEM; here the walk is cut into three
 // passes, so that all but one are parallel over (chunk, head, batch):
 //
@@ -55,9 +57,14 @@
 // floats, x to P + 16 bytes) so that every fragment load is free of bank
 // conflicts.  Chunk data is staged with cp.async (x in 16-byte pieces: the
 // wrapper hands over a 16-byte-aligned x).  The domain: P in {16, 32, 64},
-// chunk <= 256, N <= 128 and pad16(chunk) * pad8(N) <= 16384, which keeps
-// each pass under a block's 227 KB of shared memory
-// (kernels/ssd_scan/ops.py `kernel_takes` refuses the rest first).
+// chunk <= 256 and N <= 128 (kernels/ssd_scan/ops.py `kernel_takes`
+// refuses the rest first).  The passes run at the chunk L they are given,
+// which must have pad16(L) * pad8(N) <= 16384 to keep each pass under a
+// block's 227 KB of shared memory.  Where the requested chunk does not
+// (mamba2's N 128 at chunk 256: 343 104 bytes of output pass for bf16 x),
+// the wrapper passes the largest multiple of 16 that does (`run_chunk`:
+// 128 at N 128, 188 480 bytes for bf16 x, 204 864 for f32).  Any chunking
+// of the scan computes the same function; only the f32 rounding moves.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,7 +76,7 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxChunk = 256;  // cum is scanned with one thread per step
 constexpr int kMaxState = 128;
-constexpr int kMaxTile = 16384;  // pad16(chunk) * pad8(N)
+constexpr int kMaxTile = 16384;  // pad16(L) * pad8(N) of the chunk run
 constexpr float kLog2e = 1.4426950408889634f;
 
 __host__ __device__ constexpr int pad16(int v) { return (v + 15) & ~15; }
@@ -646,7 +653,8 @@ cudaError_t launch_p(int P, const void* x, const void* dt, const void* a,
 }  // namespace
 
 // dtype (of x): 0 = float32, 1 = bfloat16.  P in {16, 32, 64},
-// 1 <= chunk <= 256, 1 <= N <= 128, pad16(chunk) * pad8(N) <= 16384.
+// 1 <= N <= 128; chunk is the chunk the passes run at (the wrapper's
+// `run_chunk`): 1 <= chunk <= 256 and pad16(chunk) * pad8(N) <= 16384.
 // ws: B * H * ceil(S / chunk) * (P * N + 1) floats of scratch.
 extern "C" int ssd_scan_launch(const void* x, const void* dt, const void* a,
                                const void* bm, const void* cm,

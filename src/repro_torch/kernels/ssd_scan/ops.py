@@ -19,10 +19,20 @@ which the serving prefill needs.
 * ``ssd_scan`` — the wrapper: plain version for CPU tensors, the CUDA
   kernel (``csrc/ssd_scan.cu``: a state pass, a chain pass and an output
   pass, with a workspace of ``B * H * chunks * (P * N + 1)`` floats
-  allocated here) for CUDA tensors.  ``ssd_scan.launches`` counts calls
-  that launched the three passes.
-* ``kernel_takes`` — the shapes the CUDA kernel launches; the wrapper
-  refuses the rest for CUDA tensors before any launch.
+  allocated here, chunks counted at the chunk the passes run) for CUDA
+  tensors.  ``ssd_scan.launches`` counts calls that launched the three
+  passes, ``ssd_scan.chunk_launches`` the same calls by the chunk the
+  passes ran at.
+* ``kernel_takes`` — the shapes the CUDA kernel launches (P in {16, 32,
+  64}, chunk <= 256, N <= 128); the wrapper refuses the rest for CUDA
+  tensors before any launch.
+* ``run_chunk`` — the chunk the passes run at.  The output pass stages
+  the chunk's B and C whole, so it fits a block's 227 KB of shared memory
+  only while pad16(chunk) * pad8(N) <= ``MAX_TILE``; past that (mamba2's
+  N 128 at chunk 256) the passes run at the largest multiple of 16 that
+  fits (128 at N 128).  Any chunking of the scan computes the same
+  function; only the f32 rounding moves, and the card holds the result
+  to the plain version at the requested chunk.
 """
 
 from __future__ import annotations
@@ -32,24 +42,37 @@ import torch
 from ... import _build
 from .. import check_same_device, launch_args
 
-__all__ = ["kernel_takes", "ssd_scan", "ssd_scan_plain"]
+__all__ = ["kernel_takes", "run_chunk", "ssd_scan", "ssd_scan_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
 MAX_CHUNK = 256
 MAX_STATE = 128
-# pad16(chunk) * pad8(N): the output pass stages the chunk's B and C, which
-# with x and the state must fit a block's 227 KB of shared memory
+# pad16(chunk) * pad8(N) of the chunk the passes run: the output pass
+# stages that chunk's B and C, which with x and the state must fit a
+# block's 227 KB of shared memory (the source's kMaxTile)
 MAX_TILE = 16384
+
+
+def _pad(v: int, m: int) -> int:
+    return -(-v // m) * m
 
 
 def kernel_takes(p: int, n: int, chunk: int) -> bool:
     """Whether the CUDA kernel launches at head dim ``p``, state ``n`` and
-    ``chunk`` (the same test as ``ssd_scan_launch`` in the source)."""
-    pad16 = -(-chunk // 16) * 16
-    pad8 = -(-n // 8) * 8
-    return (p in _HEAD_DIMS and 1 <= chunk <= MAX_CHUNK
-            and 1 <= n <= MAX_STATE and pad16 * pad8 <= MAX_TILE)
+    ``chunk``."""
+    return p in _HEAD_DIMS and 1 <= chunk <= MAX_CHUNK and 1 <= n <= MAX_STATE
+
+
+def run_chunk(n: int, chunk: int) -> int:
+    """The chunk the passes run at for state ``n`` and a requested
+    ``chunk`` inside the domain: ``chunk`` itself while pad16(chunk) *
+    pad8(n) <= MAX_TILE, else the largest multiple of 16 under that tile
+    (at least 128, since pad8(n) <= 128)."""
+    width = _pad(n, 8)
+    if _pad(chunk, 16) * width <= MAX_TILE:
+        return chunk
+    return MAX_TILE // width // 16 * 16
 
 
 def ssd_scan_plain(x, dt, a, bmat, cmat, *, chunk: int, h0=None):
@@ -119,15 +142,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if not kernel_takes(p, n, chunk):
         raise ValueError(
             f"the CUDA kernel takes head_dim in {_HEAD_DIMS}, chunk <= "
-            f"{MAX_CHUNK}, state <= {MAX_STATE} and pad16(chunk) * pad8(state)"
-            f" <= {MAX_TILE}, got P={p}, chunk={chunk}, N={n}")
+            f"{MAX_CHUNK} and state <= {MAX_STATE}, got P={p}, "
+            f"chunk={chunk}, N={n}")
     y = torch.empty((b, s, nh, p), dtype=torch.float32, device=dev)
     h_last = torch.empty_like(h0)
     if b * nh == 0:
         return y, h_last
     if x.data_ptr() % 16:
         x = x.clone()   # the passes copy x in 16-byte pieces
-    # per (b, head, chunk): the chunk's state, then exp(cum) at its end
+    # per (b, head, chunk run): the chunk's state, then exp(cum) at its end
+    chunk = run_chunk(n, chunk)
     nchunks = -(-s // chunk)
     ws = torch.empty(b * nh * nchunks * (p * n + 1), dtype=torch.float32,
                      device=dev)
@@ -140,7 +164,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     )
     _build.check(err, "ssd_scan")
     ssd_scan.launches += 1
+    ssd_scan.chunk_launches[chunk] = ssd_scan.chunk_launches.get(chunk, 0) + 1
     return y, h_last
 
 
 ssd_scan.launches = 0
+ssd_scan.chunk_launches = {}   # chunk the passes ran at -> launches

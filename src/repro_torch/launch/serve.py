@@ -3,8 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \\
         --requests 16 --batch 8 --prefill-len 2048 --decode-len 64
 
-``--arch`` takes the ported architectures: hymba-1.5b (hybrid) and the
-dense-GQA glm4-9b, olmo-1b, h2o-danube-1.8b and nemotron-4-15b.  The
+``--arch`` takes the ported architectures: hymba-1.5b (hybrid), the
+dense-GQA glm4-9b, olmo-1b, h2o-danube-1.8b and nemotron-4-15b, and the
+pure-SSM mamba2-2.7b (whose cache holds only the SSM state).  The
 reference driver (``repro.launch.serve``) with the same CLI plus
 ``--device`` (default "cuda"; raises without CUDA unless "cpu" is given):
 random prompts from ``numpy.random.default_rng(seed)``, one prefill per

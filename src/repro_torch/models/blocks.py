@@ -6,7 +6,8 @@ Ported families (the reference's ``models/blocks.py``):
   residual -> pre-norm MLP (SwiGLU or non-gated) -> residual;
 * hybrid (hymba): pre-norm, then GQA attention AND mamba2 in PARALLEL on
   the same input, each path RMS-normalized, averaged, added to the
-  residual, then the pre-norm SwiGLU FFN.
+  residual, then the pre-norm SwiGLU FFN;
+* pure SSM (mamba2): pre-norm mamba2 -> residual, no FFN.
 
 The other families raise NotImplementedError, naming the ROADMAP Queue 1
 sub-item that holds them.
@@ -22,44 +23,46 @@ __all__ = ["init_block", "apply_block", "init_block_cache", "block_kind"]
 
 
 def block_kind(cfg) -> str:
-    """"hybrid" or "dense" (GQA); raises on the families the port does not
-    run yet."""
+    """"hybrid", "ssm" or "dense" (GQA); raises on the families the port
+    does not run yet."""
     if cfg.encoder_layers or cfg.frontend:
         item = "9.4: the encoder-decoder and VLM frontends"
     elif cfg.moe:
         item = "9.2: MoE"
     elif cfg.attention == "mla":
         item = "9.3: MLA"
-    elif cfg.attention == "none":
-        item = "9.1: the pure-SSM (mamba2) block"
     elif cfg.mtp_depth:
         item = "9.2: multi-token prediction"
     elif cfg.attention == "hybrid":
         return "hybrid"
+    elif cfg.attention == "none":
+        return "ssm"
     else:
         return "dense"
     raise NotImplementedError(
         f"{cfg.name} ({cfg.family}, attention={cfg.attention!r}): only the "
-        "dense-GQA and hybrid GQA+mamba2 blocks are ported; this family "
-        f"waits in ROADMAP Queue 1 item {item}")
+        "dense-GQA, hybrid GQA+mamba2 and pure-SSM blocks are ported; this "
+        f"family waits in ROADMAP Queue 1 item {item}")
 
 
 def init_block(gen, cfg, dtype, device=None) -> dict:
     kind = block_kind(cfg)
     d = cfg.d_model
-    p = {
-        "ln_attn": init_norm(cfg.norm, d, dtype, device),
-        "attn": attn.init_gqa(gen, cfg, dtype, device),
-    }
-    if kind == "hybrid":
-        # the reference creates ln_ssm for every SSM-carrying block; the
-        # hybrid branch does not read it
+    p = {}
+    if kind != "ssm":
+        p["ln_attn"] = init_norm(cfg.norm, d, dtype, device)
+        p["attn"] = attn.init_gqa(gen, cfg, dtype, device)
+    if kind != "dense":
+        # the reference creates ln_ssm for every SSM-carrying block; only
+        # the pure-SSM branch reads it
         p["ln_ssm"] = init_norm(cfg.norm, d, dtype, device)
         p["ssm"] = ssm_mod.init_mamba2(gen, cfg, dtype, device)
+    if kind == "hybrid":
         p["out_norm_attn"] = init_norm("rmsnorm", d, dtype, device)
         p["out_norm_ssm"] = init_norm("rmsnorm", d, dtype, device)
-    p["ln_mlp"] = init_norm(cfg.norm, d, dtype, device)
-    p["mlp"] = init_mlp(gen, cfg.mlp, d, cfg.d_ff, dtype, device)
+    if kind != "ssm":
+        p["ln_mlp"] = init_norm(cfg.norm, d, dtype, device)
+        p["mlp"] = init_mlp(gen, cfg.mlp, d, cfg.d_ff, dtype, device)
     return p
 
 
@@ -67,6 +70,11 @@ def apply_block(params: dict, cfg, x, positions, *, window=None,
                 cache: dict | None = None):
     """x (B, S, d), positions (B, S).  Returns (y, new_cache)."""
     kind = block_kind(cfg)
+    if kind == "ssm":
+        h = apply_norm(cfg.norm, params["ln_ssm"], x)
+        s_out, c_ssm = ssm_mod.apply_mamba2(
+            params["ssm"], cfg, h, cache=cache["ssm"] if cache else None)
+        return x + s_out, (dict(ssm=c_ssm) if cache is not None else None)
     h = apply_norm(cfg.norm, params["ln_attn"], x)
     a_out, c_attn = attn.gqa_attention(
         params["attn"], cfg, h, positions, window=window,
@@ -89,8 +97,11 @@ def apply_block(params: dict, cfg, x, positions, *, window=None,
 
 def init_block_cache(cfg, batch: int, max_len: int, dtype, *, window=None,
                      device=None) -> dict:
-    c = {"attn": attn.init_gqa_cache(cfg, batch, max_len, dtype,
-                                     window=window, device=device)}
-    if block_kind(cfg) == "hybrid":
+    kind = block_kind(cfg)
+    c = {}
+    if kind != "ssm":
+        c["attn"] = attn.init_gqa_cache(cfg, batch, max_len, dtype,
+                                        window=window, device=device)
+    if kind != "dense":
         c["ssm"] = ssm_mod.init_ssm_cache(cfg, batch, dtype, device=device)
     return c

@@ -4,9 +4,9 @@ The reference (``models/model.py``) stores parameters layer-stacked and
 scans over them; the port keeps a Python list of per-layer dicts and loops
 (PyTorch runs eagerly, so there is nothing to trace).  Each layer carries
 its own cache (hymba's global layers and window layers may differ in
-shape), as the reference's unrolled serving path does; for the dense
-family the reference scans over layer-stacked caches instead, which hold
-the same numbers slice by slice.  A tied-embedding model (olmo) has no
+shape), as the reference's unrolled serving path does; for the dense and
+pure-SSM families the reference scans over layer-stacked caches instead,
+which hold the same numbers slice by slice.  A tied-embedding model (olmo) has no
 ``unembed`` group and unembeds with the embedding table.
 
 Cache layout: {"layers": [block cache per layer], "encoder": None}.
@@ -64,7 +64,9 @@ def _param_device(params) -> torch.device:
 def init_cache(cfg, batch: int, max_len: int, *, window_only: bool = False,
                device=None):
     """window_only=True sizes window-layer caches at the window width (ring
-    buffers that one-token decode fills from empty) instead of ``max_len``."""
+    buffers that one-token decode fills from empty) instead of ``max_len``.
+    A pure-SSM model (mamba2) has no KV slots: its caches hold only the
+    conv window and the SSD state, so ``max_len`` sizes nothing."""
     dev = device_mod.resolve(device)
     dtype = _torch_dtype(cfg)
     layers = [

@@ -74,6 +74,10 @@ def apply_mamba2(params, cfg, x, *, cache: dict | None = None):
     dt_raw = proj[..., -nh:]
     xbc, conv_state = _causal_conv(xbc, params["conv_w"], params["conv_b"],
                                    cache["conv"] if cache else None)
+    if cache is not None and s > 1:
+        # a copy: the slice would keep the whole (B, W-1+S, C) conv input
+        # alive in the cache (~176 MB a layer at mamba2's prefill)
+        conv_state = conv_state.clone()
     xs = xbc[..., :d_in].reshape(b, s, nh, s_cfg.head_dim)
     bmat = xbc[..., d_in:d_in + s_cfg.state_dim].float()
     cmat = xbc[..., d_in + s_cfg.state_dim:].float()

@@ -594,3 +594,90 @@ def test_serve_dense_configs_are_the_reference_configs():
             assert windows[0] is None
             assert all(w is None for w in layer_windows(
                 get_config(label))) == (len(windows) == 1)
+
+
+# ------------------------------------------------------- the pure-SSM slice
+def test_serve_ssm_config_and_traffic_are_the_reference_ones():
+    import dataclasses
+
+    from repro.configs import get_config as ref_get_config
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import block_kind
+
+    arch = chip_smoke.SSM_ARCH
+    cfg, ref = get_config(arch), ref_get_config(arch)
+    assert arch == "mamba2-2.7b"
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    assert block_kind(cfg) == "ssm"
+    # serve's traffic at the published depth; the check phase at the
+    # published widths, cut in depth only
+    assert ref.num_layers == 64
+    assert chip_smoke.SERVE == dict(batch=8, requests=16, prefill_len=2048,
+                                    decode_len=64)
+    assert 1 <= chip_smoke.SSM_CHECK_LAYERS < ref.num_layers
+    # the serving row sits at the config's SSM widths
+    rows = dict((label, (nh, n)) for label, nh, n in chip_smoke.SSD_SERVING)
+    s = ref.ssm
+    assert rows[arch] == (ref.d_model * s.expand // s.head_dim, s.state_dim)
+    hymba = ref_get_config("hymba-1.5b")
+    assert rows["hymba-1.5b"] == (
+        hymba.d_model * hymba.ssm.expand // hymba.ssm.head_dim,
+        hymba.ssm.state_dim)
+    assert s.head_dim == hymba.ssm.head_dim == 64
+    assert s.chunk_size == hymba.ssm.chunk_size == 256
+
+
+def test_ssd_rows_sit_inside_the_kernel_domain():
+    from repro_torch.kernels.ssd_scan.ops import kernel_takes, run_chunk
+
+    for label, B, S, H, P, N, L in chip_smoke.SSD_DOMAIN:
+        assert kernel_takes(P, N, L), label
+    for _, _, n in chip_smoke.SSD_SERVING:
+        assert kernel_takes(64, n, 256)
+    assert not kernel_takes(*chip_smoke.SSD_REFUSED)
+    # mamba2's widths run at chunk 128, at the requested chunk and over a
+    # ragged prefill; some row runs below its requested chunk besides
+    rows = {label: row for label, *row in chip_smoke.SSD_DOMAIN}
+    for label in ("N128.L256", "mamba2-ragged"):
+        B, S, H, P, N, L = rows[label]
+        assert (H, P, N, L) == (80, 64, 128, 256) and run_chunk(N, L) == 128
+    assert rows["mamba2-ragged"][1] % 128 != 0
+    assert any(run_chunk(N, L) not in (L, 128)
+               for _, _, _, _, _, N, L in chip_smoke.SSD_DOMAIN)
+
+
+def test_ssd_bound_counts_each_product_at_its_peak():
+    # the data sheet's dense peaks (H100 SXM, 700 W)
+    assert chip_smoke.FP32_OPS_PER_S == 67e12
+    assert chip_smoke.TF32_OPS_PER_S == 495e12
+    assert chip_smoke.BF16_OPS_PER_S == 989e12
+    B, S, P, Lr = 8, 2048, 64, 128
+    for bf16 in (True, False):
+        for _, nh, n in chip_smoke.SSD_SERVING:
+            work = chip_smoke._ssd_work(bf16, B, S, nh, P, n, Lr)
+            fp32, tf32, bf = work
+            assert fp32[1] == chip_smoke.FP32_OPS_PER_S
+            assert tf32[1] == chip_smoke.TF32_OPS_PER_S
+            assert bf[1] == chip_smoke.BF16_OPS_PER_S
+            assert (bf[0] > 0) == bf16
+            # the tensor-core parts are three products each: a third of
+            # them, with the fp32 part, is the scan's own work
+            chunks = B * nh * (S // Lr)
+            tri = Lr * (Lr + 1) / 2
+            own = chunks * (tri * 2 * (n + P) + 4 * Lr * P * n + 2 * P * n)
+            assert fp32[0] + (tf32[0] + bf[0]) / 3 == pytest.approx(own)
+            assert fp32[0] == chunks * (2 * Lr * P * n + 2 * P * n)
+            # the parts run one after another; no bytes, so ops bound it
+            ms, by = chip_smoke._bound_ms_by_type(0.0, work)
+            assert by == "operations"
+            assert ms == pytest.approx(
+                sum(o / p for o, p in work) * 1e3)
+            assert ms < chip_smoke._bound_ms(0.0, own)[0]
+
+
+def test_phase_order_keeps_health_and_scale_last():
+    phases = chip_smoke.PHASES
+    assert phases[-2:] == ("health", "scale")
+    assert phases.index("serve-ssm") + 1 == phases.index("serve-ssm-check")
+    assert phases.index("serve-dense-check") < phases.index("serve-ssm")
+    assert len(set(phases)) == len(phases)

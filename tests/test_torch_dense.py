@@ -200,9 +200,12 @@ def test_serve_cli_on_cpu(arch, capsys):
 
 
 def test_unported_families_name_their_roadmap_item():
+    from repro_torch.configs import MoEConfig
+
     base = reduce_config(get_config("glm4-9b"), dtype="float32")
     cases = {
-        "9.1": dataclasses.replace(base, family="ssm", attention="none"),
+        "9.2": dataclasses.replace(base, family="moe", moe=MoEConfig(
+            num_experts=8, top_k=2, d_ff_expert=64)),
         "9.3": dataclasses.replace(base, attention="mla"),
         "9.4": dataclasses.replace(base, family="vlm",
                                    frontend="vision_patches",

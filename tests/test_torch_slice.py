@@ -144,6 +144,10 @@ def test_port_imports_neither_jax_nor_the_reference():
         "logits, _ = forward(cfg, init_params(cfg, device='cpu'),\n"
         "                    torch.zeros((1, 8), dtype=torch.long))\n"
         "assert logits.shape == (1, 8, cfg.vocab_size)\n"
+        "cfg = reduce_config(get_config('mamba2-2.7b'), dtype='float32')\n"
+        "logits, _ = forward(cfg, init_params(cfg, device='cpu'),\n"
+        "                    torch.zeros((1, 40), dtype=torch.long))\n"
+        "assert logits.shape == (1, 40, cfg.vocab_size)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"

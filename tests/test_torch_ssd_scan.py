@@ -270,13 +270,81 @@ def test_split_tf32_meets_the_card_check(dtype):
 def test_kernel_domain_predicate():
     from repro_torch.kernels.ssd_scan.ops import kernel_takes
 
-    # every shape the card checks launch (chip_smoke.py), and the edges
+    # every shape the card checks launch (chip_smoke.py), and the edges;
+    # mamba2's N 128 at chunk 256 runs its passes at chunk 128
     for p, n, chunk in [(64, 16, 256), (16, 16, 256), (32, 16, 256),
                         (64, 64, 64), (64, 128, 128), (64, 64, 256),
-                        (32, 12, 128), (64, 16, 1), (16, 1, 16)]:
+                        (32, 12, 128), (64, 16, 1), (16, 1, 16),
+                        (64, 128, 256), (64, 65, 256), (16, 128, 256),
+                        (64, 1, 256), (32, 120, 200)]:
         assert kernel_takes(p, n, chunk), (p, n, chunk)
-    # N 128 at chunk 256 needs 2 x 132 KB of B and C: refused, not launched
-    for p, n, chunk in [(64, 128, 256), (64, 65, 256), (64, 16, 257),
-                        (64, 129, 16), (48, 16, 256), (128, 16, 64),
-                        (64, 16, 0), (64, 0, 64)]:
+    # past the domain's edges: refused, not launched
+    for p, n, chunk in [(64, 16, 257), (64, 129, 16), (64, 129, 256),
+                        (48, 16, 256), (48, 128, 256), (128, 16, 64),
+                        (8, 16, 64), (64, 16, 0), (64, 0, 64)]:
         assert not kernel_takes(p, n, chunk), (p, n, chunk)
+
+
+def test_run_chunk_fits_the_output_pass():
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels.ssd_scan.ops import (MAX_CHUNK, MAX_STATE,
+                                                  MAX_TILE, run_chunk)
+
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" /
+           "csrc" / "ssd_scan.cu").read_text()
+    limits = {name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                  src).group(1))
+              for name in ("kMaxChunk", "kMaxState", "kMaxTile")}
+    assert limits == {"kMaxChunk": MAX_CHUNK, "kMaxState": MAX_STATE,
+                      "kMaxTile": MAX_TILE}
+    # the requested chunk stays while its output pass fits (hymba's N 16,
+    # N 64 at 256), else the largest multiple of 16 that fits
+    assert [run_chunk(n, c) for n, c in [(16, 256), (64, 256), (128, 128),
+                                         (128, 256), (65, 256), (120, 200),
+                                         (128, 129)]] == \
+        [256, 256, 128, 128, 224, 128, 128]
+
+    def pad(v, m):
+        return -(-v // m) * m
+
+    for n in range(1, MAX_STATE + 1):
+        for chunk in range(1, MAX_CHUNK + 1):
+            r = run_chunk(n, chunk)
+            assert pad(r, 16) * pad(n, 8) <= MAX_TILE, (n, chunk)
+            assert r == chunk or (r % 16 == 0 and 128 <= r < chunk), \
+                (n, chunk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_passes_at_the_run_chunk_meet_the_card_check(dtype):
+    # mamba2's SSM widths (P 64, N 128) at chunk 256: the kernel runs its
+    # passes at chunk 128 with its split products; from a nonzero h0 over a
+    # ragged last chunk, y and h_last still meet the card's check against
+    # the plain version at the requested chunk 256
+    from repro_torch.kernels.ssd_scan.ops import run_chunk
+
+    g = torch.Generator().manual_seed(26)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g) * scale
+
+    s, h = 600, 2
+    x = randn(1, s, h, 64).to(dtype)
+    dt = torch.nn.functional.softplus(randn(1, s, h) - 1.0)
+    a = -torch.exp(randn(h, scale=0.3))
+    bm, cm = randn(1, s, 128, scale=0.3), randn(1, s, 128, scale=0.3)
+    h0 = randn(1, h, 64, 128, scale=0.1)
+    assert run_chunk(128, 256) == 128
+    want = ssd_scan_plain(x, dt, a, bm, cm, chunk=256, h0=h0)
+    mm_x = _bf16x3_mm if dtype == torch.bfloat16 else _split_mm
+    got = _three_passes(x, dt, a, bm, cm, chunk=128, h0=h0, mm=_split_mm,
+                        mm_x=mm_x)
+    for g_, w in zip(got, want):
+        torch.testing.assert_close(g_, w, **TOL32)
+    # the check sees a dropped h0 at these widths (in y: h0 has decayed
+    # away by the last state)
+    no_h0 = ssd_scan_plain(x, dt, a, bm, cm, chunk=256)
+    assert not torch.allclose(no_h0[0], want[0], **TOL32)

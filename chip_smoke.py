@@ -10,15 +10,17 @@ olmo-1b, h2o-danube-1.8b, nemotron-4-15b) and the pure-SSM serving path
 Phases, each printed on a line of its own:
 
 1. build       — compile the six CUDA kernels from ``src/repro_torch/csrc``;
-                 the line gives the registers and spills of the tensor-core
-                 (wgmma) instance of flash_attention, of the serving
-                 path's decode_attention instance (bf16, G 5), of the
-                 dense path's instances (``DENSE_INSTANCES``: flash bf16 at
-                 D 128 and 80, decode bf16 blocks of 8, 6, 4 and 1 heads)
-                 and of every ssd_scan instance (state, chain and output
-                 pass), and requires no spills in the serving path's ssd
-                 passes, the dense flash instances and glm4-9b's decode
-                 instance (bf16, blocks of 8 heads).
+                 the line gives the registers, spills and blocks per SM of
+                 the tensor-core (wgmma) instances of flash_attention (bf16
+                 at D 64, 128 and 80, ``WGMMA_HEAD_DIMS``), the registers
+                 and spills of the serving path's decode_attention
+                 instance (bf16, G 5), of the dense path's CUDA-core
+                 instances (``DENSE_INSTANCES``: flash f32 at D 128 and 80,
+                 decode bf16 blocks of 8, 6, 4 and 1 heads) and of every
+                 ssd_scan instance (state, chain and output pass), and
+                 requires no spills in the tensor-core flash instances, the
+                 serving path's ssd passes and glm4-9b's decode instance
+                 (bf16, blocks of 8 heads; ``DENSE_NO_SPILL``).
 2. kernels     — hold each kernel against its plain PyTorch version on the
                  card and time kernel, plain version, library call (where
                  one PyTorch call computes the same function) and the
@@ -66,20 +68,23 @@ Phases, each printed on a line of its own:
                  tied best gains (the lowest id must win) and on queries
                  that go bad after good rounds; its rows add
                  ``device_ms``.
-                 The dense configs by the same rules: flash_attention on
-                 the CUDA-core instance at their prefill (``DENSE_FLASH``:
-                 B 8, S = T 2048; glm4-9b H 32 / K 2, nemotron-4-15b 48 /
-                 8, olmo-1b 16 / 16 at D 128, h2o-danube-1.8b 32 / 8 at
-                 D 80, global and window 1024; f32 at glm4's and danube's),
-                 at S = T 1528 (D 128) and at D 32; decode_attention at
+                 The dense configs by the same rules: flash_attention at
+                 their prefill (``DENSE_FLASH``: B 8, S = T 2048; glm4-9b
+                 H 32 / K 2, nemotron-4-15b 48 / 8, olmo-1b 16 / 16 at D
+                 128, h2o-danube-1.8b 32 / 8 at D 80, global and window
+                 1024; bf16 on the tensor-core instance, f32 at glm4's and
+                 danube's on the CUDA-core one), at S = T 1528 (D 128), in
+                 bf16 at a window of 40, under one 64-key tile, at D 128
+                 and 80 and at S = T 1528 at D 80 (``DENSE_FLASH_EDGES``),
+                 and at D 32; decode_attention at
                  their serving cache (``DENSE_DECODE``: B 8, T 2112, a
                  wrapped ring with empty slots and per-row q_pos; G 16 in
                  two head groups, 6, 4 with window 40, 1) and at G 2, 3,
                  7, 9, 10 and 12; the serving rows add ``device_ms`` and
                  SDPA's ``library_ms`` / ``library_device_ms``.  Every
-                 CUDA-core flash and every decode instance the build made
-                 must run in some row, and the wrapper's head groups must
-                 be the source's.
+                 flash and every decode instance the build made must run
+                 in some row, and the wrapper's head groups must be the
+                 source's.
 3. fit-stress  — ``Simulator(64, 50).run(lmbr_stress_workload(seed=0), lmbr,
                  seed=0, max_moves=1200)`` on the card with the dense peel
                  and the span_gain kernel pinned; the summary and member
@@ -169,8 +174,8 @@ Phases, each printed on a line of its own:
                  2048, 32 decode steps) (``DENSE_SERVES``); finite logits
                  of shape (8, vocab), prefill tokens/s, decode ms/step,
                  peak memory, launches L x batches (flash, every one on
-                 the CUDA-core instance) and L x steps x batches (decode),
-                 no ssd_scan.
+                 the tensor-core instance) and L x steps x batches
+                 (decode), no ssd_scan.
 11. serve-dense-check — ``DENSE_CHECKS`` (glm4-9b; h2o-danube-1.8b with its
                  window cut to 1024) at full width and 4 layers in f32 with
                  TF32 off, prompt 1536, held as serve-check holds hymba.
@@ -852,22 +857,36 @@ def _attention_instance(entry: str):
             int(m.group(3)))
 
 
-# instances of the dense serving path: flash at D 128 (glm4-9b, olmo-1b,
-# nemotron-4-15b) and D 80 (h2o-danube-1.8b), and the decode blocks of 8
-# (glm4's G 16 in two groups), 6, 4 and 1 query heads; the first three
-# (flash, and glm4's decode) must not spill
-DENSE_INSTANCES = (("flash", "bf16", 128), ("flash", "bf16", 80),
+def _wgmma_instance(entry: str):
+    """("flash", "bf16", D) of a tensor-core flash_attention instance's
+    mangled name (flash_attention_wgmma_kernel<D>); None for any other."""
+    m = re.search(r"flash_attention_wgmma_kernelILi(\d+)E", entry)
+    return ("flash", "bf16", int(m.group(1))) if m else None
+
+
+# the tensor-core flash instances: D 64 (hymba-1.5b), 128 (glm4-9b, olmo-1b,
+# nemotron-4-15b) and 80 (h2o-danube-1.8b); none may spill
+WGMMA_HEAD_DIMS = (64, 128, 80)
+# the CUDA-core instances of the dense configs: flash in f32 at D 128 and
+# 80 (serve-dense-check), and the decode blocks of 8 (glm4's G 16 in two
+# groups), 6, 4 and 1 query heads
+DENSE_INSTANCES = (("flash", "f32", 128), ("flash", "f32", 80),
                    ("decode", "bf16", 8), ("decode", "bf16", 6),
                    ("decode", "bf16", 4), ("decode", "bf16", 1))
-DENSE_NO_SPILL = DENSE_INSTANCES[:3]
+# of these, glm4-9b's bf16 decode instance must not spill
+DENSE_NO_SPILL = (("decode", "bf16", 8),)
 
 
 def phase_build(_build):
     so = _build.build(force=True)
     entries = _ptxas_entries(_build.BUILD_INFO["ptxas"])
-    tc = [e for e in entries if "flash_attention_wgmma_kernel" in e["entry"]]
-    _require(len(tc) == 1, "build: no ptxas report of the tensor-core "
-             "flash_attention instance")
+    tc = {_wgmma_instance(e["entry"]): e for e in entries
+          if _wgmma_instance(e["entry"])}
+    _require(sorted(n for _, _, n in tc) == sorted(WGMMA_HEAD_DIMS),
+             f"build: ptxas reports tensor-core flash_attention instances "
+             f"at D {sorted(n for _, _, n in tc)}, want {WGMMA_HEAD_DIMS}")
+    blocks = {d: _build.lib().flash_attention_wgmma_blocks_per_sm(d)
+              for d in WGMMA_HEAD_DIMS}
     # the decode instance of the serving path: bf16, G = 5
     dec = [e for e in entries
            if "decode_attention_kernelI13__nv_bfloat16Li5E" in e["entry"]]
@@ -900,10 +919,14 @@ def phase_build(_build):
         f"registers={att[k, dt, n]['registers']} "
         f"spills={att[k, dt, n]['spill_stores']}/{att[k, dt, n]['spill_loads']}"
         for k, dt, n in DENSE_INSTANCES)
+    tc_line = ", ".join(
+        f"D {n} registers={tc[k]['registers']} spills="
+        f"{tc[k]['spill_stores']}/{tc[k]['spill_loads']} "
+        f"blocks_per_sm={blocks[n]}"
+        for n in WGMMA_HEAD_DIMS for k in [("flash", "bf16", n)])
     print(f"build: {_build.BUILD_INFO['seconds']:.2f} s -> {Path(so).name} "
-          f"flash_attention wgmma instance: registers={tc[0]['registers']} "
-          f"spill_stores={tc[0]['spill_stores']} "
-          f"spill_loads={tc[0]['spill_loads']}; decode_attention bf16 G 5 "
+          f"flash_attention wgmma instances (bf16, spill stores/loads "
+          f"bytes): {tc_line}; decode_attention bf16 G 5 "
           f"instance: registers={dec[0]['registers']} "
           f"spill_stores={dec[0]['spill_stores']} "
           f"spill_loads={dec[0]['spill_loads']}; dense path instances "
@@ -913,12 +936,16 @@ def phase_build(_build):
         print(f"  {e['source']} {e['entry'][:60]} registers={e['registers']} "
               f"spill_stores={e['spill_stores']} "
               f"spill_loads={e['spill_loads']}")
-    for inst in DENSE_NO_SPILL:
-        e = att[inst]
+    for inst, e in [*tc.items(), *((i, att[i]) for i in DENSE_NO_SPILL)]:
         _require(e["spill_stores"] == 0 and e["spill_loads"] == 0,
-                 f"build: the dense path's instance {inst} spills "
+                 f"build: the instance {inst} spills "
                  f"({e['spill_stores']} / {e['spill_loads']} bytes)")
-    return set(ssd), set(att)
+    for d, n in blocks.items():
+        _require(n >= 1, f"build: the D {d} tensor-core flash instance "
+                 f"fits no block on an SM ({n})")
+    # the instances the kernels phase must run: the tensor-core flash ones
+    # under the same (kernel, dtype, D) keys as the CUDA-core ones
+    return set(ssd), set(att) | set(tc)
 
 
 def phase_kernels(np, torch, dev):
@@ -1211,8 +1238,9 @@ def _flash_rows(torch, randn, dev, dtype, peak, B, S, H, K, D,
                    if dtype == torch.bfloat16 else None)
         torch.cuda.synchronize()
         check = _attention_check(
-            torch, f"flash_attention {tag} S={S} window={window}", dtype, got,
-            want, plain32, wants[None] if window else None)
+            torch, f"flash_attention {label}{tag} S={S} D={D} "
+            f"window={window}", dtype, got, want, plain32,
+            wants[None] if window else None)
         del got, plain32
         qi = torch.arange(S, device=dev)[:, None]
         kj = torch.arange(S, device=dev)[None, :]
@@ -1329,6 +1357,15 @@ DENSE_FLASH = (
     ("nemotron-4-15b", 48, 8, 128, (None,)),
     ("olmo-1b", 16, 16, 128, (None,)),
     ("h2o-danube-1.8b", 32, 8, 80, (None, 1024)),
+)
+# the tensor-core instance's edges at the dense head dims, bf16: a window
+# of 40, under one 64-key tile (the per-warpgroup tile skip and the window
+# edge inside a tile), at D 128 and D 80, and D 80 at the ragged S = T 1528
+# with danube's serve-dense-check window: label, B, S, H, K, D, windows
+DENSE_FLASH_EDGES = (
+    ("window40", 2, 2048, 32, 2, 128, (None, 40)),
+    ("window40", 2, 2048, 32, 8, 80, (None, 40)),
+    ("ragged", 2, 1528, 32, 8, 80, (None, 1024)),
 )
 # their decode over the serving cache (B 8, T 2112): label, H, K, D, windows
 DENSE_DECODE = (
@@ -1619,10 +1656,12 @@ def phase_model_kernels(np, torch, dev):
         for fb, fs, rnd in shapes if tag == "bf16" else shapes[:1]:
             rows["flash_attention"] += _flash_rows(
                 torch, rnd, dev, dtype, peak, fb, fs, H, K, D)
-        # the dense configs' prefill on the CUDA-core instance at D 128 and
-        # 80 (in f32 glm4's and danube's), serve-dense-check's prefill
-        # length S = T 1528 at D 128, and D 32 (so that every CUDA-core
-        # instance the build makes runs in some row)
+        # the dense configs' prefill at D 128 and 80 (bf16 on the
+        # tensor-core instance; f32, glm4's and danube's, on the CUDA-core
+        # one), serve-dense-check's prefill length S = T 1528 at D 128, in
+        # bf16 the tensor-core instance's edges (``DENSE_FLASH_EDGES``),
+        # and D 32 (so that every instance the build makes runs in some
+        # row)
         for label, dh, dk, dd, windows in DENSE_FLASH:
             if tag == "bf16" or label in ("glm4-9b", "h2o-danube-1.8b"):
                 rows["flash_attention"] += _flash_rows(
@@ -1631,6 +1670,11 @@ def phase_model_kernels(np, torch, dev):
         rows["flash_attention"] += _flash_rows(
             torch, randn_ragged, dev, dtype, peak, 2, 1528, 32, 2, 128,
             windows=(None,), label="ragged.")
+        for label, eb, es, dh, dk, dd, windows in (
+                DENSE_FLASH_EDGES if tag == "bf16" else ()):
+            rows["flash_attention"] += _flash_rows(
+                torch, randn_ragged, dev, dtype, peak, eb, es, dh, dk, dd,
+                windows=windows, label=label + ".")
         rows["flash_attention"] += _flash_rows(
             torch, randn_ragged, dev, dtype, peak, 2, 777, 4, 4, 32,
             windows=(None, 40), label="D32.")
@@ -2019,9 +2063,9 @@ def phase_serve_dense(torch, kernels, dev):
         want = {"flash_attention": L * nb,
                 "decode_attention": L * decode_len * nb, "ssd_scan": 0}
         _require_launches(label, launches, want)
-        _require(flash_instances == {"wgmma": 0, "fma": L * nb},
+        _require(flash_instances == {"wgmma": L * nb, "fma": 0},
                  f"{label}: flash_attention instances {flash_instances}, "
-                 "want every launch on the CUDA-core (fma) instance")
+                 "want every launch on the tensor-core (wgmma) instance")
         g = cfg.num_heads // cfg.num_kv_heads
         print(f"serve-dense: {arch} layers={L} d_model={cfg.d_model} "
               f"head_dim={cfg.resolved_head_dim} G={g} "
@@ -3317,7 +3361,7 @@ def main(argv=None) -> int:
             missed = sorted(f"{d}.P{p}" for _, d, p in ssd_built
                             if d is not None and f"{d}.P{p}" not in ran)
             _require(not missed, f"kernels: no ssd_scan row ran {missed}")
-            # ... and every CUDA-core flash and every decode instance
+            # ... and every flash and every decode instance
             ran = {(name, r["kernel_instance"]) for name in
                    ("flash_attention", "decode_attention")
                    for r in rows[name]["shapes"]}

@@ -15,45 +15,57 @@
 // contiguous elements, so is one key row.  fp32 math, output rounded to
 // nearest in the storage type.  Two instances:
 //
-// * bf16 with D = 64 (every launch of the hymba serving path):
-//   flash_attention_wgmma_kernel, both products on the tensor cores;
-// * f32 (D 32, 64, 80, 128) and bf16 with D = 32, 80 or 128 (the dense
-//   configs: h2o-danube-1.8b has D 80, glm4-9b, olmo-1b and nemotron-4-15b
-//   D 128): flash_attention_kernel, both products as fp32 FMAs on the CUDA
-//   cores.
+// * bf16 with D = 64 (every launch of the hymba serving path), 80
+//   (h2o-danube-1.8b) or 128 (glm4-9b, olmo-1b, nemotron-4-15b):
+//   flash_attention_wgmma_kernel<D>, both products on the tensor cores;
+// * f32 (D 32, 64, 80, 128) and bf16 with D = 32: flash_attention_kernel,
+//   both products as fp32 FMAs on the CUDA cores.
 //
 // What bounds it on an H100: operations.  At the serving path's shapes
 // (B 8, H 25, S = T 2048, D 64) the visible (i, j) pairs need 4 D flops
 // each, ~1e11 flops per call against ~0.1 GB of q, k, v and out, far above
-// the card's ~295 bf16 flops per byte of device memory.
+// the card's ~295 bf16 flops per byte of device memory; at glm4-9b's
+// prefill (H 32, D 128) ~2.7e11 flops against ~0.15 GB.  On the CUDA cores
+// the floor is the fp32 peak (67 TFLOP/s, 4.1 ms at glm4-9b); only the
+// tensor cores reach the bf16 one (0.28 ms there), so every bf16 head dim
+// of a served config runs the tensor-core instance.  Its P V product is
+// done twice (P split in two bf16 halves, below), so the tensor cores do
+// 1.5x the counted work.
 //
 // Tensor-core instance.  One block of two warpgroups takes 128 query rows
 // of one (batch, head); each warpgroup owns 64 rows, the M of one
 // wgmma.m64n64k16.  Blocks walk the query tiles heaviest first (the last
-// causal tiles see the most keys).  The Q tile (16 KB) is loaded once; K
-// and V tiles of 64 keys x 64 (8 KB each) go through a two-stage ring
-// filled by 16-byte cp.async copies while the previous tile is computed.
-// Every tile is stored in the 128-byte swizzle that the wgmma shared-memory
-// descriptors read; ragged rows are zero-filled (cp.async src-size 0).
-// S = Q K^T is four k16 steps with both operands in shared memory (a key
-// row is D-contiguous, so K is K-major for B).  The products of bf16 inputs
-// are exact in fp32.  The online softmax runs on the fp32 accumulator
-// fragment: each row's 64 values sit in one quad of threads, so a row max
-// is two xor shuffles; the accurate expf is used, as in the reference.
-// O += P V takes A from registers: for 16-bit inputs the fp32 accumulator
-// fragment of S has the layout of the A fragment.  P is split as
-// P = bf16(P) + bf16(P - bf16(P)) and both halves go through the tensor
-// cores (eight k16 steps per tile): a single bf16 P changes about 38% of
-// the bf16 outputs against the fp32-P reference, the split about 0.2%
-// (tests/test_torch_flash_attention.py emulates both).  V is D-contiguous,
-// i.e. MN-major for B, and is read with the B-transpose bit.  The block
-// loads the key tiles over [q0 - window + 1, last row], the first one
-// starting at the multiple of 64 at or below q0 - window + 1, so tile
-// edges meet the warpgroups' 64-row edges; a tile that the causal or
-// window mask removes for a whole warpgroup is skipped by it, and the
-// element mask runs only on tiles that cross the diagonal, the window
-// edge or the end of the keys.  GQA reads kv head
-// h / G in place; the G query heads that share it hit L2.
+// causal tiles see the most keys).  A tile of 64 rows is stored as D / 64
+// sub-tiles (D 80 is padded to 128) of 64 rows x 128 bytes, each in the
+// 128-byte swizzle that the wgmma shared-memory descriptors read.  The Q
+// tile is loaded once; K and V tiles of 64 keys go through a two-stage
+// ring filled by 16-byte cp.async copies while the previous tile is
+// computed.  Ragged rows and D 80's pad columns (pieces 10..15 of a row)
+// are zero-filled (cp.async src-size 0), so the pad adds zeros to every
+// score; the scale is the real D^-0.5, the global strides the real H D and
+// K D, and only the real columns are stored.  S = Q K^T is D / 16 k16
+// steps with both operands in shared memory (a key row is D-contiguous, so
+// K is K-major for B); step kk reads sub-tile kk / 4.  The products of
+// bf16 inputs are exact in fp32.  The online softmax runs on the fp32
+// accumulator fragment: each row's 64 values sit in one quad of threads,
+// so a row max is two xor shuffles; the accurate expf is used, as in the
+// reference.  O += P V takes A from registers: for 16-bit inputs the fp32
+// accumulator fragment of S has the layout of the A fragment.  P is split
+// as P = bf16(P) + bf16(P - bf16(P)) and both halves go through the
+// tensor cores (eight k16 steps per tile and V sub-tile): a single bf16 P
+// changes about 38% of the bf16 outputs against the fp32-P reference, the
+// split about 0.2% at D 64, 80 and 128 (tests/test_torch_flash_attention.py
+// emulates both).  V is D-contiguous, i.e. MN-major for B, and is read
+// with the B-transpose bit; at D 80 / 128 O is two 64-column accumulators,
+// one m64n64k16 chain per V sub-tile.  The block loads the key tiles over
+// [q0 - window + 1, last row], the first one starting at the multiple of
+// 64 at or below q0 - window + 1, so tile edges meet the warpgroups'
+// 64-row edges; a tile that the causal or window mask removes for a whole
+// warpgroup is skipped by it, and the element mask runs only on tiles that
+// cross the diagonal, the window edge or the end of the keys.  GQA reads
+// kv head h / G in place; the G query heads that share it hit L2.
+// Shared memory: 49 KB a block at D 64, 97 KB at D 80 / 128, two blocks
+// an SM either way.
 //
 // CUDA-core instance.  TPR threads per query row (1 at D 32 and 64, 2 at
 // D 80 and 128) keep the row's q and its accumulator (2 D / TPR floats a
@@ -222,15 +234,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-// ------------------------------------------- tensor-core instance (bf16, D 64)
+// ------------------------------ tensor-core instance (bf16, D 64, 80, 128)
 constexpr int kTcRows = 128;           // query rows per block, 64 per warpgroup
 constexpr int kTcKeys = 64;            // keys per K / V tile
-constexpr int kTcD = 64;
 constexpr int kTcThreads = 256;        // two warpgroups
-constexpr int kTileBytes = 64 * kTcD * 2;   // 64 rows of 128 bytes
+constexpr int kTileBytes = 64 * 64 * 2;   // a sub-tile: 64 rows of 128 bytes
+// blocks per SM that the D 80 / 128 instances are built for (their O
+// fragment alone is 64 registers a thread)
+constexpr int kTcWideBlocks = 2;
+
+// A row of D columns is stored as NSUB sub-tiles of 64 columns (D 80 is
+// padded to 128 with zeros); PIECES of its 16-byte pieces are real.  SMEM:
 // Q (two warpgroup tiles) + two stages of K and V, and room to align the
-// base to 1024 bytes, the period of the 128-byte swizzle
-constexpr int kTcSmem = 1024 + 2 * kTileBytes + 2 * 2 * kTileBytes;
+// base to 1024 bytes, the period of the 128-byte swizzle.
+template <int D>
+struct TcShape {
+  static constexpr int NSUB = D > 64 ? 2 : 1;
+  static constexpr int PIECES = D / 8;
+  static constexpr int TILE = NSUB * kTileBytes;   // 64 rows of Q, K or V
+  static constexpr int SMEM = 1024 + 2 * TILE + 2 * 2 * TILE;
+  static constexpr int MIN_BLOCKS = D > 64 ? kTcWideBlocks : 2;
+  static_assert(D % 16 == 0 && D <= 128, "whole k16 steps, two sub-tiles");
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -326,24 +351,40 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
 
 // Accumulator fragment of a 64 x 64 wgmma tile (fp32), for thread lt of
 // the warpgroup, warp w = lt / 32, lane l: d[4 j + 2 half + c] holds row
-// 16 w + l / 4 + 8 half, column 8 j + 2 (l % 4) + c.  Two blocks per SM
-// (128 registers a thread, no spills), so that one warpgroup's softmax
-// overlaps another's products: on an H100 SXM at 700 W, 0.66 ms against
-// 0.87 ms with one block per SM (168 registers) at the serving shape.
-__global__ void __launch_bounds__(kTcThreads, 2)
+// 16 w + l / 4 + 8 half, column 8 j + 2 (l % 4) + c.  At D 64 two blocks
+// per SM (128 registers a thread, no spills), so that one warpgroup's
+// softmax overlaps another's products: on an H100 SXM at 700 W, 0.66 ms
+// against 0.87 ms with one block per SM (168 registers) at the serving
+// shape.  At D 80 / 128 a thread holds O as two such fragments, one per
+// 64-column sub-tile of V, and still fits 128 registers with no spill;
+// kTcWideBlocks says how many blocks an SM.  Two: at glm4-9b's prefill
+// (B 8, H 32, K 2, S = T 2048) 1.067 ms against 1.366-1.380 with one
+// block an SM (168 registers), on an H100 SXM at 700 W
+// (tools/flash_attention_probe.py, base and one-block in one run).
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, TcShape<D>::MIN_BLOCKS)
     flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                                  const __nv_bfloat16* __restrict__ k,
                                  const __nv_bfloat16* __restrict__ v,
                                  __nv_bfloat16* __restrict__ out, int S,
                                  int Tk, int H, int K, int causal, int window,
                                  float scale) {
+  constexpr int NSUB = TcShape<D>::NSUB;
+  constexpr int PIECES = TcShape<D>::PIECES;
+  constexpr int TILE = TcShape<D>::TILE;
+  constexpr int ROW_PIECES = 8 * NSUB;   // 16-byte pieces of a stored row
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t sq = base;                      // 128 rows of Q
-  const uint32_t skv = base + 2 * kTileBytes;    // stage s: K, then V
+  const uint32_t sq = base;                // warpgroup w's Q at sq + w TILE
+  const uint32_t skv = base + 2 * TILE;    // stage s: K, then V
 
   const int tid = threadIdx.x;
-  const int wg = tid >> 7;
+  // At D 80 / 128 the warpgroup is broadcast from lane 0, so that the
+  // compiler knows it is the same across the warp: the Q descriptors
+  // derived from it then sit in uniform registers, which wgmma reads.  In
+  // the thread's own registers they made O, S and P spill 24-80 bytes at
+  // the 128 that two blocks an SM allow.
+  const int wg = NSUB > 1 ? __shfl_sync(0xffffffffu, tid >> 7, 0) : tid >> 7;
   const int warp = (tid >> 5) & 3;
   const int lane = tid & 31;
   const int h = blockIdx.y;
@@ -357,27 +398,34 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   const int ntiles =
       kv_end > kv_begin ? (kv_end - kv_begin + kTcKeys - 1) / kTcKeys : 0;
 
-  const long long q_stride = (long long)H * kTcD;
-  const long long kv_stride = (long long)K * kTcD;
-  const __nv_bfloat16* qb = q + (long long)b * S * q_stride + h * kTcD;
-  const __nv_bfloat16* kb = k + (long long)b * Tk * kv_stride + kh * kTcD;
-  const __nv_bfloat16* vb = v + (long long)b * Tk * kv_stride + kh * kTcD;
+  const long long q_stride = (long long)H * D;
+  const long long kv_stride = (long long)K * D;
+  const __nv_bfloat16* qb = q + (long long)b * S * q_stride + h * D;
+  const __nv_bfloat16* kb = k + (long long)b * Tk * kv_stride + kh * D;
+  const __nv_bfloat16* vb = v + (long long)b * Tk * kv_stride + kh * D;
 
-  for (int e = tid; e < kTcRows * 8; e += kTcThreads) {
-    const int r = e >> 3, c = e & 7;
+  // piece c of row r lands in chunk c % 8 of sub-tile c / 8; the ragged
+  // rows and the pieces past the real D (D 80's columns 80..127) are
+  // zero-filled, the pad's source address kept inside the row
+  for (int e = tid; e < kTcRows * ROW_PIECES; e += kTcThreads) {
+    const int r = e / ROW_PIECES, c = e % ROW_PIECES;
     const bool ok = q0 + r < S;
-    cp_async16(swizzled(sq, r, c), qb + (ok ? q0 + r : 0) * q_stride + c * 8,
-               ok);
+    cp_async16(swizzled(sq + (r >> 6) * TILE + (c >> 3) * kTileBytes, r & 63,
+                        c & 7),
+               qb + (ok ? q0 + r : 0) * q_stride + (c < PIECES ? c * 8 : 0),
+               ok && c < PIECES);
   }
   auto load_kv = [&](int n) {
     const int t0 = kv_begin + n * kTcKeys;
-    const uint32_t sk = skv + (n & 1) * 2 * kTileBytes;
-    for (int e = tid; e < kTcKeys * 8; e += kTcThreads) {
-      const int r = e >> 3, c = e & 7;
+    const uint32_t sk = skv + (n & 1) * 2 * TILE;
+    for (int e = tid; e < kTcKeys * ROW_PIECES; e += kTcThreads) {
+      const int r = e / ROW_PIECES, c = e % ROW_PIECES;
       const bool ok = t0 + r < kv_end;
-      const long long off = (ok ? t0 + r : 0) * kv_stride + c * 8;
-      cp_async16(swizzled(sk, r, c), kb + off, ok);
-      cp_async16(swizzled(sk + kTileBytes, r, c), vb + off, ok);
+      const long long off =
+          (ok ? t0 + r : 0) * kv_stride + (c < PIECES ? c * 8 : 0);
+      const uint32_t dst = swizzled(sk + (c >> 3) * kTileBytes, r, c & 7);
+      cp_async16(dst, kb + off, ok && c < PIECES);
+      cp_async16(dst + TILE, vb + off, ok && c < PIECES);
     }
   };
   if (ntiles > 0) load_kv(0);
@@ -390,11 +438,13 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   const int row0 = r_lo + warp * 16 + (lane >> 2);
   const int row1 = row0 + 8;
   const int col = 2 * (lane & 3);
-  const uint64_t q_desc = sw128_desc(sq + wg * kTileBytes);
+  const uint64_t q_desc = sw128_desc(sq + wg * TILE);
 
-  float o[32];
+  float o[NSUB][32];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  for (int u = 0; u < NSUB; ++u)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[u][i] = 0.f;
   float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
 
   for (int n = 0; n < ntiles; ++n) {
@@ -413,18 +463,22 @@ __global__ void __launch_bounds__(kTcThreads, 2)
       continue;  // the mask removes the whole tile for these 64 rows
     const bool masked = t1 >= kv_end || (causal && t1 > r_lo) ||
                         (window > 0 && t0 <= r_hi - window);
-    const uint32_t sk = skv + (n & 1) * 2 * kTileBytes;
+    const uint32_t sk = skv + (n & 1) * 2 * TILE;
     const uint64_t k_desc = sw128_desc(sk);
-    const uint64_t v_desc = sw128_desc(sk + kTileBytes);
+    const uint64_t v_desc = sw128_desc(sk + TILE);
 
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
     fence_regs(s);
     wgmma_fence();
+    // 16 elements = 32 bytes a step; step kk reads sub-tile kk / 4, whose
+    // descriptor sits kTileBytes >> 4 further on
 #pragma unroll
-    for (int kk = 0; kk < kTcD / 16; ++kk)  // 16 elements = 32 bytes a step
-      wgmma_ss(s, q_desc + 2 * kk, k_desc + 2 * kk, kk > 0);
+    for (int kk = 0; kk < 4 * NSUB; ++kk) {
+      const int step = (kk >> 2) * (kTileBytes >> 4) + 2 * (kk & 3);
+      wgmma_ss(s, q_desc + step, k_desc + step, kk > 0);
+    }
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -469,8 +523,11 @@ __global__ void __launch_bounds__(kTcThreads, 2)
         s[4 * j + 2 + c] = expf(s[4 * j + 2 + c] - mx1);
         sum0 += s[4 * j + c];
         sum1 += s[4 * j + 2 + c];
-        o[4 * j + c] *= corr0;
-        o[4 * j + 2 + c] *= corr1;
+#pragma unroll
+        for (int u = 0; u < NSUB; ++u) {
+          o[u][4 * j + c] *= corr0;
+          o[u][4 * j + 2 + c] *= corr1;
+        }
       }
     }
     l0 = l0 * corr0 + sum0;  // this thread's 16 columns; the quad sums later
@@ -494,17 +551,25 @@ __global__ void __launch_bounds__(kTcThreads, 2)
             bf16x2_bits(__floats2bfloat162_rn(s[i] - hf.x, s[i + 1] - hf.y));
       }
     }
-    fence_regs(o);
+#pragma unroll
+    for (int u = 0; u < NSUB; ++u) fence_regs(o[u]);
     wgmma_fence();
+    // 16 keys = 2048 bytes of a V sub-tile a step; sub-tile u holds O's
+    // columns 64 u .. 64 u + 63
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)  // 16 keys = 2048 bytes of V a step
-      wgmma_rs(o, p_hi + 4 * kk, v_desc + 128 * kk);
+    for (int u = 0; u < NSUB; ++u) {
+      const uint64_t vu = v_desc + u * (kTileBytes >> 4);
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs(o, p_lo + 4 * kk, v_desc + 128 * kk);
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(o[u], p_hi + 4 * kk, vu + 128 * kk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_rs(o[u], p_lo + 4 * kk, vu + 128 * kk);
+    }
     wgmma_commit();
     wgmma_wait_all();
-    fence_regs(o);
+#pragma unroll
+    for (int u = 0; u < NSUB; ++u) fence_regs(o[u]);
   }
   cp_async_wait_all();
   if (!live) return;
@@ -515,42 +580,71 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = fmaxf(l0, 1e-30f);
   const float inv1 = fmaxf(l1, 1e-30f);
-  __nv_bfloat16* ob = out + (long long)b * S * q_stride + h * kTcD + col;
+  __nv_bfloat16* ob = out + (long long)b * S * q_stride + h * D + col;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (row0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * q_stride + 8 * j) =
-          __floats2bfloat162_rn(o[4 * j] / inv0, o[4 * j + 1] / inv0);
-    if (row1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row1 * q_stride + 8 * j) =
-          __floats2bfloat162_rn(o[4 * j + 2] / inv1, o[4 * j + 3] / inv1);
+  for (int u = 0; u < NSUB; ++u) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c0 = 64 * u + 8 * j;   // only the real columns are stored
+      if (c0 >= D) continue;
+      if (row0 < S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row0 * q_stride + c0) =
+            __floats2bfloat162_rn(o[u][4 * j] / inv0, o[u][4 * j + 1] / inv0);
+      if (row1 < S)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row1 * q_stride + c0) =
+            __floats2bfloat162_rn(o[u][4 * j + 2] / inv1,
+                                  o[u][4 * j + 3] / inv1);
+    }
   }
 }
 
+template <int D>
+cudaError_t set_wgmma_attributes() {
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, TcShape<D>::SMEM);
+  if (err != cudaSuccess || D == 64) return err;
+  // the wide instances' two blocks need ~194 KB of an SM's shared memory
+  return cudaFuncSetAttribute(flash_attention_wgmma_kernel<D>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          void* out, int B, int S, int Tk, int H, int K,
                          int causal, int window, cudaStream_t stream) {
-  // 16-byte copies and 4-byte stores
+  // 16-byte copies and 4-byte stores (a row of D 80 is 160 bytes)
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
     return cudaErrorMisalignedAddress;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_wgmma_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+  cudaError_t err = set_wgmma_attributes<D>();
   if (err != cudaSuccess) return err;
   dim3 grid((S + kTcRows - 1) / kTcRows, H, B);
-  flash_attention_wgmma_kernel<<<grid, kTcThreads, kTcSmem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, Tk, H, K, causal,
-      window, 1.0f / sqrtf((float)kTcD));
+  flash_attention_wgmma_kernel<D>
+      <<<grid, kTcThreads, TcShape<D>::SMEM, stream>>>(
+          (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+          (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, Tk, H, K, causal,
+          window, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
+}
+
+template <int D>
+int wgmma_blocks_per_sm() {
+  if (set_wgmma_attributes<D>() != cudaSuccess) return -1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, flash_attention_wgmma_kernel<D>, kTcThreads,
+          TcShape<D>::SMEM) != cudaSuccess)
+    return -1;
+  return n;
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  D must be 32, 64, 80 or 128 (the
 // wrapper checks); anything else returns cudaErrorInvalidValue.  bf16 with
-// D 64 runs the tensor-core instance, which needs 16-byte aligned pointers;
-// the rest run the CUDA-core instance.
+// D 64, 80 or 128 runs the tensor-core instance, which needs 16-byte
+// aligned pointers; f32, and bf16 with D 32, run the CUDA-core instance.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B, int S,
                                       int Tk, int H, int K, int D, int causal,
@@ -567,23 +661,33 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (dtype == 0 && D == 64)
     return (int)launch<float, 64>(q, k, v, out, B, S, Tk, H, K, causal,
                                   window, st);
-  if (dtype == 1 && D == 32)
-    return (int)launch<__nv_bfloat16, 32>(q, k, v, out, B, S, Tk, H, K,
-                                          causal, window, st);
-  if (dtype == 1 && D == 64)
-    return (int)launch_wgmma(q, k, v, out, B, S, Tk, H, K, causal, window,
-                             st);
   if (dtype == 0 && D == 80)
     return (int)launch<float, 80>(q, k, v, out, B, S, Tk, H, K, causal,
                                   window, st);
   if (dtype == 0 && D == 128)
     return (int)launch<float, 128>(q, k, v, out, B, S, Tk, H, K, causal,
                                    window, st);
-  if (dtype == 1 && D == 80)
-    return (int)launch<__nv_bfloat16, 80>(q, k, v, out, B, S, Tk, H, K,
+  if (dtype == 1 && D == 32)
+    return (int)launch<__nv_bfloat16, 32>(q, k, v, out, B, S, Tk, H, K,
                                           causal, window, st);
+  if (dtype == 1 && D == 64)
+    return (int)launch_wgmma<64>(q, k, v, out, B, S, Tk, H, K, causal,
+                                 window, st);
+  if (dtype == 1 && D == 80)
+    return (int)launch_wgmma<80>(q, k, v, out, B, S, Tk, H, K, causal,
+                                 window, st);
   if (dtype == 1 && D == 128)
-    return (int)launch<__nv_bfloat16, 128>(q, k, v, out, B, S, Tk, H, K,
-                                           causal, window, st);
+    return (int)launch_wgmma<128>(q, k, v, out, B, S, Tk, H, K, causal,
+                                  window, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of the bf16 tensor-core instance at head dim D (64, 80 or 128)
+// that one SM of the current device holds at once; -1 for another D or a
+// CUDA error.
+extern "C" int flash_attention_wgmma_blocks_per_sm(int D) {
+  if (D == 64) return wgmma_blocks_per_sm<64>();
+  if (D == 80) return wgmma_blocks_per_sm<80>();
+  if (D == 128) return wgmma_blocks_per_sm<128>();
+  return -1;
 }

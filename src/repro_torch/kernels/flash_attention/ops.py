@@ -15,9 +15,9 @@ q's dtype.
   CUDA kernel (``csrc/flash_attention.cu``) for CUDA tensors.
   ``flash_attention.launches`` counts kernel launches, and
   ``flash_attention.instance_launches`` splits them by the kernel's two
-  instances: ``"wgmma"`` (bf16 with head_dim 64, both products on the
-  tensor cores) and ``"fma"`` (f32, and bf16 with head_dim 32, 80 or 128,
-  on the CUDA cores).
+  instances: ``"wgmma"`` (bf16 with head_dim 64, 80 or 128, both
+  products on the tensor cores) and ``"fma"`` (f32, and bf16 with
+  head_dim 32, on the CUDA cores).
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ __all__ = ["flash_attention", "flash_attention_plain", "instance",
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 80, 128)   # the C dispatch's
+_TENSOR_CORE_HEAD_DIMS = (64, 80, 128)   # bf16 on the wgmma instance
 
 
 def _mask(s: int, t: int, causal: bool, window, device) -> torch.Tensor:
@@ -105,7 +106,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def instance(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel instance that a launch on these inputs runs (the dispatch
     of ``flash_attention_launch``)."""
-    return "wgmma" if dtype == torch.bfloat16 and head_dim == 64 else "fma"
+    return ("wgmma" if dtype == torch.bfloat16
+            and head_dim in _TENSOR_CORE_HEAD_DIMS else "fma")
 
 
 flash_attention.launches = 0

@@ -556,11 +556,19 @@ def test_flash_head_dims_match_the_kernel_dispatch():
     pairs = set(re.findall(r"dtype == (\d) && D == (\d+)", body))
     assert pairs == {(dt, str(d)) for dt in "01" for d in _HEAD_DIMS}
     assert [d for d in _HEAD_DIMS if d not in (32, 64)] == [80, 128]
-    # the dense configs' dims run on the CUDA-core instance
+    # bf16 at the dense configs' dims (and hymba's 64) runs the tensor-core
+    # instance, f32 the CUDA-core one, as the source's dispatch says
     import torch
+    wgmma = re.findall(r"dtype == 1 && D == (\d+)\)\s*return \(int\)"
+                       r"launch_wgmma<(\d+)>", body)
+    assert sorted((int(a), int(b)) for a, b in wgmma) == sorted(
+        (d, d) for d in chip_smoke.WGMMA_HEAD_DIMS)
+    for d in _HEAD_DIMS:
+        want = "wgmma" if d in chip_smoke.WGMMA_HEAD_DIMS else "fma"
+        assert instance(torch.bfloat16, d) == want
+        assert instance(torch.float32, d) == "fma"
     for d in (80, 128):
-        assert instance(torch.bfloat16, d) == instance(torch.float32, d) \
-            == "fma"
+        assert instance(torch.bfloat16, d) == "wgmma"
 
 
 def test_serve_dense_configs_are_the_reference_configs():
@@ -594,6 +602,49 @@ def test_serve_dense_configs_are_the_reference_configs():
             assert windows[0] is None
             assert all(w is None for w in layer_windows(
                 get_config(label))) == (len(windows) == 1)
+
+
+def test_flash_edge_rows_reach_the_tensor_core_instance_edges():
+    import torch
+
+    from repro.configs import get_config as ref_get_config
+    from repro_torch.kernels.flash_attention.ops import instance
+
+    dims = {}
+    for label, b, s, h, k, d, windows in chip_smoke.DENSE_FLASH_EDGES:
+        # a dense config's (H, K, D), on the tensor-core instance in bf16
+        assert any((h, k, d) == (r.num_heads, r.num_kv_heads,
+                                 r.resolved_head_dim)
+                   for r in map(ref_get_config,
+                                (row[0] for row in chip_smoke.DENSE_FLASH)))
+        assert instance(torch.bfloat16, d) == "wgmma"
+        assert windows[0] is None and len(windows) == 2
+        dims.setdefault(label, set()).add(d)
+        if label == "window40":
+            # under one 64-key tile: whole tiles skipped per warpgroup
+            assert windows[1] < 64 and s % 128 == 0
+        else:
+            # no tile size divides the ragged length
+            assert s == 1528 and s % 64 and windows[1] == 1024
+    assert dims == {"window40": {80, 128}, "ragged": {80}}
+
+
+def test_build_requirements_name_the_instances():
+    # every tensor-core flash instance is held to no spills by the build
+    # phase; the CUDA-core instances it must find are the dense configs'
+    # f32 flash and bf16 decode ones, and glm4-9b's decode may not spill
+    assert sorted(chip_smoke.WGMMA_HEAD_DIMS) == [64, 80, 128]
+    assert ("flash", "f32", 128) in chip_smoke.DENSE_INSTANCES
+    assert ("flash", "f32", 80) in chip_smoke.DENSE_INSTANCES
+    assert not any(dt == "bf16" and kind == "flash"
+                   for kind, dt, _ in chip_smoke.DENSE_INSTANCES)
+    assert chip_smoke.DENSE_NO_SPILL == (("decode", "bf16", 8),)
+    assert set(chip_smoke.DENSE_NO_SPILL) <= set(chip_smoke.DENSE_INSTANCES)
+    assert chip_smoke._wgmma_instance(
+        "_ZN12_GLOBAL__N_128flash_attention_wgmma_kernelILi80EEEvPK13"
+        "__nv_bfloat16") == ("flash", "bf16", 80)
+    assert chip_smoke._attention_instance(
+        "_ZN12_GLOBAL__N_128flash_attention_wgmma_kernelILi80EEEv") is None
 
 
 # ------------------------------------------------------- the pure-SSM slice

@@ -113,11 +113,12 @@ def test_cpu_tensors_run_the_plain_version():
 @pytest.mark.parametrize("dtype,d,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 32, "fma"),
     (torch.float32, 64, "fma"), (torch.float32, 32, "fma"),
-    (torch.bfloat16, 80, "fma"), (torch.bfloat16, 128, "fma"),
+    (torch.bfloat16, 80, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.float32, 80, "fma"), (torch.float32, 128, "fma")])
 def test_instance_follows_the_kernel_dispatch(dtype, d, want):
-    # flash_attention_launch sends bf16 with head_dim 64 to the tensor-core
-    # instance and everything else to the CUDA-core one
+    # flash_attention_launch sends bf16 with head_dim 64, 80 or 128 to the
+    # tensor-core instance and f32, and bf16 at head_dim 32, to the
+    # CUDA-core one
     assert instance(dtype, d) == want
     assert set(flash_attention.instance_launches) == {"wgmma", "fma"}
 
@@ -135,11 +136,13 @@ def test_wrapper_rejects_bad_inputs():
         flash_attention(q, k, v, window=0)
 
 
-# The bf16 D-64 CUDA instance runs both products on the tensor cores
-# (csrc/flash_attention.cu, flash_attention_wgmma_kernel): scores in fp32
-# from bf16 q and k, an online softmax over 64-key tiles, and P V with the
-# fp32 softmax weights split as P = bf16(P) + bf16(P - bf16(P)), two bf16
-# products summed in fp32.  The card check (chip_smoke.py) holds a bf16
+# The bf16 CUDA instance at D 64, 80 and 128 runs both products on the
+# tensor cores (csrc/flash_attention.cu, flash_attention_wgmma_kernel<D>):
+# scores in fp32 from bf16 q and k, an online softmax over 64-key tiles,
+# and P V with the fp32 softmax weights split as P = bf16(P) +
+# bf16(P - bf16(P)), two bf16 products summed in fp32.  At D 80 it pads
+# q, k and v with zero columns to 128 in shared memory and scales by the
+# real 80^-0.5.  The card check (chip_smoke.py) holds a bf16
 # output to one bf16 ulp of the plain version (rtol 2^-7, atol 1e-5) with
 # at most 1% of the elements differing.  This emulates that arithmetic on
 # the CPU and shows that the split meets the rule and a single bf16 P does
@@ -149,13 +152,22 @@ BF16_DIFF_SHARE = 0.01
 TILE = 64
 
 
-def _emulate_tensor_core_kernel(q, k, v, *, window, weights):
+def _emulate_tensor_core_kernel(q, k, v, *, window, weights, pad_to=None,
+                                scale_dim=None):
     """q (B, S, H, D), k / v (B, T, K, D) bf16 -> bf16, causal, 64-key
     tiles from key 0, with the softmax weights P of the PV product kept in
     fp32 (``weights="fp32"``, the CUDA-core instance), split hi/lo in bf16
     (``"split"``, the tensor-core instance) or rounded once to bf16
     (``"bf16"``).  A tile that the mask removes for a row leaves that row's
-    state as it was, so running every tile is the kernel's skipping loop."""
+    state as it was, so running every tile is the kernel's skipping loop.
+    ``pad_to`` zero-pads q, k and v to that many columns, as the kernel's
+    shared-memory tiles do at D 80, and drops the pad from the output; the
+    scores are scaled by ``scale_dim ** -0.5``, the real D unless given."""
+    d_real = q.shape[3]
+    scale = (scale_dim or d_real) ** -0.5
+    if pad_to is not None:
+        q, k, v = (torch.nn.functional.pad(x, (0, pad_to - d_real))
+                   for x in (q, k, v))
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     qf = q.float().transpose(1, 2)                                # (B, H, S, D)
@@ -170,7 +182,7 @@ def _emulate_tensor_core_kernel(q, k, v, *, window, weights):
         ok = kpos <= qpos
         if window is not None:
             ok &= kpos > qpos - window
-        sc = torch.matmul(qf, kf[:, :, t0:t0 + TILE].transpose(2, 3)) * d ** -0.5
+        sc = torch.matmul(qf, kf[:, :, t0:t0 + TILE].transpose(2, 3)) * scale
         sc = torch.where(ok, sc, torch.full_like(sc, NEG_INF))
         m_new = torch.maximum(m, sc.amax(-1, keepdim=True)).clamp_min(-1e4)
         corr = torch.exp(m - m_new)
@@ -187,7 +199,7 @@ def _emulate_tensor_core_kernel(q, k, v, *, window, weights):
         acc = acc * corr + pv
         m = m_new
     out = acc / l.clamp_min(1e-30)
-    return out.transpose(1, 2).bfloat16()
+    return out[..., :d_real].transpose(1, 2).bfloat16()
 
 
 def _bf16_rule(got, want):
@@ -197,16 +209,28 @@ def _bf16_rule(got, want):
     return close, float((got != want).float().mean())
 
 
-@pytest.mark.parametrize("s,window", [(512, None), (512, 128),
-                                      (2048, None), (2048, 1024)])
-def test_split_softmax_weights_meet_the_card_bf16_rule(s, window):
+@pytest.mark.parametrize("s,window,h,d", [
+    pytest.param(512, None, 5, 64, id="512-None"),
+    pytest.param(512, 128, 5, 64, id="512-128"),
+    pytest.param(2048, None, 5, 64, id="2048-None"),
+    pytest.param(2048, 1024, 5, 64, id="2048-1024"),
+    # the dense head dims: D 128 at G 16 (glm4-9b's); D 80 (danube's)
+    # global, at its serve-dense-check window and under one 64-key tile,
+    # each through the kernel's zero pad to 128 columns
+    pytest.param(1024, None, 16, 128, id="1024-None-G16-D128"),
+    pytest.param(1024, None, 4, 80, id="1024-None-D80"),
+    pytest.param(2048, 1024, 4, 80, id="2048-1024-D80"),
+    pytest.param(1024, 40, 4, 80, id="1024-40-D80"),
+])
+def test_split_softmax_weights_meet_the_card_bf16_rule(s, window, h, d):
     q, k, v = (torch.from_numpy(a).bfloat16()
-               for a in _inputs(1, 5, 1, s, s, 64, seed=21))
+               for a in _inputs(1, h, 1, s, s, d, seed=21))
     want = flash_attention_plain(q, k, v, window=window)
+    pad_to = 128 if d == 80 else None
     shares = {}
     for weights in ("fp32", "split", "bf16"):
         got = _emulate_tensor_core_kernel(q, k, v, window=window,
-                                          weights=weights)
+                                          weights=weights, pad_to=pad_to)
         close, shares[weights] = _bf16_rule(got, want)
         if weights != "bf16":
             assert close, (weights, float((got.float() - want.float())
@@ -217,3 +241,23 @@ def test_split_softmax_weights_meet_the_card_bf16_rule(s, window):
     assert shares["bf16"] > 10 * shares["split"], shares
     print(f"S={s} window={window} share of differing bf16 outputs: "
           f"{shares}")
+
+
+@pytest.mark.parametrize("window", [None, 40])
+def test_padded_head_dim_needs_the_real_scale(window):
+    # D 80 runs on 128-column tiles: the zero pad leaves every score as it
+    # is, so padding meets the card's bf16 rule with the real 80^-0.5, and
+    # the rule sees the trap of scaling by the padded 128^-0.5
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _inputs(1, 4, 2, 512, 512, 80, seed=22))
+    want = flash_attention_plain(q, k, v, window=window)
+    padded = _emulate_tensor_core_kernel(q, k, v, window=window,
+                                         weights="split", pad_to=128)
+    assert padded.shape == want.shape
+    close, share = _bf16_rule(padded, want)
+    assert close and share <= BF16_DIFF_SHARE, share
+    wrong = _emulate_tensor_core_kernel(q, k, v, window=window,
+                                        weights="split", pad_to=128,
+                                        scale_dim=128)
+    close, share = _bf16_rule(wrong, want)
+    assert not close and share > BF16_DIFF_SHARE, share

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the placement pipeline,
 the hymba-1.5b serving path, the dense-GQA serving path (glm4-9b,
-olmo-1b, h2o-danube-1.8b, nemotron-4-15b) and the pure-SSM serving path
-(mamba2-2.7b).
+olmo-1b, h2o-danube-1.8b, nemotron-4-15b), the pure-SSM serving path
+(mamba2-2.7b) and the MoE serving path (qwen3-moe-30b-a3b).
 
     python3 chip_smoke.py                      # every phase, as CI runs it
     python3 chip_smoke.py --phases build,kernels
@@ -81,7 +81,11 @@ Phases, each printed on a line of its own:
                  wrapped ring with empty slots and per-row q_pos; G 16 in
                  two head groups, 6, 4 with window 40, 1) and at G 2, 3,
                  7, 9, 10 and 12; the serving rows add ``device_ms`` and
-                 SDPA's ``library_ms`` / ``library_device_ms``.  Every
+                 SDPA's ``library_ms`` / ``library_device_ms``.  The MoE
+                 config likewise, in bf16: flash_attention at its prefill
+                 (``MOE_FLASH``: B 8, S = T 2048, H 32 / K 4, D 128) and
+                 decode_attention at its serving cache (``MOE_DECODE``:
+                 G 8, one head group).  Every
                  flash and every decode instance the build made must run
                  in some row, and the wrapper's head groups must be the
                  source's.
@@ -190,7 +194,30 @@ Phases, each printed on a line of its own:
                  TF32 off, prompt 1536, prefill 1528, held as serve-check
                  holds hymba (``ssd_scan`` patched to its plain version on
                  the plain route).
-14. health     — ``Simulator(40, 50).run_online`` of fig6's paper default
+14. serve-moe  — ``repro_torch.launch.serve`` on qwen3-moe-30b-a3b at full
+                 width and depth (48 layers, 32 / 4 heads of 128, 128
+                 experts top-8 of d_ff 768; bf16, random weights from
+                 seed 0 created on the card, ~61 GB; every earlier model
+                 freed first) with serve's traffic and the identity
+                 expert dispatch; finite logits of shape (8, vocab),
+                 prefill tokens/s, decode ms/step, peak memory, each
+                 batch's prefill ``drop_frac`` summed over the layers,
+                 launches 48 x 2 (flash, every one on the tensor-core
+                 instance) and 48 x 64 x 2 (decode), no ssd_scan; then
+                 the reference serve CLI's expert refit (LMBR on a seed-1
+                 routing trace, 4 EP ranks of 34 slots) fitted on the
+                 card, whose spans must be the reference's
+                 (``MOE_REFIT``).
+15. serve-moe-check — qwen3-moe-30b-a3b at full width and 4 layers in f32
+                 with TF32 off, prompt 1536, prefill 1528, at capacity
+                 factor E / top_k = 16 (no token can drop), held as
+                 serve-check holds hymba; besides, every MoE call of the
+                 two routes must pick the same top-k expert set for every
+                 token and drop nothing, and the forward under the
+                 refit's replicated ``dispatch_from_plan`` dispatch (136
+                 slots) on the same per-expert weights must come within
+                 1e-3 of the identity dispatch's logits.
+16. health     — ``Simulator(40, 50).run_online`` of fig6's paper default
                  (lmbr ``max_moves=120``) under the flags-built
                  ``HealthMonitor`` (``HEALTH_VARIANT``: snapshots every 100
                  queries, window 4, skew SLO 3.0), with a storm (partitions
@@ -204,7 +231,7 @@ Phases, each printed on a line of its own:
                  The storm fires and resolves degraded_rate, and the same
                  storm unmonitored serves the same spans, access load and
                  member; the clean replay fires nothing.
-15. scale      — the cluster-scale pipeline at bench_scale's sizes:
+17. scale      — the cluster-scale pipeline at bench_scale's sizes:
                  ``web_scale_chunks(seed=0)`` (100 000 items, 1 000 000
                  queries) through ``StreamingHypergraphBuilder``, plain and
                  with duplicates merged (host only); the sharded lmbr fits
@@ -223,8 +250,8 @@ Phases, each printed on a line of its own:
 
 ``--profile`` runs each fit once more under torch.profiler and the
 package's tracer, and one serving batch (prefill, 8 decode steps) of
-hymba-1.5b (serve), glm4-9b (serve-dense) and mamba2-2.7b (serve-ssm)
-under torch.profiler,
+hymba-1.5b (serve), glm4-9b (serve-dense), mamba2-2.7b (serve-ssm) and
+qwen3-moe-30b-a3b (serve-moe) under torch.profiler,
 and prints where the time goes (for the fits also
 lockstep_peel's device time per launch and per peel round and
 cover_rounds' device time per launch; for
@@ -262,8 +289,8 @@ TF32_OPS_PER_S = 495e12      # H100 SXM dense tf32 tensor cores, data sheet
 BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores, data sheet
 PHASES = ("build", "kernels", "fit-stress", "fit-paper", "paper-algos",
           "placement-api", "online", "serve", "serve-check", "serve-dense",
-          "serve-dense-check", "serve-ssm", "serve-ssm-check", "health",
-          "scale")
+          "serve-dense-check", "serve-ssm", "serve-ssm-check", "serve-moe",
+          "serve-moe-check", "health", "scale")
 PAPER_NODES = 69429          # ibm10, the largest fig9 circuit
 # paper-algos: the workloads (generator, arguments) and the runs (workload,
 # partitions, capacity, algorithm, extra arguments, avg_span of the JAX
@@ -1377,12 +1404,18 @@ DENSE_DECODE = (
 # decode's other group sizes (D 64, small): every block instance G 1..8
 # runs in some row, and G 9, 10 and 12 take 3, 2 and 2 head groups
 DECODE_GROUPS = (2, 3, 7, 9, 10, 12)
+# the MoE config's prefill (B 8, S = T 2048) and decode over the serving
+# cache (B 8, T 2112), bf16: label, H, K, D, windows (G 8, one head group)
+MOE_FLASH = (("qwen3-moe-30b-a3b", 32, 4, 128, (None,)),)
+MOE_DECODE = (("qwen3-moe-30b-a3b", 32, 4, 128, (None,)),)
 
 
-def _decode_dense_rows(torch, dev, dtype, peak):
-    """decode_attention at the dense configs' serving cache (B 8, T 2112)
-    over a wrapped ring buffer with empty slots and per-row q_pos, checked
-    and timed beside SDPA; then the ``DECODE_GROUPS`` rows, checked."""
+def _decode_dense_rows(torch, dev, dtype, peak, table=DENSE_DECODE,
+                       groups=DECODE_GROUPS):
+    """decode_attention at a serving cache (B 8, T 2112; ``table``: the
+    dense configs') over a wrapped ring buffer with empty slots and per-row
+    q_pos, checked and timed beside SDPA; then the ``groups`` rows,
+    checked."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention.ops import (
@@ -1394,9 +1427,9 @@ def _decode_dense_rows(torch, dev, dtype, peak):
     tag = "bf16" if dtype == torch.bfloat16 else "f32"
     Bs, Ts = SERVE["batch"], SERVE["prefill_len"] + SERVE["decode_len"]
     cases = ([(label, Bs, H, K, D, Ts, windows, True)
-              for label, H, K, D, windows in DENSE_DECODE]
+              for label, H, K, D, windows in table]
              + [(f"G{g}", 2, 2 * g, 2, 64, 300, (None,), False)
-                for g in DECODE_GROUPS])
+                for g in groups])
     rows = []
     for label, B, H, K, D, T, windows, timed in cases:
         def randn(*shape):
@@ -1678,6 +1711,11 @@ def phase_model_kernels(np, torch, dev):
         rows["flash_attention"] += _flash_rows(
             torch, randn_ragged, dev, dtype, peak, 2, 777, 4, 4, 32,
             windows=(None, 40), label="D32.")
+        # the MoE config's prefill, bf16 on the tensor-core instance
+        for label, dh, dk, dd, windows in MOE_FLASH if tag == "bf16" else ():
+            rows["flash_attention"] += _flash_rows(
+                torch, randn, dev, dtype, peak, B, S, dh, dk, dd,
+                windows=windows, label=label + ".")
 
         # decode_attention: one step in the middle of decode (2080 of the
         # 2112 slots filled), global and window-1024 layers
@@ -1733,6 +1771,9 @@ def phase_model_kernels(np, torch, dev):
         rows["decode_attention"] += _decode_domain_rows(torch, dev, dtype)
         rows["decode_attention"] += _decode_dense_rows(torch, dev, dtype,
                                                        peak)
+        if tag == "bf16":
+            rows["decode_attention"] += _decode_dense_rows(
+                torch, dev, dtype, peak, MOE_DECODE, ())
 
         # ssd_scan: prefill of the SSM branch from a nonzero state, then
         # the domain rows
@@ -1877,7 +1918,9 @@ def phase_serve_profile(np, torch, dev, arch="hymba-1.5b"):
     groups = (("flash_attention", ("flash_attention",)),
               ("decode_attention", ("decode_attention",)),
               ("ssd_scan", ("ssd_scan",)),
-              ("gemm", ("gemm", "gemv", "nvjet", "xmma", "cutlass")))
+              ("gemm", ("gemm", "gemv", "nvjet", "xmma", "cutlass")),
+              ("sort", ("sort", "radix")),
+              ("gather/scatter", ("index", "gather", "scatter")))
     for label, fn in (("prefill", run_prefill), ("decode x8", run_decode)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1945,18 +1988,24 @@ def _route_run(torch, cfg, params, tokens, n_prefill):
 
 
 def _hold_routes(torch, kernels, label, cfg, params, tokens, n_prefill,
-                 patched):
+                 patched, on_route=None):
     """``_route_run`` on the kernel route, then on the plain route with
     each (module, name, plain version) of ``patched`` swapped in: no
     launch on the plain route, the routes' logits within 1e-3, and
     teacher-forced decode after prefill within 2e-3 of the cache-free
-    forward, all finite.  Returns the kernel route's launches and ssd
-    launches by chunk run, both max|diff|s and the largest |logit|."""
+    forward, all finite.  ``on_route("kernel")`` / ``on_route("plain")``,
+    if given, runs before each route.  Returns the kernel route's
+    launches, ssd launches by chunk run and cache-free logits, both
+    max|diff|s and the largest |logit|."""
+    if on_route is not None:
+        on_route("kernel")
     _zero_counts(kernels)
     kern = _route_run(torch, cfg, params, tokens, n_prefill)
     launches = _counts(kernels)
     chunks = dict(kernels["ssd_scan"].chunk_launches)
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+    if on_route is not None:
+        on_route("plain")
     _zero_counts(kernels)
     try:
         for mod, name, fn in patched:
@@ -1979,7 +2028,7 @@ def _hold_routes(torch, kernels, label, cfg, params, tokens, n_prefill,
     _require(all(bool(torch.isfinite(t).all()) for t in kern),
              f"{label}: non-finite logits")
     return dict(launches=launches, chunk_launches=chunks,
-                route_err=route_err, tf_err=tf_err,
+                route_err=route_err, tf_err=tf_err, full=full,
                 max_abs_logit=float(full.abs().max()))
 
 
@@ -2191,6 +2240,199 @@ def phase_serve_ssm_check(np, torch, kernels, dev):
           f"f32 tf32=off batch={B} {_routes_line(held, n_prefill, S)} "
           f"ssd_scan_chunk_launches={held['chunk_launches']}", flush=True)
     del params, held
+    torch.cuda.empty_cache()
+
+
+# serve-moe: qwen3-moe-30b-a3b as published with serve's traffic and the
+# identity expert dispatch; serve-moe-check: the same widths at 4 layers in
+# f32.  MOE_REFIT: the reference serve CLI's refit of qwen3's 128 experts
+# (``launch/serve.py`` ``expert_refit``: 4 EP ranks of 34 slots), the
+# contiguous layout's and LMBR's avg span, pinned by a CPU test
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_CHECK_LAYERS = 4
+MOE_REFIT = (3.565, 2.21)
+
+
+def phase_serve_moe(torch, kernels, dev):
+    """qwen3-moe-30b-a3b through ``repro_torch.launch.serve`` at full width
+    and depth (48 layers, 128 experts top-8; bf16, random weights from seed
+    0, created on the card) with serve's traffic (16 requests in batches of
+    8, prompt 2048, 64 greedy decode steps) and the identity dispatch:
+    every flash launch on the tensor-core instance, no ssd_scan.  Prints
+    each batch's prefill ``drop_frac`` summed over the layers and the
+    serve-time expert refit, whose spans must be the reference's
+    (``MOE_REFIT``).  Every earlier model is freed first: the weights take
+    ~61 GB of the card.  Returns the launches."""
+    import gc
+
+    from repro_torch.launch.serve import expert_refit, refit_line
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    cfg, params, init_s, nparams = _load_timed(torch, MOE_ARCH, dev)
+    res = _measured_serve(torch, kernels, "serve-moe", cfg, params,
+                          SERVE["requests"], SERVE["decode_len"])
+    launches = res["launches"]
+    flash_instances = dict(kernels["flash_attention"].instance_launches)
+    L, nb = cfg.num_layers, res["batches"]
+    want = {"flash_attention": L * nb,
+            "decode_attention": L * SERVE["decode_len"] * nb, "ssd_scan": 0}
+    _require_launches("serve-moe", launches, want)
+    _require(flash_instances == {"wgmma": L * nb, "fma": 0},
+             f"serve-moe: flash_attention instances {flash_instances}, want "
+             "every launch on the tensor-core (wgmma) instance")
+    drops = res["prefill_drop_frac"]
+    _require(len(drops) == nb and all(math.isfinite(x) for x in drops),
+             f"serve-moe: prefill drop_frac {drops}")
+    line = _serve_line(res)
+    del params, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    base_span, plan_span, _ = expert_refit(cfg, device=dev)
+    refit_s = time.perf_counter() - t0
+    _require((base_span, plan_span) == MOE_REFIT,
+             f"serve-moe: refit spans {(base_span, plan_span)}, want the "
+             f"reference's {MOE_REFIT}")
+    m = cfg.moe
+    print(f"serve-moe: {MOE_ARCH} layers={L} d_model={cfg.d_model} "
+          f"heads={cfg.num_heads}/{cfg.num_kv_heads} "
+          f"head_dim={cfg.resolved_head_dim} experts={m.num_experts} "
+          f"top_k={m.top_k} d_ff_expert={m.d_ff_expert} "
+          f"capacity_factor={m.capacity_factor} vocab={cfg.vocab_size} "
+          f"params={nparams} bf16 held_before_gb={held_gb:.3f} "
+          f"init_s={init_s:.2f} requests={SERVE['requests']} "
+          f"batch={SERVE['batch']} {line} "
+          f"prefill_drop_frac_sum_over_layers={drops} "
+          f"launches={ {n: launches[n] for n in want} } "
+          f"flash_attention_instances={flash_instances}", flush=True)
+    print(f"serve-moe: {refit_line(base_span, plan_span)} "
+          f"(reference {MOE_REFIT[0]} -> {MOE_REFIT[1]}; fit on the card in "
+          f"{refit_s:.3f} s) phase_s={time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return dict(launches=launches)
+
+
+def _slotted(params, dispatch):
+    """``params`` with every MoE layer's expert weights gathered to the
+    slots of ``dispatch`` (the same per-expert weights, replicas
+    included)."""
+    import torch
+
+    s2e = torch.as_tensor(dispatch.slot_to_expert, dtype=torch.int64,
+                          device=params["embed"]["table"].device)
+    return dict(params, blocks=[
+        dict(p, moe={k: (v[s2e] if k.startswith("we_") else v)
+                     for k, v in p["moe"].items()}) if "moe" in p else p
+        for p in params["blocks"]])
+
+
+def phase_serve_moe_check(np, torch, kernels, dev):
+    """qwen3-moe-30b-a3b at full width and 4 layers in f32 with TF32 off,
+    batch 2, prompt 1536, prefill 1528, at capacity factor E / top_k (16),
+    where a slot takes every token, so nothing drops: the kernel route
+    against the plain route on the card (logits within 1e-3), teacher-
+    forced decode after prefill against the cache-free forward (within
+    2e-3), no launch on the plain route, every MoE call of both routes
+    choosing the same top-k expert set for every token (0 tokens differ)
+    and dropping nothing.  Then the cache-free forward once more under the
+    refit's ``dispatch_from_plan`` dispatch (4 ranks of E // 4 + 2 slots,
+    replicas) on the same per-expert weights gathered to its slots, at
+    capacity factor slots / top_k: within 1e-3 of the identity dispatch's
+    logits, nothing dropped."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention.ops import decode_attention_plain
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    from repro_torch.launch.serve import expert_refit, load_model
+    from repro_torch.models import attention, dispatch_from_plan, forward, moe
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pub = get_config(MOE_ARCH).moe
+    cf = pub.num_experts / pub.top_k
+    cfg, params = load_model(
+        MOE_ARCH, device=dev, seed=1, num_layers=MOE_CHECK_LAYERS,
+        dtype="float32", moe=dataclasses.replace(pub, capacity_factor=cf))
+    B, S, n_prefill = 2, 1536, 1528
+    rng = np.random.default_rng(8)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
+    # every MoE call's top-k sets (sorted) and dropped count, by route
+    calls = {"kernel": [], "plain": []}
+    state = {}
+    route_fn = moe.route
+
+    def recording_route(*a, **kw):
+        r = route_fn(*a, **kw)
+        calls[state["route"]].append(
+            (r["top_e"].sort(-1).values, (~r["keep"]).sum()))
+        return r
+
+    def on_route(name):
+        state["route"] = name
+
+    moe.route = recording_route
+    try:
+        held = _hold_routes(
+            torch, kernels, "serve-moe-check", cfg, params, tokens,
+            n_prefill,
+            [(attention, "flash_attention", flash_attention_plain),
+             (attention, "decode_attention", decode_attention_plain)],
+            on_route=on_route)
+    finally:
+        moe.route = route_fn
+    launches = held["launches"]
+    _require(launches["flash_attention"] > 0
+             and launches["decode_attention"] > 0
+             and launches["ssd_scan"] == 0,
+             f"serve-moe-check: kernel route launches {launches}")
+    # forward and prefill: one call a layer each, then one a decode step
+    n_calls = cfg.num_layers * (2 + S - n_prefill)
+    _require(len(calls["kernel"]) == len(calls["plain"]) == n_calls,
+             f"serve-moe-check: MoE calls {len(calls['kernel'])} / "
+             f"{len(calls['plain'])}, want {n_calls}")
+    differ = sum(int((a != b).any(-1).sum())
+                 for (a, _), (b, _) in zip(calls["kernel"], calls["plain"]))
+    dropped = sum(int(d) for route in calls.values() for _, d in route)
+    _require(differ == 0, f"serve-moe-check: {differ} tokens choose other "
+             "experts on the kernel route than on the plain route")
+    _require(dropped == 0, f"serve-moe-check: {dropped} assignments "
+             f"dropped at capacity factor {cf}")
+    tokens_routed = sum(a.shape[0] for a, _ in calls["kernel"])
+    identity = held.pop("full")
+    del calls
+    # the refit's replicated dispatch on the same per-expert weights
+    _, _, plan = expert_refit(cfg, device=dev)
+    d = dispatch_from_plan(plan)
+    cfg_plan = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=d.num_slots / cfg.moe.top_k))
+    slotted = _slotted(params, d)
+    got, _, aux = forward(cfg_plan, slotted, tokens, moe_dispatch=d,
+                          return_aux=True)
+    torch.cuda.synchronize()
+    plan_err = _max_abs([got], [identity])
+    _require(_close(torch, [got], [identity], dict(rtol=1e-3, atol=1e-3)),
+             f"serve-moe-check: replicated dispatch vs identity max|diff| "
+             f"{plan_err}")
+    plan_drop = float(aux["drop_frac"])
+    _require(plan_drop == 0.0, f"serve-moe-check: the replicated dispatch "
+             f"dropped {plan_drop} (summed over layers)")
+    replicas = int(d.num_slots - len(set(d.slot_to_expert.tolist())))
+    print(f"serve-moe-check: {MOE_ARCH} full width, "
+          f"layers={cfg.num_layers} experts={cfg.moe.num_experts} "
+          f"top_k={cfg.moe.top_k} capacity_factor={cf} f32 tf32=off "
+          f"batch={B} {_routes_line(held, n_prefill, S)} "
+          f"moe_calls={n_calls} tokens_routed={tokens_routed} "
+          f"topk_sets_differ={differ} dropped={dropped} "
+          f"replicated_dispatch slots={d.num_slots} ranks={d.num_ranks} "
+          f"replicas={replicas} vs_identity_max_abs={plan_err:.3e} "
+          f"(tol 1e-3) drop_frac={plan_drop} "
+          f"phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    del params, slotted, held, identity, got
     torch.cuda.empty_cache()
 
 
@@ -3453,6 +3695,14 @@ def main(argv=None) -> int:
             phase_serve_profile(np, torch, dev, SSM_ARCH)
     if "serve-ssm-check" in phases:
         phase_serve_ssm_check(np, torch, kernels, dev)
+    if "serve-moe" in phases:
+        served = phase_serve_moe(torch, kernels, dev)
+        path_launches["serve-moe"] = {n: served["launches"][n]
+                                      for n in model_kernels}
+        if args.profile:
+            phase_serve_profile(np, torch, dev, MOE_ARCH)
+    if "serve-moe-check" in phases:
+        phase_serve_moe_check(np, torch, kernels, dev)
     if "health" in phases:
         health_runs = phase_health(np, torch, fit_kernels, health_inputs(np))
         path_launches["health"] = {

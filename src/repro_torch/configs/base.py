@@ -4,8 +4,8 @@ A copy of the JAX package's ``configs/base.py`` as plain data (the port
 keeps its own so that it imports nothing of the reference).  One file per
 ported architecture lives next to this module; each exposes
 ``CONFIG = ModelConfig(...)`` with the published numbers and registers
-itself.  ``MoEConfig`` and ``MLAConfig`` are carried as data only: the
-port's model stack raises on the families that need them.
+itself.  ``MLAConfig`` is carried as data only: the port's model stack
+raises on MLA (ROADMAP Queue 1 item 9.3).
 """
 
 from __future__ import annotations
@@ -152,21 +152,27 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 
 def get_config(name: str) -> ModelConfig:
-    if not _REGISTRY:
-        _load_all()
+    _load_all()
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
 def list_configs() -> list[str]:
-    if not _REGISTRY:
-        _load_all()
+    _load_all()
     return sorted(_REGISTRY)
 
 
+_loaded = False
+
+
 def _load_all():
-    # import every sibling config module so it registers itself
+    """Import every sibling config module once, so each registers itself
+    (an arch module imported on its own beforehand registers only its
+    own config)."""
+    global _loaded
+    if _loaded:
+        return
     import importlib
     import pkgutil
 
@@ -175,6 +181,7 @@ def _load_all():
     for m in pkgutil.iter_modules(pkg.__path__):
         if m.name != "base":
             importlib.import_module(f"{pkg.__name__}.{m.name}")
+    _loaded = True
 
 
 def reduce_config(cfg: ModelConfig, **overrides) -> ModelConfig:

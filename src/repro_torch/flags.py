@@ -64,6 +64,11 @@ Cluster-scale fits (``repro_torch.scale``):
   ``scale_workers`` (``scalew<n>``, >= 1; above 1 the shard fits run on
   spawned worker processes), ``scale_boundary_repair`` (``brepair<n>``:
   the LMBR move budget over the cross-shard edges; 0 turns it off).
+
+MoE (``repro_torch.models.moe``):
+
+* ``moe_cf`` (``cf<x>``): the capacity factor of ``apply_moe`` when the
+  caller passes none; ``None`` (the default) leaves the config's.
 """
 
 from __future__ import annotations
@@ -103,6 +108,7 @@ _DEFAULTS = dict(
     scale_shards=0,
     scale_workers=1,
     scale_boundary_repair=256,
+    moe_cf=None,
 )
 
 FLAGS = dict(_DEFAULTS)
@@ -118,6 +124,8 @@ def set_variant(spec: str):
     for part in filter(None, spec.split("+")):
         if part == "baseline":
             continue
+        elif part.startswith("cf"):
+            FLAGS["moe_cf"] = float(part[2:])
         elif part.startswith("spanth"):
             FLAGS["span_dispatch_threshold"] = int(part[len("spanth"):])
         elif part.startswith("spanroundth"):

@@ -4,8 +4,9 @@
         --requests 16 --batch 8 --prefill-len 2048 --decode-len 64
 
 ``--arch`` takes the ported architectures: hymba-1.5b (hybrid), the
-dense-GQA glm4-9b, olmo-1b, h2o-danube-1.8b and nemotron-4-15b, and the
-pure-SSM mamba2-2.7b (whose cache holds only the SSM state).  The
+dense-GQA glm4-9b, olmo-1b, h2o-danube-1.8b and nemotron-4-15b, the
+pure-SSM mamba2-2.7b (whose cache holds only the SSM state) and the MoE
+qwen3-moe-30b-a3b (served with the identity expert dispatch).  The
 reference driver (``repro.launch.serve``) with the same CLI plus
 ``--device`` (default "cuda"; raises without CUDA unless "cpu" is given):
 random prompts from ``numpy.random.default_rng(seed)``, one prefill per
@@ -13,8 +14,10 @@ batch of requests into a cache of ``prefill_len + decode_len`` slots,
 then ``decode_len`` greedy (argmax) steps; the last logits of every batch
 must be finite.  Weights are random, from the port's ``init_params`` with
 a seeded generator.  Prints tokens per second with the device's name.
-The MoE expert-placement refit of the reference waits with MoE (ROADMAP
-Queue 1 item 9.2).
+After an MoE arch it prints the reference's expert-placement refit: LMBR
+fitted to a synthetic routing trace (200 token groups, seed 1) on 4 EP
+ranks of ``E // 4 + 2`` slots, its avg span against the contiguous
+layout's (``expert_refit``).
 """
 
 from __future__ import annotations
@@ -28,9 +31,13 @@ import torch
 
 from .. import device as device_mod
 from ..configs import get_config, list_configs, reduce_config
+from ..core import (baseline_contiguous_placement, plan_expert_placement,
+                    synthetic_routing_trace)
 from ..models import decode_step, init_params, prefill
 
-__all__ = ["load_model", "serve", "main"]
+__all__ = ["load_model", "serve", "expert_refit", "refit_line", "main"]
+
+REFIT_RANKS = 4
 
 
 def load_model(arch: str, *, reduced: bool = False, device=None,
@@ -55,8 +62,10 @@ def _sync(dev: torch.device) -> None:
 def serve(cfg, params, *, requests: int = 16, prefill_len: int = 64,
           decode_len: int = 32, batch: int = 8, seed: int = 0) -> dict:
     """Serve ``requests`` random prompts in batches of ``batch``.  Returns
-    the counts and times (prefill and decode seconds, summed over batches)
-    and the last batch's final logits and generated tokens."""
+    the counts and times (prefill and decode seconds, summed over batches),
+    the last batch's final logits and generated tokens and, for an MoE
+    arch (served with the identity expert dispatch), each batch's prefill
+    ``drop_frac`` summed over the layers."""
     dev = params["embed"]["table"].device
     rng = np.random.default_rng(seed)
     max_len = prefill_len + decode_len
@@ -64,13 +73,16 @@ def serve(cfg, params, *, requests: int = 16, prefill_len: int = 64,
     prefill_s = decode_s = 0.0
     done_tokens = 0
     logits = generated = None
+    drops = []
     for _ in range(batches):
         tokens = torch.from_numpy(
             rng.integers(0, cfg.vocab_size, (batch, prefill_len))).to(dev)
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache = prefill(cfg, params, {"tokens": tokens},
-                                max_len=max_len)
+        logits, cache, aux = prefill(cfg, params, {"tokens": tokens},
+                                     max_len=max_len, return_aux=True)
+        if "drop_frac" in aux:
+            drops.append(aux["drop_frac"])
         tok = logits.argmax(-1)[:, None]
         _sync(dev)
         t1 = time.perf_counter()
@@ -93,7 +105,29 @@ def serve(cfg, params, *, requests: int = 16, prefill_len: int = 64,
                 prefill_len=prefill_len, decode_len=decode_len,
                 prefill_tokens=batches * batch * prefill_len,
                 decode_tokens=done_tokens, prefill_s=prefill_s,
-                decode_s=decode_s, logits=logits, generated=generated)
+                decode_s=decode_s, logits=logits, generated=generated,
+                prefill_drop_frac=[float(t) for t in drops])
+
+
+def expert_refit(cfg, device=None):
+    """The reference serve CLI's serve-time refit of an MoE arch: LMBR on a
+    synthetic routing trace (``cfg.moe.num_experts`` experts, 200 token
+    groups of ``top_k``, seed 1) over ``REFIT_RANKS`` EP ranks of ``E //
+    4 + 2`` slots, fitted on ``device``.  Returns (the contiguous layout's
+    avg span, the plan's avg span, the plan)."""
+    m = cfg.moe
+    trace = synthetic_routing_trace(m.num_experts, 200, top_k=m.top_k,
+                                    seed=1)
+    slots = m.num_experts // REFIT_RANKS + 2
+    plan = plan_expert_placement(trace, m.num_experts, REFIT_RANKS, slots,
+                                 algorithm="lmbr", device=device)
+    base = baseline_contiguous_placement(m.num_experts, REFIT_RANKS, slots)
+    return base.avg_span(trace), plan.avg_span(trace), plan
+
+
+def refit_line(base_span: float, plan_span: float) -> str:
+    return (f"expert placement refit: span {base_span:.2f} -> "
+            f"{plan_span:.2f} across {REFIT_RANKS} EP ranks")
 
 
 def main(argv=None) -> int:
@@ -120,6 +154,9 @@ def main(argv=None) -> int:
           f"tok/s, decode "
           f"{res['decode_s'] * 1e3 / (res['batches'] * args.decode_len):.2f} "
           "ms/step")
+    if cfg.moe:
+        base_span, plan_span, _ = expert_refit(cfg, device=dev)
+        print(refit_line(base_span, plan_span))
     return 0
 
 

@@ -1,5 +1,6 @@
-"""The model stack of the port: the serving path of the hybrid (hymba)
-and dense-GQA (glm4, olmo, h2o-danube, nemotron) families."""
+"""The model stack of the port: the serving path of the hybrid (hymba),
+dense-GQA (glm4, olmo, h2o-danube, nemotron), pure-SSM (mamba2) and MoE
+(qwen3-moe) families."""
 
 from .convert import params_from_jax  # noqa: F401
 from .model import (  # noqa: F401
@@ -10,3 +11,4 @@ from .model import (  # noqa: F401
     layer_windows,
     prefill,
 )
+from .moe import MoEDispatch, dispatch_from_plan, identity_dispatch  # noqa: F401

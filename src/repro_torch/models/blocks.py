@@ -4,6 +4,9 @@ Ported families (the reference's ``models/blocks.py``):
 
 * dense GQA (glm4, olmo, h2o-danube, nemotron): pre-norm GQA attention ->
   residual -> pre-norm MLP (SwiGLU or non-gated) -> residual;
+* MoE (qwen3-moe): the same with the MLP replaced by the MoE block
+  (``models/moe.py``) from layer ``first_k_dense`` on; the first
+  ``first_k_dense`` layers keep a dense MLP at ``d_ff``;
 * hybrid (hymba): pre-norm, then GQA attention AND mamba2 in PARALLEL on
   the same input, each path RMS-normalized, averaged, added to the
   residual, then the pre-norm SwiGLU FFN;
@@ -16,6 +19,7 @@ sub-item that holds them.
 from __future__ import annotations
 
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .layers import apply_mlp, apply_norm, init_mlp, init_norm
 
@@ -23,16 +27,16 @@ __all__ = ["init_block", "apply_block", "init_block_cache", "block_kind"]
 
 
 def block_kind(cfg) -> str:
-    """"hybrid", "ssm" or "dense" (GQA); raises on the families the port
-    does not run yet."""
+    """"hybrid", "ssm", "moe" or "dense" (both GQA); raises on the families
+    the port does not run yet."""
     if cfg.encoder_layers or cfg.frontend:
         item = "9.4: the encoder-decoder and VLM frontends"
-    elif cfg.moe:
-        item = "9.2: MoE"
     elif cfg.attention == "mla":
         item = "9.3: MLA"
     elif cfg.mtp_depth:
-        item = "9.2: multi-token prediction"
+        item = "9.5: multi-token prediction, with training"
+    elif cfg.moe:
+        return "moe"
     elif cfg.attention == "hybrid":
         return "hybrid"
     elif cfg.attention == "none":
@@ -41,18 +45,27 @@ def block_kind(cfg) -> str:
         return "dense"
     raise NotImplementedError(
         f"{cfg.name} ({cfg.family}, attention={cfg.attention!r}): only the "
-        "dense-GQA, hybrid GQA+mamba2 and pure-SSM blocks are ported; this "
-        f"family waits in ROADMAP Queue 1 item {item}")
+        "dense-GQA, MoE (GQA), hybrid GQA+mamba2 and pure-SSM blocks are "
+        f"ported; this family waits in ROADMAP Queue 1 item {item}")
 
 
-def init_block(gen, cfg, dtype, device=None) -> dict:
+def _is_moe_layer(cfg, layer_idx: int) -> bool:
+    return cfg.moe is not None and layer_idx >= cfg.moe.first_k_dense
+
+
+def init_block(gen, cfg, dtype, device=None, *, layer_idx: int = 0,
+               force_dense: bool = False, moe_dispatch=None) -> dict:
+    """One layer's parameters.  In an MoE config, layer ``layer_idx`` gets
+    the MoE block (slot-major under ``moe_dispatch``) unless it is one of
+    the first ``first_k_dense`` or ``force_dense`` is set; then a dense MLP
+    at ``cfg.d_ff``."""
     kind = block_kind(cfg)
     d = cfg.d_model
     p = {}
     if kind != "ssm":
         p["ln_attn"] = init_norm(cfg.norm, d, dtype, device)
         p["attn"] = attn.init_gqa(gen, cfg, dtype, device)
-    if kind != "dense":
+    if kind in ("hybrid", "ssm"):
         # the reference creates ln_ssm for every SSM-carrying block; only
         # the pure-SSM branch reads it
         p["ln_ssm"] = init_norm(cfg.norm, d, dtype, device)
@@ -62,19 +75,27 @@ def init_block(gen, cfg, dtype, device=None) -> dict:
         p["out_norm_ssm"] = init_norm("rmsnorm", d, dtype, device)
     if kind != "ssm":
         p["ln_mlp"] = init_norm(cfg.norm, d, dtype, device)
-        p["mlp"] = init_mlp(gen, cfg.mlp, d, cfg.d_ff, dtype, device)
+        if _is_moe_layer(cfg, layer_idx) and not force_dense:
+            p["moe"] = moe_mod.init_moe(gen, cfg, dtype, moe_dispatch,
+                                        device)
+        else:
+            p["mlp"] = init_mlp(gen, cfg.mlp, d, cfg.d_ff, dtype, device)
     return p
 
 
 def apply_block(params: dict, cfg, x, positions, *, window=None,
-                cache: dict | None = None):
-    """x (B, S, d), positions (B, S).  Returns (y, new_cache)."""
+                cache: dict | None = None, moe_dispatch=None):
+    """x (B, S, d), positions (B, S).  Returns (y, new_cache, aux): aux is
+    the MoE block's ``lb_loss``, ``z_loss`` and ``drop_frac`` in a layer
+    that has one, else empty."""
     kind = block_kind(cfg)
+    aux = {}
     if kind == "ssm":
         h = apply_norm(cfg.norm, params["ln_ssm"], x)
         s_out, c_ssm = ssm_mod.apply_mamba2(
             params["ssm"], cfg, h, cache=cache["ssm"] if cache else None)
-        return x + s_out, (dict(ssm=c_ssm) if cache is not None else None)
+        return (x + s_out, (dict(ssm=c_ssm) if cache is not None else None),
+                aux)
     h = apply_norm(cfg.norm, params["ln_attn"], x)
     a_out, c_attn = attn.gqa_attention(
         params["attn"], cfg, h, positions, window=window,
@@ -91,8 +112,11 @@ def apply_block(params: dict, cfg, x, positions, *, window=None,
     else:
         x = x + a_out
     h = apply_norm(cfg.norm, params["ln_mlp"], x)
-    x = x + apply_mlp(cfg.mlp, params["mlp"], h)
-    return x, new_cache
+    if "moe" in params:
+        m_out, aux = moe_mod.apply_moe(params["moe"], cfg, h, moe_dispatch)
+    else:
+        m_out = apply_mlp(cfg.mlp, params["mlp"], h)
+    return x + m_out, new_cache, aux
 
 
 def init_block_cache(cfg, batch: int, max_len: int, dtype, *, window=None,
@@ -102,6 +126,6 @@ def init_block_cache(cfg, batch: int, max_len: int, dtype, *, window=None,
     if kind != "ssm":
         c["attn"] = attn.init_gqa_cache(cfg, batch, max_len, dtype,
                                         window=window, device=device)
-    if kind != "dense":
+    if kind in ("hybrid", "ssm"):
         c["ssm"] = ssm_mod.init_ssm_cache(cfg, batch, dtype, device=device)
     return c

@@ -5,7 +5,10 @@ pytree with every leaf turned into a numpy array (the caller does
 ``jax.tree.map(np.asarray, params)``; nothing here imports JAX) and
 returns the port's parameters: the same nested dicts, with the
 layer-stacked ``blocks`` (leading axis = layer) split into a list of
-per-layer dicts.  Leaf dtypes are kept; a bfloat16 leaf (numpy's
+per-layer dicts.  An MoE config with ``first_k_dense`` > 0 also has the
+stacked ``dense_blocks`` group of its first layers: those come first in
+the list, then the ``num_layers - first_k_dense`` MoE layers of
+``blocks`` (``router``, ``we_gate``, ``we_up``, ``we_down``, ``shared``).  Leaf dtypes are kept; a bfloat16 leaf (numpy's
 ``ml_dtypes`` bfloat16) goes through float32, which holds it exactly.
 Empty groups (the non-parametric LayerNorm's ``{}``) stay empty.
 """
@@ -36,15 +39,20 @@ def _map(tree, fn):
 
 def params_from_jax(cfg, tree: dict, device=None) -> dict:
     dev = device_mod.resolve(device)
-    extra = set(tree) - {"embed", "unembed", "final_norm", "blocks"}
+    kd = cfg.moe.first_k_dense if cfg.moe else 0
+    groups = ["blocks", "dense_blocks"] if kd else ["blocks"]
+    extra = set(tree) - {"embed", "unembed", "final_norm", *groups}
     if extra:
         raise NotImplementedError(
             f"parameter groups {sorted(extra)} belong to families the port "
-            "does not run yet (ROADMAP Queue 1 item 9: MoE's dense_blocks "
-            "and mtp in 9.2, the encoder-decoder and VLM frontends' "
-            "enc_blocks and frontend_proj in 9.4)")
+            "does not run yet (ROADMAP Queue 1 item 9: dense_blocks only "
+            "with an MoE config's first_k_dense layers; mtp in 9.5, the "
+            "encoder-decoder and VLM frontends' enc_blocks and "
+            "frontend_proj in 9.4)")
     out = {k: _map(v, lambda a: _leaf(a, dev))
-           for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [_map(tree["blocks"], lambda a, i=i: _leaf(a[i], dev))
-                     for i in range(cfg.num_layers)]
+           for k, v in tree.items() if k not in groups}
+    out["blocks"] = [
+        _map(tree[g], lambda a, i=i: _leaf(a[i], dev))
+        for g, n in (("dense_blocks", kd), ("blocks", cfg.num_layers - kd))
+        for i in range(n)]
     return out

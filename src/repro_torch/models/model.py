@@ -7,7 +7,10 @@ its own cache (hymba's global layers and window layers may differ in
 shape), as the reference's unrolled serving path does; for the dense and
 pure-SSM families the reference scans over layer-stacked caches instead,
 which hold the same numbers slice by slice.  A tied-embedding model (olmo) has no
-``unembed`` group and unembeds with the embedding table.
+``unembed`` group and unembeds with the embedding table.  An MoE model's
+first ``first_k_dense`` layers are dense (the reference's
+``dense_blocks`` group, which runs before ``blocks``); every MoE entry
+point takes ``moe_dispatch`` (None: the identity dispatch).
 
 Cache layout: {"layers": [block cache per layer], "encoder": None}.
 """
@@ -41,9 +44,10 @@ def layer_windows(cfg) -> list:
     return out
 
 
-def init_params(cfg, seed: int = 0, device=None) -> dict:
+def init_params(cfg, seed: int = 0, device=None, moe_dispatch=None) -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``
-    (default "cuda"; raises without CUDA unless "cpu" is given)."""
+    (default "cuda"; raises without CUDA unless "cpu" is given); MoE
+    expert weights are stored by the slots of ``moe_dispatch``."""
     dev = device_mod.resolve(device)
     dtype = _torch_dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -52,8 +56,9 @@ def init_params(cfg, seed: int = 0, device=None) -> dict:
     if not cfg.tie_embeddings:
         p["unembed"] = init_embed(gen, cfg.vocab_size, cfg.d_model, dtype, dev)
     p["final_norm"] = init_norm(cfg.norm, cfg.d_model, dtype, dev)
-    p["blocks"] = [blocks.init_block(gen, cfg, dtype, dev)
-                   for _ in range(cfg.num_layers)]
+    p["blocks"] = [blocks.init_block(gen, cfg, dtype, dev, layer_idx=i,
+                                     moe_dispatch=moe_dispatch)
+                   for i in range(cfg.num_layers)]
     return p
 
 
@@ -78,50 +83,63 @@ def init_cache(cfg, batch: int, max_len: int, *, window_only: bool = False,
     return {"layers": layers, "encoder": None}
 
 
-def _hidden(cfg, params, tokens, positions, cache):
-    """Final-normed hidden states (B, S, d) and the updated cache."""
+def _hidden(cfg, params, tokens, positions, cache, moe_dispatch):
+    """Final-normed hidden states (B, S, d), the updated cache and the MoE
+    aux terms summed over the layers (0-d device tensors; empty without
+    MoE layers)."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
     x = embed_lookup(params["embed"], tokens)
-    new_layers = []
+    new_layers, aux = [], {}
     for i, w in enumerate(layer_windows(cfg)):
         lc = cache["layers"][i] if cache is not None else None
-        x, nc = blocks.apply_block(params["blocks"][i], cfg, x, positions,
-                                   window=w, cache=lc)
+        x, nc, a = blocks.apply_block(params["blocks"][i], cfg, x, positions,
+                                      window=w, cache=lc,
+                                      moe_dispatch=moe_dispatch)
         new_layers.append(nc)
+        for key, v in a.items():
+            aux[key] = aux[key] + v if key in aux else v
     h = apply_norm(cfg.norm, params["final_norm"], x)
     new_cache = ({"layers": new_layers, "encoder": None}
                  if cache is not None else None)
-    return h, new_cache
+    return h, new_cache, aux
 
 
 def _head(params):
     return params["unembed"] if "unembed" in params else params["embed"]
 
 
-def forward(cfg, params, tokens, *, positions=None, cache=None):
-    """Returns (logits fp32 (B, S, V), new_cache)."""
-    h, new_cache = _hidden(cfg, params, tokens, positions, cache)
-    return unembed(_head(params), h), new_cache
+def forward(cfg, params, tokens, *, positions=None, cache=None,
+            moe_dispatch=None, return_aux=False):
+    """Returns (logits fp32 (B, S, V), new_cache), and the summed MoE aux
+    terms third with ``return_aux``."""
+    h, new_cache, aux = _hidden(cfg, params, tokens, positions, cache,
+                                moe_dispatch)
+    logits = unembed(_head(params), h)
+    return (logits, new_cache, aux) if return_aux else (logits, new_cache)
 
 
-def prefill(cfg, params, batch, *, max_len=None):
+def prefill(cfg, params, batch, *, max_len=None, moe_dispatch=None,
+            return_aux=False):
     """Run the whole prompt ``batch["tokens"]`` (B, S), building the serving
     cache with ``max_len`` slots in every layer.  Returns (last-token logits
     (B, V), cache).  Only the last position is unembedded: the reference
     computes every position's logits and keeps the last, which is the same
-    numbers."""
+    numbers.  ``return_aux`` adds the MoE aux terms summed over the layers
+    (``drop_frac`` among them) third."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     cache = init_cache(cfg, b, max_len or s, device=_param_device(params))
-    h, cache = _hidden(cfg, params, tokens, None, cache)
-    return unembed(_head(params), h[:, -1]), cache
+    h, cache, aux = _hidden(cfg, params, tokens, None, cache, moe_dispatch)
+    logits = unembed(_head(params), h[:, -1])
+    return (logits, cache, aux) if return_aux else (logits, cache)
 
 
-def decode_step(cfg, params, cache, tokens, positions):
+def decode_step(cfg, params, cache, tokens, positions, *, moe_dispatch=None):
     """One serving step: tokens (B, 1) at positions (B, 1).  Returns
     (logits (B, V), cache); the cache is updated in place."""
-    h, new_cache = _hidden(cfg, params, tokens, positions, cache)
+    h, new_cache, _ = _hidden(cfg, params, tokens, positions, cache,
+                              moe_dispatch)
     return unembed(_head(params), h[:, -1]), new_cache

@@ -732,3 +732,85 @@ def test_phase_order_keeps_health_and_scale_last():
     assert phases.index("serve-ssm") + 1 == phases.index("serve-ssm-check")
     assert phases.index("serve-dense-check") < phases.index("serve-ssm")
     assert len(set(phases)) == len(phases)
+
+
+# ------------------------------------------------------------ the MoE slice
+def test_serve_moe_config_is_the_reference_config():
+    import dataclasses
+
+    from repro.configs import get_config as ref_get_config
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import block_kind
+
+    arch = chip_smoke.MOE_ARCH
+    cfg, ref = get_config(arch), ref_get_config(arch)
+    assert arch == "qwen3-moe-30b-a3b"
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    assert block_kind(cfg) == "moe"
+    # serve's traffic at the published depth; the check phase at the
+    # published widths, cut in depth only
+    assert ref.num_layers == 48 and ref.moe.first_k_dense == 0
+    assert 1 <= chip_smoke.MOE_CHECK_LAYERS < ref.num_layers
+    assert chip_smoke.SERVE == dict(batch=8, requests=16, prefill_len=2048,
+                                    decode_len=64)
+
+
+def test_phase_order_puts_the_moe_phases_before_health():
+    phases = chip_smoke.PHASES
+    assert phases.index("serve-ssm-check") + 1 == phases.index("serve-moe")
+    assert phases.index("serve-moe") + 1 == phases.index("serve-moe-check")
+    assert phases.index("serve-moe-check") + 1 == phases.index("health")
+    assert phases[-2:] == ("health", "scale")
+
+
+def test_moe_kernel_rows_sit_at_the_config_shapes():
+    import torch
+
+    from repro.configs import get_config as ref_get_config
+    from repro_torch.kernels.decode_attention.ops import head_groups
+    from repro_torch.kernels.flash_attention.ops import instance
+
+    ref = ref_get_config(chip_smoke.MOE_ARCH)
+    for table in (chip_smoke.MOE_FLASH, chip_smoke.MOE_DECODE):
+        assert len(table) == 1
+        label, h, k, d, windows = table[0]
+        assert label == chip_smoke.MOE_ARCH
+        assert (h, k, d) == (ref.num_heads, ref.num_kv_heads,
+                             ref.resolved_head_dim) == (32, 4, 128)
+        assert windows == (None,) and ref.sliding_window is None
+    # prefill on the tensor-core instance, decode in one head group of 8
+    assert instance(torch.bfloat16, 128) == "wgmma"
+    assert head_groups(32 // 4) == 1
+    # the bounds at qwen3's shapes: flash's ops as glm4-9b's (same H and D),
+    # decode's full-cache bytes at B 8, T 2112, K 4, D 128, bf16
+    B, S, T = 8, 2048, 2112
+    pairs = S * (S + 1) / 2
+    flash, by = chip_smoke._bound_ms(0.0, 4.0 * 128 * pairs * B * 32,
+                                     chip_smoke.BF16_OPS_PER_S)
+    assert by == "operations" and flash == pytest.approx(0.2781, abs=1e-4)
+    dec = 2 * B * 4 * T * 128 * 2 / chip_smoke.HBM_BYTES_PER_S * 1e3
+    assert dec == pytest.approx(0.0103, abs=1e-4)
+
+
+def test_moe_refit_spans_are_the_reference_ones():
+    cfg = chip_smoke.MOE_ARCH
+    from repro.configs import get_config as ref_get_config
+
+    m = ref_get_config(cfg).moe
+    trace = ref_core.synthetic_routing_trace(m.num_experts, 200,
+                                             top_k=m.top_k, seed=1)
+    slots = m.num_experts // 4 + 2
+    plan = ref_core.plan_expert_placement(trace, m.num_experts, 4, slots,
+                                          algorithm="lmbr")
+    base = ref_core.baseline_contiguous_placement(m.num_experts, 4, slots)
+    assert (base.avg_span(trace), plan.avg_span(trace)) == \
+        chip_smoke.MOE_REFIT
+    # the port's refit on the CPU gives the same plan
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import expert_refit
+
+    got_base, got_span, got_plan = expert_refit(get_config(cfg),
+                                                device="cpu")
+    assert (got_base, got_span) == chip_smoke.MOE_REFIT
+    assert (got_plan.member == plan.member).all()
+    assert got_plan.slot_to_expert.shape == (4, slots)

@@ -199,21 +199,24 @@ def test_serve_cli_on_cpu(arch, capsys):
     assert "served 2 requests, 6 tokens" in out and "on cpu" in out
 
 
-def test_unported_families_name_their_roadmap_item():
-    from repro_torch.configs import MoEConfig
+UNPORTED = {   # case -> (ROADMAP Queue 1 item, config overrides)
+    "mla": ("9.3", dict(attention="mla")),
+    "vlm": ("9.4", dict(family="vlm", frontend="vision_patches",
+                        frontend_len=8)),
+    "encoder-decoder": ("9.4", dict(family="encdec", encoder_layers=2,
+                                    frontend="audio_frames",
+                                    frontend_len=8)),
+    "mtp": ("9.5", dict(mtp_depth=1)),
+}
 
+
+@pytest.mark.parametrize("case", list(UNPORTED))
+def test_unported_families_name_their_roadmap_item(case):
+    item, overrides = UNPORTED[case]
     base = reduce_config(get_config("glm4-9b"), dtype="float32")
-    cases = {
-        "9.2": dataclasses.replace(base, family="moe", moe=MoEConfig(
-            num_experts=8, top_k=2, d_ff_expert=64)),
-        "9.3": dataclasses.replace(base, attention="mla"),
-        "9.4": dataclasses.replace(base, family="vlm",
-                                   frontend="vision_patches",
-                                   frontend_len=8),
-    }
-    for item, cfg in cases.items():
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            init_params(cfg, device="cpu")
+    cfg = dataclasses.replace(base, **overrides)
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        init_params(cfg, device="cpu")
 
 
 def test_params_from_jax_refuses_unported_groups(models):

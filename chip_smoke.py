@@ -2,14 +2,15 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the placement pipeline,
 the hymba-1.5b serving path, the dense-GQA serving path (glm4-9b,
 olmo-1b, h2o-danube-1.8b, nemotron-4-15b), the pure-SSM serving path
-(mamba2-2.7b) and the MoE serving path (qwen3-moe-30b-a3b).
+(mamba2-2.7b), the MoE serving path (qwen3-moe-30b-a3b) and the MLA
+serving path (deepseek-v3-671b).
 
     python3 chip_smoke.py                      # every phase, as CI runs it
     python3 chip_smoke.py --phases build,kernels
 
 Phases, each printed on a line of its own:
 
-1. build       — compile the six CUDA kernels from ``src/repro_torch/csrc``;
+1. build       — compile the seven CUDA sources from ``src/repro_torch/csrc``;
                  the line gives the registers, spills and blocks per SM of
                  the tensor-core (wgmma) instances of flash_attention (bf16
                  at D 64, 128 and 80, ``WGMMA_HEAD_DIMS``), the registers
@@ -20,7 +21,9 @@ Phases, each printed on a line of its own:
                  ssd_scan instance (state, chain and output pass), and
                  requires no spills in the tensor-core flash instances, the
                  serving path's ssd passes and glm4-9b's decode instance
-                 (bf16, blocks of 8 heads; ``DENSE_NO_SPILL``).
+                 (bf16, blocks of 8 heads; ``DENSE_NO_SPILL``); it also
+                 gives the registers and spills of the four latent (MLA)
+                 instances (prefill and decode, bf16 and f32).
 2. kernels     — hold each kernel against its plain PyTorch version on the
                  card and time kernel, plain version, library call (where
                  one PyTorch call computes the same function) and the
@@ -85,7 +88,16 @@ Phases, each printed on a line of its own:
                  config likewise, in bf16: flash_attention at its prefill
                  (``MOE_FLASH``: B 8, S = T 2048, H 32 / K 4, D 128) and
                  decode_attention at its serving cache (``MOE_DECODE``:
-                 G 8, one head group).  Every
+                 G 8, one head group).  The MLA config's latent kernels
+                 by the same rules, bf16 and f32, at deepseek-v3's widths
+                 (H 128, R 512, Dr 64, scale 192^-0.5):
+                 flash_attention_latent at its prefill (``MLA_FLASH``: B 8,
+                 S = T 2048) and at S = T 1528 (B 2), decode_attention_latent
+                 over its serving cache (``MLA_DECODE``: B 8, T 2112, a
+                 wrapped ring with empty slots and per-row q_pos) and over
+                 serve's warm-up cache (T 18, one split); their rows time
+                 SDPA with the shared key head on the first backend that
+                 takes D 576 / Dv 512 and record what the others say.  Every
                  flash and every decode instance the build made must run
                  in some row, and the wrapper's head groups must be the
                  source's.
@@ -217,7 +229,26 @@ Phases, each printed on a line of its own:
                  refit's replicated ``dispatch_from_plan`` dispatch (136
                  slots) on the same per-expert weights must come within
                  1e-3 of the identity dispatch's logits.
-16. health     — ``Simulator(40, 50).run_online`` of fig6's paper default
+16. serve-mla  — ``repro_torch.launch.serve`` on deepseek-v3-671b at full
+                 width (d_model 7168, 128 heads, MLA with q_lora 1536,
+                 kv_lora 512, rope 64; 256 experts top-8 of d_ff 2048 and a
+                 shared expert; vocab 129 280) cut to 4 layers (its three
+                 dense layers and one MoE layer; bf16, random weights from
+                 seed 0 created on the card, every earlier model freed
+                 first) with serve's traffic and the identity dispatch;
+                 finite logits of shape (8, vocab), prefill tokens/s,
+                 decode ms/step, peak memory, each batch's prefill
+                 ``drop_frac``, launches 4 x 2 (flash_attention_latent) and
+                 4 x 64 x 2 (decode_attention_latent), none of flash,
+                 decode or ssd_scan; then the serve CLI's refit (4 EP ranks
+                 of 66 slots) fitted on the card, whose spans must be the
+                 reference's (``MLA_REFIT``).
+17. serve-mla-check — deepseek-v3-671b at full width and 3 layers (the
+                 dense MLA layers) in f32 with TF32 off, prompt 1536,
+                 prefill 1528, held as serve-check holds hymba (the latent
+                 kernels patched to their plain versions on the plain
+                 route).
+18. health     — ``Simulator(40, 50).run_online`` of fig6's paper default
                  (lmbr ``max_moves=120``) under the flags-built
                  ``HealthMonitor`` (``HEALTH_VARIANT``: snapshots every 100
                  queries, window 4, skew SLO 3.0), with a storm (partitions
@@ -231,7 +262,7 @@ Phases, each printed on a line of its own:
                  The storm fires and resolves degraded_rate, and the same
                  storm unmonitored serves the same spans, access load and
                  member; the clean replay fires nothing.
-17. scale      — the cluster-scale pipeline at bench_scale's sizes:
+19. scale      — the cluster-scale pipeline at bench_scale's sizes:
                  ``web_scale_chunks(seed=0)`` (100 000 items, 1 000 000
                  queries) through ``StreamingHypergraphBuilder``, plain and
                  with duplicates merged (host only); the sharded lmbr fits
@@ -250,8 +281,10 @@ Phases, each printed on a line of its own:
 
 ``--profile`` runs each fit once more under torch.profiler and the
 package's tracer, and one serving batch (prefill, 8 decode steps) of
-hymba-1.5b (serve), glm4-9b (serve-dense), mamba2-2.7b (serve-ssm) and
-qwen3-moe-30b-a3b (serve-moe) under torch.profiler,
+hymba-1.5b (serve), glm4-9b (serve-dense), mamba2-2.7b (serve-ssm),
+qwen3-moe-30b-a3b (serve-moe) and deepseek-v3-671b at 4 layers
+(serve-mla, its latent kernels' device time as the ``mla_attention``
+group) under torch.profiler,
 and prints where the time goes (for the fits also
 lockstep_peel's device time per launch and per peel round and
 cover_rounds' device time per launch; for
@@ -290,7 +323,8 @@ BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores, data sheet
 PHASES = ("build", "kernels", "fit-stress", "fit-paper", "paper-algos",
           "placement-api", "online", "serve", "serve-check", "serve-dense",
           "serve-dense-check", "serve-ssm", "serve-ssm-check", "serve-moe",
-          "serve-moe-check", "health", "scale")
+          "serve-moe-check", "serve-mla", "serve-mla-check", "health",
+          "scale")
 PAPER_NODES = 69429          # ibm10, the largest fig9 circuit
 # paper-algos: the workloads (generator, arguments) and the runs (workload,
 # partitions, capacity, algorithm, extra arguments, avg_span of the JAX
@@ -904,6 +938,17 @@ DENSE_INSTANCES = (("flash", "f32", 128), ("flash", "f32", 80),
 DENSE_NO_SPILL = (("decode", "bf16", 8),)
 
 
+def _mla_instance(entry: str):
+    """(dtype, "prefill" or "decode") of a latent-attention kernel's
+    mangled name (mla_attention_kernel<T, decode>); None for any other."""
+    m = re.search(r"mla_attention_kernelI(13__nv_bfloat16|f)Lb([01])E",
+                  entry)
+    if not m:
+        return None
+    return ("bf16" if m.group(1) != "f" else "f32",
+            "decode" if m.group(2) == "1" else "prefill")
+
+
 def phase_build(_build):
     so = _build.build(force=True)
     entries = _ptxas_entries(_build.BUILD_INFO["ptxas"])
@@ -946,6 +991,16 @@ def phase_build(_build):
         f"registers={att[k, dt, n]['registers']} "
         f"spills={att[k, dt, n]['spill_stores']}/{att[k, dt, n]['spill_loads']}"
         for k, dt, n in DENSE_INSTANCES)
+    # the latent (MLA) kernel's four instances
+    mla = {_mla_instance(e["entry"]): e for e in entries
+           if _mla_instance(e["entry"])}
+    _require(sorted(mla) == sorted((d, k) for d in ("bf16", "f32")
+                                   for k in ("prefill", "decode")),
+             f"build: ptxas reports mla_attention instances {sorted(mla)}")
+    mla_line = ", ".join(
+        f"{k} {d} registers={e['registers']} "
+        f"spills={e['spill_stores']}/{e['spill_loads']}"
+        for (d, k), e in sorted(mla.items()))
     tc_line = ", ".join(
         f"D {n} registers={tc[k]['registers']} spills="
         f"{tc[k]['spill_stores']}/{tc[k]['spill_loads']} "
@@ -958,7 +1013,8 @@ def phase_build(_build):
           f"spill_stores={dec[0]['spill_stores']} "
           f"spill_loads={dec[0]['spill_loads']}; dense path instances "
           f"(spill stores/loads bytes): {dense_line}; ssd_scan instances "
-          f"(spill stores/loads bytes): {ssd_line}", flush=True)
+          f"(spill stores/loads bytes): {ssd_line}; mla_attention "
+          f"instances (spill stores/loads bytes): {mla_line}", flush=True)
     for e in entries:
         print(f"  {e['source']} {e['entry'][:60]} registers={e['registers']} "
               f"spill_stores={e['spill_stores']} "
@@ -1655,9 +1711,188 @@ def _ssd_domain_rows(torch, dev, dtype):
     return rows
 
 
+# the latent (MLA) kernels at deepseek-v3's widths (H 128, R 512, Dr 64,
+# scale 192^-0.5): prefill at serve's (B 8, S = T 2048) and at
+# serve-mla-check's prefill S = T 1528 (B 2), a multiple of no tile; decode
+# over serve's cache (B 8, T 2112, a wrapped ring with empty slots and
+# per-row q_pos) and serve's warm-up cache (B 1, T 18, one split)
+MLA_HEADS, MLA_RANK, MLA_ROPE = 128, 512, 64
+MLA_SCALE = (128 + 64) ** -0.5
+MLA_FLASH = (("serve", 8, 2048), ("ragged", 2, 1528))
+MLA_DECODE = (("serve", 8, 2112), ("warm-up", 1, 18))
+
+
+def _latent_prefill_bound(B, S, H, esz, peak):
+    """Causal latent prefill at S = T: 2 (R + Dr + R) flops a visible
+    (query row, key) pair, q_lat, q_rope, c_kv and k_rope read once and
+    out written once."""
+    R, Dr = MLA_RANK, MLA_ROPE
+    ops = 2.0 * B * H * (S * (S + 1) / 2) * (2 * R + Dr)
+    nbytes = (B * S * H * (2 * R + Dr) + B * S * (R + Dr)) * esz
+    return _bound_ms(nbytes, ops, peak)
+
+
+def _latent_decode_bound(B, T, H, nvis, esz, peak):
+    """Latent decode over ``nvis`` visible slots (all batch rows): their
+    latent rows, the slot and query positions and q read once, out
+    written once."""
+    R, Dr = MLA_RANK, MLA_ROPE
+    ops = 2.0 * H * nvis * (2 * R + Dr)
+    nbytes = (nvis * (R + Dr) * esz + B * T * 4 + B * 4
+              + B * H * (2 * R + Dr) * esz)
+    return _bound_ms(nbytes, ops, peak)
+
+
+def _sdpa_library(torch, call, iters):
+    """Time one SDPA call on the first backend that takes it (flash,
+    memory-efficient, cuDNN, math), keeping why each backend before it
+    refused (its warnings' reasons, else its error)."""
+    import warnings
+
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    refused = {}
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH"):
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            continue
+
+        def fn(backend=backend):
+            with sdpa_kernel([backend]):
+                return call()
+
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                fn()
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                why = []
+                for w in caught:
+                    line = str(w.message).splitlines()[0]
+                    if "not used because" not in line and line not in why:
+                        why.append(line[:160])
+                refused[name.lower()] = " | ".join(why or [str(e)[:160]])
+                continue
+        return dict(library_ms=_cuda_ms(torch, fn, iters),
+                    library_device_ms=_device_ms(torch, fn, iters),
+                    library_backend=name.lower(), library_refused=refused)
+    return dict(library_ms=None, library_device_ms=None,
+                library_backend=None, library_refused=refused)
+
+
+def _latent_rows(torch, dev, dtype, peak):
+    """flash_attention_latent and decode_attention_latent at ``MLA_FLASH``
+    and ``MLA_DECODE``: each checked against its plain version (by
+    ``_attention_check``'s rules) and timed beside its plain version and
+    one SDPA call with the shared key head (``enable_gqa``) and the
+    caller's scale."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import (
+        LATENT_TILE_KEYS, decode_attention_latent,
+        decode_attention_latent_plain, latent_split_plan)
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_latent, flash_attention_latent_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    esz = torch.finfo(dtype).bits // 8
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    H, R, Dr, scale = MLA_HEADS, MLA_RANK, MLA_ROPE, MLA_SCALE
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def check(label, fn, plain, args):
+        got = fn(*args, scale=scale)
+        want = plain(*args, scale=scale)
+        plain32 = (plain(*(a.float() if a.is_floating_point() else a
+                           for a in args), scale=scale)
+                   if dtype == torch.bfloat16 else None)
+        torch.cuda.synchronize()
+        return _attention_check(torch, label, dtype, got, want, plain32,
+                                None)
+
+    flash, decode = [], []
+    for label, B, S in MLA_FLASH:
+        args = (randn(B, S, H, R), randn(B, S, H, Dr), randn(B, S, R),
+                randn(B, S, Dr))
+        fields = check(f"flash_attention_latent {label} {tag} B={B} S={S}",
+                       flash_attention_latent, flash_attention_latent_plain,
+                       args)
+        bound, by = _latent_prefill_bound(B, S, H, esz, peak)
+        qT = torch.cat(args[:2], -1).transpose(1, 2).contiguous()
+        kT = torch.cat(args[2:], -1)[:, None]
+        vT = args[2][:, None]
+
+        def kern():
+            return flash_attention_latent(*args, scale=scale)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qT, kT, vT, is_causal=True, scale=scale, enable_gqa=True)
+
+        flash.append(dict(
+            shape=f"{label}.B{B}.S{S}.H{H}.R{R}.Dr{Dr}.{tag}",
+            kernel_instance=f"{tag}.prefill", **fields,
+            ms=_cuda_ms(torch, kern, 3), device_ms=_device_ms(torch, kern, 3),
+            plain_ms=_cuda_ms(torch, lambda: flash_attention_latent_plain(
+                *args, scale=scale), 1),
+            **_sdpa_library(torch, sdpa, 3), bound_ms=bound, bound_by=by))
+        del args, qT, kT, vT
+    for label, B, T in MLA_DECODE:
+        slot = torch.arange(T, device=dev, dtype=torch.int32)
+        if label == "warm-up":
+            # serve's warm-up (prompt 16): slots 0..16 filled, q at 16
+            kv_pos = torch.where(slot <= 16, slot, -1)[None].expand(
+                B, T).contiguous()
+            q_pos = torch.full((B,), 16, dtype=torch.int32, device=dev)
+        else:
+            roll = torch.randint(0, T, (B,), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            kv_pos = ((slot[None] - roll[:, None]) % T).to(torch.int32)
+            kv_pos[1, :30] = -1
+            q_pos = torch.randint(T - 64, T, (B,), generator=gen,
+                                  device=dev, dtype=torch.int32)
+        args = (randn(B, H, R), randn(B, H, Dr), randn(B, T, R),
+                randn(B, T, Dr), kv_pos, q_pos)
+        fields = check(f"decode_attention_latent {label} {tag} B={B} T={T}",
+                       decode_attention_latent,
+                       decode_attention_latent_plain, args)
+        vis = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+        bound, by = _latent_decode_bound(B, T, H, float(vis.sum()), esz,
+                                         peak)
+        ns, per = latent_split_plan(
+            B, H, T, torch.cuda.get_device_properties(
+                dev).multi_processor_count, LATENT_TILE_KEYS[dtype])
+        qT = torch.cat(args[:2], -1)[:, :, None]
+        kT = torch.cat(args[2:4], -1)[:, None]
+        vT = args[2][:, None]
+        mask = vis[:, None, None, :]
+
+        def kern():
+            return decode_attention_latent(*args, scale=scale)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qT, kT, vT, attn_mask=mask, scale=scale, enable_gqa=True)
+
+        decode.append(dict(
+            shape=f"{label}.B{B}.T{T}.H{H}.R{R}.Dr{Dr}.{tag}",
+            kernel_instance=f"{tag}.decode", splits=ns, split_slots=per,
+            **fields, ms=_cuda_ms(torch, kern, 50),
+            device_ms=_device_ms(torch, kern, 50),
+            plain_ms=_cuda_ms(torch, lambda: decode_attention_latent_plain(
+                *args, scale=scale), 10),
+            **_sdpa_library(torch, sdpa, 50), bound_ms=bound, bound_by=by))
+    return flash, decode
+
+
 def phase_model_kernels(np, torch, dev):
-    """flash_attention, decode_attention and ssd_scan against their plain
-    versions at the serving path's shapes, in bf16 and f32, with kernel,
+    """flash_attention, decode_attention, ssd_scan and the latent (MLA)
+    kernels against their plain versions at the serving paths' shapes, in
+    bf16 and f32, with kernel,
     plain and library times and the bound of the work."""
     import torch.nn.functional as F
 
@@ -1668,7 +1903,8 @@ def phase_model_kernels(np, torch, dev):
     B, H, K, D = SERVE["batch"], 25, 5, 64
     S = SERVE["prefill_len"]
     Tc = S + SERVE["decode_len"]
-    rows = {"flash_attention": [], "decode_attention": [], "ssd_scan": []}
+    rows = {"flash_attention": [], "decode_attention": [], "ssd_scan": [],
+            "flash_attention_latent": [], "decode_attention_latent": []}
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -1774,6 +2010,10 @@ def phase_model_kernels(np, torch, dev):
         if tag == "bf16":
             rows["decode_attention"] += _decode_dense_rows(
                 torch, dev, dtype, peak, MOE_DECODE, ())
+        # the latent (MLA) kernels at deepseek-v3's prefill and decode
+        flash, decode = _latent_rows(torch, dev, dtype, peak)
+        rows["flash_attention_latent"] += flash
+        rows["decode_attention_latent"] += decode
 
         # ssd_scan: prefill of the SSM branch from a nonzero state, then
         # the domain rows
@@ -1885,8 +2125,9 @@ def phase_serve(torch, kernels, dev):
                 chunk_launches=chunks)
 
 
-def phase_serve_profile(np, torch, dev, arch="hymba-1.5b"):
-    """One serving batch of ``arch`` (full width and depth) once more under
+def phase_serve_profile(np, torch, dev, arch="hymba-1.5b", layers=None):
+    """One serving batch of ``arch`` (full width, and full depth unless
+    ``layers`` cuts it) once more under
     torch.profiler: the prefill, then 8 decode steps, each with its device
     busy time, idle share and device time by kernel group.  Numbers are
     under the profiler (its per-op cost inflates the host-bound decode's
@@ -1897,7 +2138,8 @@ def phase_serve_profile(np, torch, dev, arch="hymba-1.5b"):
     from repro_torch.launch.serve import load_model
     from repro_torch.models import decode_step, prefill
 
-    cfg, params = load_model(arch, device=dev, seed=0)
+    cfg, params = load_model(arch, device=dev, seed=0,
+                             **({"num_layers": layers} if layers else {}))
     B, S, n_dec = SERVE["batch"], SERVE["prefill_len"], 8
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, S))).to(dev)
@@ -1915,7 +2157,8 @@ def phase_serve_profile(np, torch, dev, arch="hymba-1.5b"):
                                                  tok, pos)
             tok = logits.argmax(-1)[:, None]
 
-    groups = (("flash_attention", ("flash_attention",)),
+    groups = (("mla_attention", ("mla_attention", "mla_decode_merge")),
+              ("flash_attention", ("flash_attention",)),
               ("decode_attention", ("decode_attention",)),
               ("ssd_scan", ("ssd_scan",)),
               ("gemm", ("gemm", "gemv", "nvjet", "xmma", "cutlass")),
@@ -1944,7 +2187,8 @@ def phase_serve_profile(np, torch, dev, arch="hymba-1.5b"):
             g = next((g for g, keys in groups
                       if any(k in name for k in keys)), "other")
             by_group[g] += e.self_device_time_total / 1e6
-        print(f"profile serve {arch} {label}: wall_s={wall:.3f} "
+        print(f"profile serve {arch} layers={cfg.num_layers} {label}: "
+              f"wall_s={wall:.3f} "
               f"device_launches={sum(e.count for e in rows)} "
               f"device_busy_s={busy:.4f} device_idle_share="
               f"{1 - busy / wall:.4f} device_s_by_group="
@@ -2433,6 +2677,122 @@ def phase_serve_moe_check(np, torch, kernels, dev):
           f"(tol 1e-3) drop_frac={plan_drop} "
           f"phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
     del params, slotted, held, identity, got
+    torch.cuda.empty_cache()
+
+
+# serve-mla: deepseek-v3-671b at its published widths cut to MLA_LAYERS
+# layers (its three dense layers and one MoE layer: the least depth that
+# runs both of its block kinds; the whole model is ~1.3 TB in bf16) with
+# serve's traffic; serve-mla-check: its three dense MLA layers in f32 (a
+# full-width MoE layer in f32 is 46 GB, and serve-moe-check holds the MoE
+# block).  MLA_REFIT: the reference serve CLI's refit of deepseek-v3's 256
+# experts (4 EP ranks of 66 slots), pinned by a CPU test
+MLA_ARCH = "deepseek-v3-671b"
+MLA_LAYERS = 4
+MLA_CHECK_LAYERS = 3
+MLA_REFIT = (3.615, 1.96)
+
+
+def phase_serve_mla(torch, kernels, dev):
+    """deepseek-v3-671b through ``repro_torch.launch.serve`` at full width
+    (d_model 7168, 128 heads, q_lora 1536, kv_lora 512, rope 64, 256
+    experts top-8 of d_ff 2048 and a shared expert, vocab 129 280) and
+    ``MLA_LAYERS`` layers (bf16, random weights from seed 0, created on
+    the card after every earlier model is freed) with serve's traffic and
+    the identity dispatch: every attention launch on the latent kernels
+    (L x batches prefill, L x steps x batches decode), none of the GQA or
+    SSD kernels.  Prints each batch's prefill ``drop_frac`` summed over the
+    layers and the serve-time expert refit, whose spans must be the
+    reference's (``MLA_REFIT``).  Returns the launches."""
+    import gc
+
+    from repro_torch.launch.serve import expert_refit, refit_line
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    cfg, params, init_s, nparams = _load_timed(torch, MLA_ARCH, dev,
+                                               num_layers=MLA_LAYERS)
+    res = _measured_serve(torch, kernels, "serve-mla", cfg, params,
+                          SERVE["requests"], SERVE["decode_len"])
+    launches = res["launches"]
+    L, nb = cfg.num_layers, res["batches"]
+    want = {"flash_attention_latent": L * nb,
+            "decode_attention_latent": L * SERVE["decode_len"] * nb,
+            "flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
+    _require_launches("serve-mla", launches, want)
+    drops = res["prefill_drop_frac"]
+    _require(len(drops) == nb and all(math.isfinite(x) for x in drops),
+             f"serve-mla: prefill drop_frac {drops}")
+    line = _serve_line(res)
+    del params, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    base_span, plan_span, _ = expert_refit(cfg, device=dev)
+    refit_s = time.perf_counter() - t0
+    _require((base_span, plan_span) == MLA_REFIT,
+             f"serve-mla: refit spans {(base_span, plan_span)}, want the "
+             f"reference's {MLA_REFIT}")
+    m, a = cfg.moe, cfg.mla
+    print(f"serve-mla: {MLA_ARCH} layers={L} (first_k_dense="
+          f"{m.first_k_dense}) d_model={cfg.d_model} heads={cfg.num_heads} "
+          f"q_lora={a.q_lora_rank} kv_lora={a.kv_lora_rank} "
+          f"rope={a.qk_rope_head_dim} experts={m.num_experts} "
+          f"top_k={m.top_k} d_ff_expert={m.d_ff_expert} "
+          f"shared={m.num_shared_experts} capacity_factor="
+          f"{m.capacity_factor} vocab={cfg.vocab_size} params={nparams} "
+          f"bf16 held_before_gb={held_gb:.3f} init_s={init_s:.2f} "
+          f"requests={SERVE['requests']} batch={SERVE['batch']} {line} "
+          f"prefill_drop_frac_sum_over_layers={drops} "
+          f"launches={ {n: launches[n] for n in want} }", flush=True)
+    print(f"serve-mla: {refit_line(base_span, plan_span)} "
+          f"(reference {MLA_REFIT[0]} -> {MLA_REFIT[1]}; fit on the card in "
+          f"{refit_s:.3f} s) phase_s={time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    return dict(launches=launches)
+
+
+def phase_serve_mla_check(np, torch, kernels, dev):
+    """deepseek-v3-671b at full width and ``MLA_CHECK_LAYERS`` layers (its
+    dense MLA layers) in f32 with TF32 off, batch 2, prompt 1536, prefill
+    1528: the kernel route against the plain route on the card (logits
+    within 1e-3), teacher-forced decode after prefill against the
+    cache-free forward (within 2e-3), the latent kernels launched on the
+    kernel route and nothing on the plain route."""
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention_latent_plain)
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_latent_plain)
+    from repro_torch.launch.serve import load_model
+    from repro_torch.models import attention
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, params = load_model(MLA_ARCH, device=dev, seed=1,
+                             num_layers=MLA_CHECK_LAYERS, dtype="float32")
+    _require(all("moe" not in p for p in params["blocks"]),
+             "serve-mla-check: the layers must be the dense MLA ones")
+    B, S, n_prefill = 2, 1536, 1528
+    rng = np.random.default_rng(9)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
+    held = _hold_routes(
+        torch, kernels, "serve-mla-check", cfg, params, tokens, n_prefill,
+        [(attention, "flash_attention_latent", flash_attention_latent_plain),
+         (attention, "decode_attention_latent",
+          decode_attention_latent_plain)])
+    launches = held["launches"]
+    L = cfg.num_layers
+    want = {"flash_attention_latent": 2 * L,
+            "decode_attention_latent": (S - n_prefill) * L,
+            "flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
+    _require_launches("serve-mla-check", launches, want)
+    print(f"serve-mla-check: {MLA_ARCH} full width, layers={L} (dense MLA) "
+          f"f32 tf32=off batch={B} {_routes_line(held, n_prefill, S)} "
+          f"phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    del params, held
     torch.cuda.empty_cache()
 
 
@@ -3571,8 +3931,10 @@ def main(argv=None) -> int:
                                   random_workload)
     from repro_torch.core import LMBR_STRESS_DEFAULTS as STRESS
     from repro_torch.kernels.cover_rounds.ops import cover_rounds
-    from repro_torch.kernels.decode_attention.ops import decode_attention
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_latent)
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_latent)
     from repro_torch.kernels.lockstep_peel.ops import lockstep_peel
     from repro_torch.kernels.span_gain.ops import span_gains
     from repro_torch.kernels.ssd_scan.ops import ssd_scan
@@ -3584,7 +3946,10 @@ def main(argv=None) -> int:
                    "lockstep_peel": lockstep_peel}
     model_kernels = {"flash_attention": flash_attention,
                      "decode_attention": decode_attention,
-                     "ssd_scan": ssd_scan}
+                     "ssd_scan": ssd_scan,
+                     "flash_attention_latent": flash_attention_latent,
+                     "decode_attention_latent": decode_attention_latent}
+    latent = ("flash_attention_latent", "decode_attention_latent")
     kernels = {**fit_kernels, **model_kernels}
     rows = {}
     launches = {}
@@ -3670,7 +4035,8 @@ def main(argv=None) -> int:
             phase_online_profile(torch, inp)
     if "serve" in phases:
         served = phase_serve(torch, kernels, dev)
-        launches.update({n: served["launches"][n] for n in model_kernels})
+        launches.update({n: served["launches"][n] for n in model_kernels
+                         if n not in latent})
         path_launches["serve"] = {n: served["launches"][n]
                                   for n in model_kernels}
         flash_instances = served["flash_instances"]
@@ -3703,6 +4069,15 @@ def main(argv=None) -> int:
             phase_serve_profile(np, torch, dev, MOE_ARCH)
     if "serve-moe-check" in phases:
         phase_serve_moe_check(np, torch, kernels, dev)
+    if "serve-mla" in phases:
+        served = phase_serve_mla(torch, kernels, dev)
+        launches.update({n: served["launches"][n] for n in latent})
+        path_launches["serve-mla"] = {n: served["launches"][n]
+                                      for n in model_kernels}
+        if args.profile:
+            phase_serve_profile(np, torch, dev, MLA_ARCH, MLA_LAYERS)
+    if "serve-mla-check" in phases:
+        phase_serve_mla_check(np, torch, kernels, dev)
     if "health" in phases:
         health_runs = phase_health(np, torch, fit_kernels, health_inputs(np))
         path_launches["health"] = {
@@ -3734,6 +4109,14 @@ def main(argv=None) -> int:
                              "src/repro/kernels/decode_attention/kernel.py:77"),
         "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan/kernel.py:71"),
+        # the latent forms of the two attention kernels: the reference's
+        # MLA runs chunked_attention in jnp at these shapes
+        "flash_attention_latent": (
+            "src/repro_torch/csrc/mla_attention.cu",
+            "src/repro/kernels/flash_attention/kernel.py:94"),
+        "decode_attention_latent": (
+            "src/repro_torch/csrc/mla_attention.cu",
+            "src/repro/kernels/decode_attention/kernel.py:77"),
     }
     report = []
     for name, (source, tpu) in replaces.items():
@@ -3755,6 +4138,11 @@ def main(argv=None) -> int:
                               instance_launches=flash_instances)
         if name == "ssd_scan":
             report[-1].update(chunk_launches_by_path=ssd_chunks)
+        if name in latent:
+            report[-1].update(computes="src/repro/models/attention.py:27 "
+                              "chunked_attention, as mla_attention calls it "
+                              "(:273-286)",
+                              library_backend=row.get("library_backend"))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,8 @@ from pathlib import Path
 __all__ = ["build", "lib", "check", "BUILD_INFO"]
 
 SOURCES = ("span_gain.cu", "cover_rounds.cu", "lockstep_peel.cu",
-           "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu")
+           "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu",
+           "mla_attention.cu")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,6 +39,7 @@ _LIB = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # name: (argtypes, restype)
     "span_gain_launch": ([_P, _P, _P, _LL, _I, _I, _I, _P], _I),
@@ -53,6 +55,10 @@ _SIGNATURES = {
     "decode_attention_blocks_per_sm": ([_I], _I),
     "decode_attention_head_groups": ([_I], _I),
     "ssd_scan_launch": ([_P] * 9 + [_I] * 8 + [_P], _I),
+    "flash_attention_latent_launch": ([_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
+                                      _I),
+    "decode_attention_latent_launch": ([_P] * 8 + [_I] * 7
+                                       + [_F, _I, _I, _P], _I),
     "repro_torch_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -4,8 +4,9 @@ A copy of the JAX package's ``configs/base.py`` as plain data (the port
 keeps its own so that it imports nothing of the reference).  One file per
 ported architecture lives next to this module; each exposes
 ``CONFIG = ModelConfig(...)`` with the published numbers and registers
-itself.  ``MLAConfig`` is carried as data only: the port's model stack
-raises on MLA (ROADMAP Queue 1 item 9.3).
+itself.  ``MLAConfig`` holds the latent ranks of multi-head latent
+attention (deepseek-v3-671b), which ``models/attention.py`` serves in its
+absorbed form.
 """
 
 from __future__ import annotations

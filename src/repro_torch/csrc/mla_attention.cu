@@ -1,0 +1,518 @@
+// mla_attention: the latent (absorbed) form of multi-head latent attention,
+// for prefill and for one-token decode.
+//
+// Replaces no Pallas kernel of its own: the reference runs MLA's attention
+// in jnp, `chunked_attention` (src/repro/models/attention.py:27) called by
+// `mla_attention` (:273-286) with the concatenated latent query
+// [q_lat ; q_rope], one shared key head [c_kv ; k_rope] and the value head
+// c_kv, while its Pallas kernels (src/repro/kernels/flash_attention/
+// kernel.py:94 `flash_attention`, src/repro/kernels/decode_attention/
+// kernel.py:77 `decode_attention`) fix the key width to the value width
+// and the scale to D^-0.5.  These are the latent forms of those two: the
+// same function as `chunked_attention` at MLA's shapes.  For batch row b,
+// query row (position i, head h) and key t (positions = indices in
+// prefill; the cache's kv_pos in decode):
+//
+//   s[t]  = (q_lat[b, i, h] . c_kv[b, t] + q_rope[b, i, h] . k_rope[b, t])
+//           * scale                        (scale from the caller)
+//   prefill: visible iff t <= i
+//   decode:  visible iff kv_pos[b, t] >= 0 and kv_pos[b, t] <= q_pos[b]
+//   out   = sum_t p[t] c_kv[b, t] / max(sum_t p[t], 1e-30),
+//   p[t]  = exp(s[t] - M),  M = max(-1e4, max of the visible s)
+//
+// which is the reference's online softmax (masked scores -1e30, running
+// max clamped at -1e4, divisor clamped at 1e-30).  R = 512 (kv_lora_rank)
+// and Dr = 64 (qk_rope_head_dim), deepseek-v3's widths.  q_lat (B, S, H, R)
+// and q_rope (B, S, H, Dr), or (B, H, R) and (B, H, Dr) in decode; c_kv
+// (B, T, R) and k_rope (B, T, Dr); out like q_lat.  f32 or bf16 storage,
+// fp32 math, output rounded to nearest in the storage type.
+//
+// What bounds it on an H100: operations.  All H heads share one key and
+// value row, so a latent row (576 elements, 1152 bytes in bf16) feeds
+// 2 (576 + 512) H flops, as key and as value for each head: 242 flops a
+// byte at H 128.  At deepseek-v3's prefill (B 8, S = T 2048, H 128) that
+// is 4.68e12 flops, 4.7 ms at the bf16 tensor-core peak and 70 ms at the
+// fp32 CUDA-core one; its decode (B 8, T 2112) reads 19.5 MB of cache for
+// 4.7e9 flops, 5.8 us of bytes.  This first version runs both products as
+// fp32 FMAs on the CUDA cores (a tensor-core design, as in FlashMLA, is
+// ROADMAP work):
+//
+// * One block of 8 warps takes 64 query rows: rows are (position, head)
+//   pairs in the model layout's order, row r = i H + h (so a row's q and
+//   out are contiguous, and at H 128 a block holds half the heads of one
+//   position).  Warp w owns rows 8 w .. 8 w + 7.  The rows' q, times
+//   scale * log2(e), sits in shared memory in fp32 (147 KB); each lane
+//   holds the rows' accumulators for 16 of the 512 value dims (dims
+//   4 lane + 128 c, c < 4): 128 registers.
+// * Keys come in tiles of NK latent rows (64 in bf16, 32 in f32; 72 KB
+//   either way), staged in shared memory once and used by all 64 rows:
+//   a latent row is read once for its key and its value, and never as a
+//   per-head K / V.  Rows are padded to 580 elements, so the lanes'
+//   reads of different rows at one column hit different banks.
+// * Scores: lane j takes keys j and j + 32 of the tile (bf16; key j in
+//   f32) for the warp's 8 rows: per 4 dims, NK / 32 key loads and 8
+//   broadcast q loads feed NK FMAs.  The tile's masked scores are -1e30;
+//   each row's max is a warp reduction, the online softmax runs in base
+//   2 and each lane keeps its own partial sum of p.
+// * Values: for each key the lane takes the 8 rows' p from the key's
+//   lane by shuffle, loads its 16 dims of the value row and does 128
+//   FMAs.
+// * Prefill walks the blocks heaviest first (the last positions see the
+//   most keys) and loads only the keys up to its last row's position.
+//   Decode cuts the cache into `splits` runs of whole tiles, one block
+//   each per (split, 64 heads, batch row), as many as fill the card's SMs
+//   once (one block an SM; 7 splits at B 8, H 128, T 2112).  Each split
+//   writes its unnormalised accumulator, max and sum; a second launch
+//   merges them with the same clamps (with one split the block writes
+//   the output itself).  A tile with no visible slot is not loaded.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kR = 512;               // latent rank: value width
+constexpr int kDr = 64;               // shared rope key width
+constexpr int kDk = kR + kDr;         // key width, 576
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kWarpRows = 8;          // query rows per warp
+constexpr int kBlockRows = kWarps * kWarpRows;  // 64
+constexpr int kStride = kDk + 4;      // a staged key row, in elements
+constexpr int kLaneDims = kR / 32;    // accumulator dims per row and lane
+constexpr int kPart = kR + 4;         // floats per split row of `part`
+constexpr unsigned kFull = 0xffffffffu;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kFloor2 = -1e4f * kLog2e;  // the max clamp, base 2
+constexpr float kNegInf = -1e30f;
+
+// keys per staged tile: 64 x 580 bf16 or 32 x 580 f32, 74 240 bytes
+template <typename T>
+struct Tile;
+template <>
+struct Tile<float> {
+  static constexpr int keys = 32;
+};
+template <>
+struct Tile<__nv_bfloat16> {
+  static constexpr int keys = 64;
+};
+
+// dynamic shared memory: the rows' q in fp32, then the key tile
+template <typename T>
+constexpr int smem_bytes() {
+  return kBlockRows * kDk * 4 + Tile<T>::keys * kStride * (int)sizeof(T);
+}
+
+__device__ __forceinline__ float exp2_(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// four consecutive elements as fp32 (16 bytes of f32, 8 of bf16)
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// an 8-byte piece as fp32: 2 f32 or 4 bf16 elements
+template <typename T>
+struct Piece;
+template <>
+struct Piece<float> {
+  static constexpr int n = 2;
+  __device__ __forceinline__ static void unpack(uint2 u, float* x) {
+    x[0] = __uint_as_float(u.x);
+    x[1] = __uint_as_float(u.y);
+  }
+};
+template <>
+struct Piece<__nv_bfloat16> {
+  static constexpr int n = 4;
+  __device__ __forceinline__ static void unpack(uint2 u, float* x) {
+    x[0] = __uint_as_float(u.x << 16);
+    x[1] = __uint_as_float(u.x & 0xffff0000u);
+    x[2] = __uint_as_float(u.y << 16);
+    x[3] = __uint_as_float(u.y & 0xffff0000u);
+  }
+};
+
+// four fp32 values to four consecutive outputs, rounded to nearest
+__device__ __forceinline__ void st4(float* p, float a, float b, float c,
+                                    float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, float a, float b,
+                                    float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+struct Args {
+  const void* q_lat;   // (B, rows, R)
+  const void* q_rope;  // (B, rows, Dr)
+  const void* c_kv;    // (B, Tk, R)
+  const void* k_rope;  // (B, Tk, Dr)
+  const int* kv_pos;   // (B, Tk), decode
+  const int* q_pos;    // (B,), decode
+  void* out;           // (B, rows, R)
+  float* part;         // (B, rows, splits, kPart), decode with splits > 1
+  int rows;            // query rows per batch row: S H, or H in decode
+  int H;
+  int Tk;
+  int split_len;       // keys per split (decode), whole tiles
+  float sc2;           // scale * log2(e)
+};
+
+// grid: prefill (row tiles, 1, B), walked heaviest first; decode (row
+// tiles, splits, B)
+template <typename T, bool kDecode>
+__global__ void __launch_bounds__(kThreads, 1)
+    mla_attention_kernel(const Args a) {
+  constexpr int NK = Tile<T>::keys;
+  constexpr int KPL = NK / 32;                  // keys per lane
+  constexpr int PE = Piece<T>::n;               // elements per 8 bytes
+  constexpr int QP = kDk / PE;                  // 8-byte pieces of a row
+  constexpr int RP = kR / PE;                   // ... of its latent part
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);   // [kBlockRows][kDk]
+  T* ks = reinterpret_cast<T*>(smem + kBlockRows * kDk * 4);  // [NK][kStride]
+  __shared__ int vis[NK];
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int b = blockIdx.z;
+  const int tile = kDecode ? blockIdx.x : gridDim.x - 1 - blockIdx.x;
+  const int r0 = tile * kBlockRows;
+  const int split = blockIdx.y;
+  const int rows = a.rows;
+  const int H = a.H;
+  const int Tk = a.Tk;
+  const T* ql = static_cast<const T*>(a.q_lat) + (long long)b * rows * kR;
+  const T* qr = static_cast<const T*>(a.q_rope) + (long long)b * rows * kDr;
+  const T* ck = static_cast<const T*>(a.c_kv) + (long long)b * Tk * kR;
+  const T* kr = static_cast<const T*>(a.k_rope) + (long long)b * Tk * kDr;
+  const int qp = kDecode ? a.q_pos[b] : 0;
+
+  // the block's rows of q, scaled, in fp32; zero past the last row
+  for (int e = tid; e < kBlockRows * QP; e += kThreads) {
+    const int i = e / QP;
+    const int d = (e - i * QP) * PE;
+    const int r = r0 + i;
+    float x[PE];
+    if (r < rows) {
+      const T* src = d < kR ? ql + (long long)r * kR + d
+                            : qr + (long long)r * kDr + (d - kR);
+      Piece<T>::unpack(*reinterpret_cast<const uint2*>(src), x);
+    } else {
+#pragma unroll
+      for (int u = 0; u < PE; ++u) x[u] = 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < PE; ++u) qs[i * kDk + d + u] = x[u] * a.sc2;
+  }
+
+  // this warp's rows: how many are real, and the last one's position
+  const int wr0 = r0 + warp * kWarpRows;
+  const int wrows = max(0, min(kWarpRows, rows - wr0));
+  const int wlast = (wr0 + wrows - 1) / H;
+  // the block's keys
+  int t_begin = 0, t_end;
+  if (kDecode) {
+    t_begin = split * a.split_len;
+    t_end = min(Tk, t_begin + a.split_len);
+  } else {
+    t_end = min(Tk, (min(r0 + kBlockRows, rows) - 1) / H + 1);
+  }
+
+  float m[kWarpRows], l[kWarpRows], o[kWarpRows][kLaneDims];
+#pragma unroll
+  for (int i = 0; i < kWarpRows; ++i) {
+    m[i] = kFloor2;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kLaneDims; ++e) o[i][e] = 0.f;
+  }
+
+  for (int t0 = t_begin; t0 < t_end; t0 += NK) {
+    const int nk = min(NK, t_end - t0);
+    __syncthreads();  // every warp is done with the previous tile (and q)
+    if (kDecode) {
+      int ok = 0;
+      if (tid < NK) {
+        const int p = tid < nk ? a.kv_pos[(long long)b * Tk + t0 + tid] : -1;
+        ok = p >= 0 && p <= qp;
+        vis[tid] = ok;
+      }
+      if (!__syncthreads_or(ok)) continue;  // nothing visible: not loaded
+    }
+    // stage the tile's latent rows [c_kv ; k_rope], zero past the end
+    for (int e = tid; e < NK * QP; e += kThreads) {
+      const int j = e / QP;
+      const int p = e - j * QP;
+      uint2 u = make_uint2(0u, 0u);
+      if (j < nk) {
+        const long long t = t0 + j;
+        u = p < RP ? *reinterpret_cast<const uint2*>(ck + t * kR + p * PE)
+                   : *reinterpret_cast<const uint2*>(kr + t * kDr +
+                                                     (p - RP) * PE);
+      }
+      *reinterpret_cast<uint2*>(ks + j * kStride + p * PE) = u;
+    }
+    __syncthreads();
+    // every key masked for the warp (decode's slots hold any position)
+    if (wrows == 0 || (!kDecode && t0 > wlast)) continue;
+
+    // scores of the warp's rows against keys lane + 32 kk, base 2
+    float s[KPL][kWarpRows];
+#pragma unroll
+    for (int kk = 0; kk < KPL; ++kk)
+#pragma unroll
+      for (int i = 0; i < kWarpRows; ++i) s[kk][i] = 0.f;
+    const float* qw = qs + warp * kWarpRows * kDk;
+#pragma unroll 2
+    for (int d = 0; d < kDk; d += 4) {
+      float4 kv[KPL];
+#pragma unroll
+      for (int kk = 0; kk < KPL; ++kk)
+        kv[kk] = ld4(ks + (lane + 32 * kk) * kStride + d);
+#pragma unroll
+      for (int i = 0; i < kWarpRows; ++i) {
+        const float4 q4 = *reinterpret_cast<const float4*>(qw + i * kDk + d);
+#pragma unroll
+        for (int kk = 0; kk < KPL; ++kk) {
+          float acc = s[kk][i];
+          acc = fmaf(q4.x, kv[kk].x, acc);
+          acc = fmaf(q4.y, kv[kk].y, acc);
+          acc = fmaf(q4.z, kv[kk].z, acc);
+          acc = fmaf(q4.w, kv[kk].w, acc);
+          s[kk][i] = acc;
+        }
+      }
+    }
+    // mask, then the online softmax per row
+#pragma unroll
+    for (int kk = 0; kk < KPL; ++kk) {
+      const int j = lane + 32 * kk;
+      const bool key_ok = j < nk && (!kDecode || vis[j]);
+#pragma unroll
+      for (int i = 0; i < kWarpRows; ++i) {
+        const bool ok = key_ok && i < wrows &&
+                        (kDecode || t0 + j <= (wr0 + i) / H);
+        if (!ok) s[kk][i] = kNegInf;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kWarpRows; ++i) {
+      float mx = s[0][i];
+#pragma unroll
+      for (int kk = 1; kk < KPL; ++kk) mx = fmaxf(mx, s[kk][i]);
+#pragma unroll
+      for (int off = 16; off >= 1; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+      const float mn = fmaxf(m[i], mx);  // m[i] >= the clamp already
+      const float c = exp2_(m[i] - mn);
+      m[i] = mn;
+      float ps = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KPL; ++kk) {
+        s[kk][i] = exp2_(s[kk][i] - mn);
+        ps += s[kk][i];
+      }
+      l[i] = l[i] * c + ps;
+#pragma unroll
+      for (int e = 0; e < kLaneDims; ++e) o[i][e] *= c;
+    }
+    // P V: key j's p from lane j % 32, the lane's 16 dims of its value row
+    const T* vlane = ks + 4 * lane;
+#pragma unroll
+    for (int kk = 0; kk < KPL; ++kk) {
+#pragma unroll 2
+      for (int src = 0; src < 32; ++src) {
+        const int j = 32 * kk + src;
+        if (j >= nk) break;
+        float p[kWarpRows];
+#pragma unroll
+        for (int i = 0; i < kWarpRows; ++i)
+          p[i] = __shfl_sync(kFull, s[kk][i], src);
+        const T* vr = vlane + j * kStride;
+#pragma unroll
+        for (int c = 0; c < kLaneDims / 4; ++c) {
+          const float4 v4 = ld4(vr + 128 * c);
+#pragma unroll
+          for (int i = 0; i < kWarpRows; ++i) {
+            o[i][4 * c + 0] = fmaf(p[i], v4.x, o[i][4 * c + 0]);
+            o[i][4 * c + 1] = fmaf(p[i], v4.y, o[i][4 * c + 1]);
+            o[i][4 * c + 2] = fmaf(p[i], v4.z, o[i][4 * c + 2]);
+            o[i][4 * c + 3] = fmaf(p[i], v4.w, o[i][4 * c + 3]);
+          }
+        }
+      }
+    }
+  }
+
+  // each row's sum over the lanes, then the output (or the split's part)
+  const bool split_out = kDecode && gridDim.y > 1;
+#pragma unroll
+  for (int i = 0; i < kWarpRows; ++i) {
+    float sum = l[i];
+#pragma unroll
+    for (int off = 16; off >= 1; off >>= 1)
+      sum += __shfl_xor_sync(kFull, sum, off);
+    if (i >= wrows) continue;
+    const long long r = (long long)b * rows + wr0 + i;
+    if (split_out) {
+      float* pr = a.part + (r * gridDim.y + split) * kPart;
+#pragma unroll
+      for (int c = 0; c < kLaneDims / 4; ++c)
+        st4(pr + 128 * c + 4 * lane, o[i][4 * c], o[i][4 * c + 1],
+            o[i][4 * c + 2], o[i][4 * c + 3]);
+      if (lane == 0) {
+        pr[kR] = m[i];
+        pr[kR + 1] = sum;
+      }
+    } else {
+      const float den = fmaxf(sum, 1e-30f);
+      T* orow = static_cast<T*>(a.out) + r * kR + 4 * lane;
+#pragma unroll
+      for (int c = 0; c < kLaneDims / 4; ++c)
+        st4(orow + 128 * c, o[i][4 * c] / den, o[i][4 * c + 1] / den,
+            o[i][4 * c + 2] / den, o[i][4 * c + 3] / den);
+    }
+  }
+}
+
+// decode's merge of the splits of one query row: 128 threads of 4 dims
+template <typename T>
+__global__ void __launch_bounds__(kR / 4)
+    mla_decode_merge_kernel(const float* __restrict__ part,
+                            T* __restrict__ out, int splits) {
+  const long long r = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+  const float* pr = part + r * splits * kPart;
+  const int d = 4 * threadIdx.x;
+  float mx = kFloor2;
+  for (int s = 0; s < splits; ++s) mx = fmaxf(mx, pr[s * kPart + kR]);
+  float sum = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < splits; ++s) {
+    const float* ps = pr + s * kPart;
+    const float c = exp2_(ps[kR] - mx);
+    const float4 x = *reinterpret_cast<const float4*>(ps + d);
+    sum = fmaf(ps[kR + 1], c, sum);
+    acc.x = fmaf(x.x, c, acc.x);
+    acc.y = fmaf(x.y, c, acc.y);
+    acc.z = fmaf(x.z, c, acc.z);
+    acc.w = fmaf(x.w, c, acc.w);
+  }
+  const float den = fmaxf(sum, 1e-30f);
+  st4(out + r * kR + d, acc.x / den, acc.y / den, acc.z / den, acc.w / den);
+}
+
+// the dynamic shared memory limit, set once per (instance, device)
+template <typename T, bool kDecode>
+cudaError_t allow_smem(int device) {
+  static unsigned long long done = 0;
+  if (device < 64 && (done >> device & 1)) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      mla_attention_kernel<T, kDecode>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<T>());
+  if (err == cudaSuccess && device < 64) done |= 1ull << device;
+  return err;
+}
+
+template <typename T>
+cudaError_t prefill(const Args& a, int B, int device, cudaStream_t st) {
+  cudaError_t err = allow_smem<T, false>(device);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.rows + kBlockRows - 1) / kBlockRows, 1, B);
+  mla_attention_kernel<T, false><<<grid, kThreads, smem_bytes<T>(), st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t decode(const Args& a, int B, int splits, int device,
+                   cudaStream_t st) {
+  cudaError_t err = allow_smem<T, true>(device);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.rows + kBlockRows - 1) / kBlockRows, splits, B);
+  mla_attention_kernel<T, true><<<grid, kThreads, smem_bytes<T>(), st>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  mla_decode_merge_kernel<T><<<dim3(a.rows, B), kR / 4, 0, st>>>(
+      a.part, static_cast<T*>(a.out), splits);
+  return cudaGetLastError();
+}
+
+bool bad_widths(int R, int Dr) { return R != kR || Dr != kDr; }
+
+bool misaligned(const void* p) { return (uintptr_t)p % 16 != 0; }
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16.  q_lat (B, S, H, R), q_rope
+// (B, S, H, Dr), c_kv (B, Tk, R), k_rope (B, Tk, Dr), out (B, S, H, R),
+// all contiguous and 16-byte aligned; R must be 512 and Dr 64.  Causal over
+// positions 0..S-1 and 0..Tk-1.
+extern "C" int flash_attention_latent_launch(
+    const void* q_lat, const void* q_rope, const void* c_kv,
+    const void* k_rope, void* out, int B, int S, int Tk, int H, int R,
+    int Dr, float scale, int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (bad_widths(R, Dr) || B <= 0 || B > 65535 || S <= 0 || Tk <= 0 ||
+      H <= 0 || (long long)S * H > (1ll << 30))
+    return (int)cudaErrorInvalidValue;
+  if (misaligned(q_lat) || misaligned(q_rope) || misaligned(c_kv) ||
+      misaligned(k_rope) || misaligned(out))
+    return (int)cudaErrorMisalignedAddress;
+  Args a{q_lat, q_rope, c_kv, k_rope, nullptr, nullptr, out, nullptr,
+         S * H, H, Tk, 0, scale * kLog2e};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) return (int)prefill<float>(a, B, device, st);
+  if (dtype == 1) return (int)prefill<__nv_bfloat16>(a, B, device, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// One token a batch row: q_lat (B, H, R), q_rope (B, H, Dr) over the cache
+// c_kv (B, Tk, R), k_rope (B, Tk, Dr) with slot positions kv_pos (B, Tk)
+// and query positions q_pos (B,), int32.  The cache is cut into `splits`
+// runs of split_len slots (whole tiles of Tile<T>::keys slots, none
+// empty); with more than one split, part is (B, H, splits, R + 4) f32
+// scratch from the wrapper and a second launch merges the splits.
+extern "C" int decode_attention_latent_launch(
+    const void* q_lat, const void* q_rope, const void* c_kv,
+    const void* k_rope, const void* kv_pos, const void* q_pos, void* part,
+    void* out, int B, int Tk, int H, int R, int Dr, int splits,
+    int split_len, float scale, int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int nk = dtype == 0 ? Tile<float>::keys : Tile<__nv_bfloat16>::keys;
+  if (bad_widths(R, Dr) || B <= 0 || B > 65535 || Tk <= 0 || H <= 0 ||
+      splits <= 0 || splits > 65535 || split_len <= 0 || split_len % nk ||
+      (long long)(splits - 1) * split_len >= Tk ||
+      (long long)splits * split_len < Tk || (splits > 1 && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (misaligned(q_lat) || misaligned(q_rope) || misaligned(c_kv) ||
+      misaligned(k_rope) || misaligned(out) ||
+      (splits > 1 && misaligned(part)))
+    return (int)cudaErrorMisalignedAddress;
+  Args a{q_lat, q_rope, c_kv, k_rope, (const int*)kv_pos, (const int*)q_pos,
+         out, (float*)part, H, H, Tk, split_len, scale * kLog2e};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) return (int)decode<float>(a, B, splits, device, st);
+  if (dtype == 1) return (int)decode<__nv_bfloat16>(a, B, splits, device, st);
+  return (int)cudaErrorInvalidValue;
+}

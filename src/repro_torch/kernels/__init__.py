@@ -5,10 +5,12 @@ launch counter.  The placement pipeline's:
   cover_rounds      — every greedy round of a word-count bucket
   lockstep_peel     — the dense Algorithm-5 peel of LMBR
 
-and the model stack's (the hymba and dense-GQA serving paths):
+and the model stack's (the serving paths):
 
-  flash_attention   — causal / sliding-window GQA prefill attention
-  decode_attention  — one-token GQA flash-decode over a KV cache
+  flash_attention   — causal / sliding-window GQA prefill attention, and
+                      its latent form for MLA (flash_attention_latent)
+  decode_attention  — one-token GQA flash-decode over a KV cache, and its
+                      latent form for MLA (decode_attention_latent)
   ssd_scan          — the Mamba2 SSD chunk scan from a carried state
 
 A wrapper runs the plain version for CPU tensors and launches the kernel

@@ -19,6 +19,21 @@ dtype.
   ``split_plan`` — how the kernel cuts the cache into splits, one block
   each per (split, head group of a kv head, batch row);
   ``resident_blocks`` — the wave it fills on a card.
+
+The latent form, for multi-head latent attention's absorbed decode: one
+token's query rows ``[q_lat ; q_rope]`` (B, H, R + Dr) over the latent
+cache ``[c_kv ; k_rope]`` (B, T, R + Dr), one key head shared by every
+query head, ``c_kv`` the value, the scale from the caller; decode's
+masking (``kv_pos >= 0``, ``kv_pos <= q_pos``) and the same clamped fp32
+softmax; output (B, H, R) in q's dtype.
+
+* ``decode_attention_latent_plain`` — its plain PyTorch version.
+* ``decode_attention_latent`` — the wrapper: plain version for CPU
+  tensors, the CUDA kernel (``csrc/mla_attention.cu``, R 512 and Dr 64)
+  for CUDA tensors; ``decode_attention_latent.launches`` counts its calls
+  (one kernel launch, and a second that merges the splits when there is
+  more than one).
+* ``latent_split_plan`` — how that kernel cuts the cache into splits.
 """
 
 from __future__ import annotations
@@ -29,9 +44,11 @@ import torch
 
 from ... import _build
 from .. import check_same_device, launch_args
+from ..flash_attention.ops import _check_latent, _check_latent_widths
 
 __all__ = ["decode_attention", "decode_attention_plain", "head_groups",
-           "resident_blocks", "split_plan"]
+           "resident_blocks", "split_plan", "decode_attention_latent",
+           "decode_attention_latent_plain", "latent_split_plan"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -39,6 +56,10 @@ CHUNK = 64                # must equal kChunk in csrc/decode_attention.cu
 MAX_CHUNKS = 32           # chunks per split: kMaxSplit / kChunk
 MAX_GROUP = 16            # query heads per kv head; must equal kMaxG
 BLOCK_GROUP = 8           # query heads per block; must equal kBlockG
+# the latent kernel's keys per staged tile and query rows per block; must
+# equal Tile<T>::keys and kBlockRows in csrc/mla_attention.cu
+LATENT_TILE_KEYS = {torch.float32: 32, torch.bfloat16: 64}
+LATENT_BLOCK_ROWS = 64
 # (device index, stream) -> the kernel's int32 arrival counters, one per
 # (batch row, kv head, head group); each launch leaves them at zero again
 _COUNTERS: dict = {}
@@ -154,3 +175,77 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------- latent
+def latent_split_plan(b: int, h: int, t: int, sms: int,
+                      tile_keys: int) -> tuple[int, int]:
+    """(splits, slots per split) of the latent decode kernel: the cache's
+    ``t`` slots in whole tiles of ``tile_keys``, cut into as many runs as
+    one block per SM over the ``b * ceil(h / 64)`` (batch row, 64 heads)
+    pairs allows, at most one per tile, none empty."""
+    tiles = -(-t // tile_keys)
+    want = max(1, min(tiles, sms // (b * -(-h // LATENT_BLOCK_ROWS))))
+    per = -(-tiles // want)
+    return -(-tiles // per), per * tile_keys
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def decode_attention_latent_plain(q_lat, q_rope, c_kv, k_rope, kv_pos, q_pos,
+                                  *, scale: float):
+    ckv = c_kv.float()
+    sc = (torch.einsum("bhr,btr->bht", q_lat.float(), ckv)
+          + torch.einsum("bhd,btd->bht", q_rope.float(), k_rope.float()))
+    sc = sc * scale
+    valid = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+    sc = torch.where(valid[:, None, :], sc, torch.full_like(sc, NEG_INF))
+    m = sc.amax(dim=-1, keepdim=True).clamp_min(-1e4)
+    p = torch.exp(sc - m)
+    o = torch.einsum("bht,btr->bhr", p, ckv)
+    return (o / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).to(q_lat.dtype)
+
+
+def decode_attention_latent(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                            c_kv: torch.Tensor, k_rope: torch.Tensor,
+                            kv_pos: torch.Tensor, q_pos: torch.Tensor, *,
+                            scale: float) -> torch.Tensor:
+    """Latent attention of one token's q_lat (B, H, R) / q_rope (B, H, Dr)
+    over the cache c_kv (B, T, R) / k_rope (B, T, Dr) with slot positions
+    kv_pos (B, T) and query positions q_pos (B,); returns (B, H, R)."""
+    dev = check_same_device(q_lat, q_rope, c_kv, k_rope, kv_pos, q_pos)
+    _check_latent(q_lat, q_rope, c_kv, k_rope, 2)
+    b, h, r = q_lat.shape
+    t = c_kv.shape[1]
+    if kv_pos.shape != (b, t) or q_pos.shape != (b,):
+        raise ValueError("kv_pos must be (B, T) and q_pos (B,)")
+    if kv_pos.dtype != torch.int32 or q_pos.dtype != torch.int32:
+        raise TypeError("decode_attention_latent takes int32 kv_pos and "
+                        "q_pos")
+    if dev.type == "cpu":
+        return decode_attention_latent_plain(q_lat, q_rope, c_kv, k_rope,
+                                             kv_pos, q_pos, scale=scale)
+    _check_latent_widths(q_lat, q_rope)
+    out = torch.empty_like(q_lat)
+    if out.numel() == 0:
+        return out
+    index, stream = launch_args(dev)
+    ns, per = latent_split_plan(b, h, t, _sm_count(index),
+                                LATENT_TILE_KEYS[q_lat.dtype])
+    part = (torch.empty((b, h, ns, r + 4), dtype=torch.float32, device=dev)
+            if ns > 1 else None)
+    err = _build.lib().decode_attention_latent_launch(
+        q_lat.data_ptr(), q_rope.data_ptr(), c_kv.data_ptr(),
+        k_rope.data_ptr(), kv_pos.data_ptr(), q_pos.data_ptr(),
+        part.data_ptr() if part is not None else None, out.data_ptr(),
+        b, t, h, r, q_rope.shape[-1], ns, per, float(scale),
+        _DTYPES[q_lat.dtype], index, stream)
+    _build.check(err, "decode_attention_latent")
+    decode_attention_latent.launches += 1
+    return out
+
+
+decode_attention_latent.launches = 0

@@ -1,3 +1,4 @@
 """flash_attention kernel package (see ops.py)."""
 
-from .ops import flash_attention, flash_attention_plain  # noqa: F401
+from .ops import (flash_attention, flash_attention_latent,  # noqa: F401
+                  flash_attention_latent_plain, flash_attention_plain)

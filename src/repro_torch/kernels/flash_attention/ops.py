@@ -18,6 +18,20 @@ q's dtype.
   instances: ``"wgmma"`` (bf16 with head_dim 64, 80 or 128, both
   products on the tensor cores) and ``"fma"`` (f32, and bf16 with
   head_dim 32, on the CUDA cores).
+
+The latent form, for multi-head latent attention's absorbed prefill: query
+rows ``[q_lat ; q_rope]`` (B, S, H, R + Dr), one key head shared by every
+query head, the latent row ``[c_kv ; k_rope]`` (B, T, R + Dr), whose
+first R elements, ``c_kv``, are the value; the scale comes from the caller
+(MLA's ``(qk_nope + qk_rope) ** -0.5``, not the key width's).  Causal over
+positions 0..S-1 and 0..T-1, the same clamped fp32 softmax, output
+(B, S, H, R) in q's dtype: the reference's ``chunked_attention`` on the
+concatenated inputs with ``softmax_scale``.
+
+* ``flash_attention_latent_plain`` — its plain PyTorch version.
+* ``flash_attention_latent`` — the wrapper: plain version for CPU tensors,
+  the CUDA kernel (``csrc/mla_attention.cu``, R 512 and Dr 64) for CUDA
+  tensors; ``flash_attention_latent.launches`` counts its launches.
 """
 
 from __future__ import annotations
@@ -28,12 +42,14 @@ from ... import _build
 from .. import check_same_device, launch_args
 
 __all__ = ["flash_attention", "flash_attention_plain", "instance",
-           "NEG_INF"]
+           "flash_attention_latent", "flash_attention_latent_plain",
+           "LATENT_WIDTHS", "NEG_INF"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 80, 128)   # the C dispatch's
 _TENSOR_CORE_HEAD_DIMS = (64, 80, 128)   # bf16 on the wgmma instance
+LATENT_WIDTHS = (512, 64)   # (R, Dr) that csrc/mla_attention.cu takes
 
 
 def _mask(s: int, t: int, causal: bool, window, device) -> torch.Tensor:
@@ -112,3 +128,79 @@ def instance(dtype: torch.dtype, head_dim: int) -> str:
 
 flash_attention.launches = 0
 flash_attention.instance_launches = {"wgmma": 0, "fma": 0}
+
+
+# ---------------------------------------------------------------- latent
+def flash_attention_latent_plain(q_lat, q_rope, c_kv, k_rope, *,
+                                 scale: float):
+    b, s, h, r = q_lat.shape
+    t = c_kv.shape[1]
+    mask = _mask(s, t, True, None, q_lat.device)[:, None, :]   # (S, 1, T)
+    out = torch.empty_like(q_lat)
+    for i in range(b):
+        ckv = c_kv[i].float()                                    # (T, R)
+        sc = (q_lat[i].float().reshape(s * h, r) @ ckv.T
+              + q_rope[i].float().reshape(s * h, -1) @ k_rope[i].float().T)
+        sc = sc.reshape(s, h, t) * scale
+        sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+        m = sc.amax(dim=-1, keepdim=True).clamp_min(-1e4)
+        p = torch.exp(sc - m)
+        o = (p.reshape(s * h, t) @ ckv).reshape(s, h, r)
+        out[i] = (o / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).to(
+            q_lat.dtype)
+    return out
+
+
+def _check_latent(q_lat, q_rope, c_kv, k_rope, qdims: int) -> None:
+    """Shapes and dtypes shared by the latent prefill and decode: q_lat
+    (..., R) and q_rope (..., Dr) with ``qdims`` leading dims, c_kv
+    (B, T, R) and k_rope (B, T, Dr)."""
+    if (q_lat.dim() != qdims + 1 or q_rope.shape[:-1] != q_lat.shape[:-1]
+            or c_kv.dim() != 3 or k_rope.shape[:-1] != c_kv.shape[:-1]
+            or c_kv.shape[0] != q_lat.shape[0]
+            or c_kv.shape[2] != q_lat.shape[-1]
+            or k_rope.shape[2] != q_rope.shape[-1]):
+        raise ValueError(
+            f"latent attention takes q_lat / q_rope of {qdims} leading dims "
+            "and widths R / Dr, c_kv (B, T, R) and k_rope (B, T, Dr); got "
+            f"{tuple(q_lat.shape)}, {tuple(q_rope.shape)}, "
+            f"{tuple(c_kv.shape)}, {tuple(k_rope.shape)}")
+    if q_lat.dtype not in _DTYPES or any(
+            x.dtype != q_lat.dtype for x in (q_rope, c_kv, k_rope)):
+        raise TypeError("latent attention takes f32 or bf16 inputs of one "
+                        "dtype")
+
+
+def _check_latent_widths(q_lat, q_rope) -> None:
+    widths = (q_lat.shape[-1], q_rope.shape[-1])
+    if widths != LATENT_WIDTHS:
+        raise ValueError(f"the CUDA kernel takes (R, Dr) = {LATENT_WIDTHS}, "
+                         f"got {widths}")
+
+
+def flash_attention_latent(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                           c_kv: torch.Tensor, k_rope: torch.Tensor, *,
+                           scale: float) -> torch.Tensor:
+    """Causal latent attention of q_lat (B, S, H, R) / q_rope (B, S, H, Dr)
+    over c_kv (B, T, R) / k_rope (B, T, Dr); returns (B, S, H, R)."""
+    dev = check_same_device(q_lat, q_rope, c_kv, k_rope)
+    _check_latent(q_lat, q_rope, c_kv, k_rope, 3)
+    if dev.type == "cpu":
+        return flash_attention_latent_plain(q_lat, q_rope, c_kv, k_rope,
+                                            scale=scale)
+    _check_latent_widths(q_lat, q_rope)
+    out = torch.empty_like(q_lat)
+    if out.numel() == 0:
+        return out
+    b, s, h, r = q_lat.shape
+    index, stream = launch_args(dev)
+    err = _build.lib().flash_attention_latent_launch(
+        q_lat.data_ptr(), q_rope.data_ptr(), c_kv.data_ptr(),
+        k_rope.data_ptr(), out.data_ptr(), b, s, c_kv.shape[1], h, r,
+        q_rope.shape[-1], float(scale), _DTYPES[q_lat.dtype], index, stream)
+    _build.check(err, "flash_attention_latent")
+    flash_attention_latent.launches += 1
+    return out
+
+
+flash_attention_latent.launches = 0

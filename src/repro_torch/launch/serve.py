@@ -6,7 +6,10 @@
 ``--arch`` takes the ported architectures: hymba-1.5b (hybrid), the
 dense-GQA glm4-9b, olmo-1b, h2o-danube-1.8b and nemotron-4-15b, the
 pure-SSM mamba2-2.7b (whose cache holds only the SSM state) and the MoE
-qwen3-moe-30b-a3b (served with the identity expert dispatch).  The
+qwen3-moe-30b-a3b and deepseek-v3-671b (served with the identity expert
+dispatch; deepseek-v3's attention is MLA, its cache the latent rows, and
+at its published widths only a few layers fit one card:
+``load_model("deepseek-v3-671b", num_layers=4)``).  The
 reference driver (``repro.launch.serve``) with the same CLI plus
 ``--device`` (default "cuda"; raises without CUDA unless "cpu" is given):
 random prompts from ``numpy.random.default_rng(seed)``, one prefill per

@@ -1,6 +1,6 @@
 """The model stack of the port: the serving path of the hybrid (hymba),
 dense-GQA (glm4, olmo, h2o-danube, nemotron), pure-SSM (mamba2) and MoE
-(qwen3-moe) families."""
+(qwen3-moe; deepseek-v3, with MLA) families."""
 
 from .convert import params_from_jax  # noqa: F401
 from .model import (  # noqa: F401

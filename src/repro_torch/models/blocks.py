@@ -2,18 +2,19 @@
 
 Ported families (the reference's ``models/blocks.py``):
 
-* dense GQA (glm4, olmo, h2o-danube, nemotron): pre-norm GQA attention ->
+* dense (glm4, olmo, h2o-danube, nemotron): pre-norm attention ->
   residual -> pre-norm MLP (SwiGLU or non-gated) -> residual;
-* MoE (qwen3-moe): the same with the MLP replaced by the MoE block
-  (``models/moe.py``) from layer ``first_k_dense`` on; the first
-  ``first_k_dense`` layers keep a dense MLP at ``d_ff``;
+* MoE (qwen3-moe, deepseek-v3): the same with the MLP replaced by the MoE
+  block (``models/moe.py``) from layer ``first_k_dense`` on; the first
+  ``first_k_dense`` layers keep a dense MLP at ``d_ff``.  The attention of
+  both is GQA, or MLA where ``cfg.attention == "mla"`` (deepseek-v3);
 * hybrid (hymba): pre-norm, then GQA attention AND mamba2 in PARALLEL on
   the same input, each path RMS-normalized, averaged, added to the
   residual, then the pre-norm SwiGLU FFN;
 * pure SSM (mamba2): pre-norm mamba2 -> residual, no FFN.
 
-The other families raise NotImplementedError, naming the ROADMAP Queue 1
-sub-item that holds them.
+The encoder-decoder and VLM families raise NotImplementedError, naming
+the ROADMAP Queue 1 sub-item that holds them.
 """
 
 from __future__ import annotations
@@ -27,26 +28,21 @@ __all__ = ["init_block", "apply_block", "init_block_cache", "block_kind"]
 
 
 def block_kind(cfg) -> str:
-    """"hybrid", "ssm", "moe" or "dense" (both GQA); raises on the families
-    the port does not run yet."""
+    """"hybrid", "ssm", "moe" or "dense" (the last two with GQA or MLA);
+    raises on the families the port does not run yet."""
     if cfg.encoder_layers or cfg.frontend:
-        item = "9.4: the encoder-decoder and VLM frontends"
-    elif cfg.attention == "mla":
-        item = "9.3: MLA"
-    elif cfg.mtp_depth:
-        item = "9.5: multi-token prediction, with training"
-    elif cfg.moe:
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}): only the dense, MoE, hybrid "
+            "GQA+mamba2 and pure-SSM blocks are ported; this family waits "
+            "in ROADMAP Queue 1 item 9.4: the encoder-decoder and VLM "
+            "frontends")
+    if cfg.moe:
         return "moe"
-    elif cfg.attention == "hybrid":
+    if cfg.attention == "hybrid":
         return "hybrid"
-    elif cfg.attention == "none":
+    if cfg.attention == "none":
         return "ssm"
-    else:
-        return "dense"
-    raise NotImplementedError(
-        f"{cfg.name} ({cfg.family}, attention={cfg.attention!r}): only the "
-        "dense-GQA, MoE (GQA), hybrid GQA+mamba2 and pure-SSM blocks are "
-        f"ported; this family waits in ROADMAP Queue 1 item {item}")
+    return "dense"
 
 
 def _is_moe_layer(cfg, layer_idx: int) -> bool:
@@ -64,7 +60,8 @@ def init_block(gen, cfg, dtype, device=None, *, layer_idx: int = 0,
     p = {}
     if kind != "ssm":
         p["ln_attn"] = init_norm(cfg.norm, d, dtype, device)
-        p["attn"] = attn.init_gqa(gen, cfg, dtype, device)
+        init_attn = attn.init_mla if cfg.attention == "mla" else attn.init_gqa
+        p["attn"] = init_attn(gen, cfg, dtype, device)
     if kind in ("hybrid", "ssm"):
         # the reference creates ln_ssm for every SSM-carrying block; only
         # the pure-SSM branch reads it
@@ -97,9 +94,14 @@ def apply_block(params: dict, cfg, x, positions, *, window=None,
         return (x + s_out, (dict(ssm=c_ssm) if cache is not None else None),
                 aux)
     h = apply_norm(cfg.norm, params["ln_attn"], x)
-    a_out, c_attn = attn.gqa_attention(
-        params["attn"], cfg, h, positions, window=window,
-        kv_cache=cache["attn"] if cache else None)
+    kv_cache = cache["attn"] if cache else None
+    if cfg.attention == "mla":
+        a_out, c_attn = attn.mla_attention(params["attn"], cfg, h, positions,
+                                           kv_cache=kv_cache)
+    else:
+        a_out, c_attn = attn.gqa_attention(params["attn"], cfg, h,
+                                           positions, window=window,
+                                           kv_cache=kv_cache)
     new_cache = dict(attn=c_attn) if cache is not None else None
     if kind == "hybrid":
         s_out, c_ssm = ssm_mod.apply_mamba2(
@@ -123,7 +125,10 @@ def init_block_cache(cfg, batch: int, max_len: int, dtype, *, window=None,
                      device=None) -> dict:
     kind = block_kind(cfg)
     c = {}
-    if kind != "ssm":
+    if cfg.attention == "mla":
+        c["attn"] = attn.init_mla_cache(cfg, batch, max_len, dtype,
+                                        device=device)
+    elif kind != "ssm":
         c["attn"] = attn.init_gqa_cache(cfg, batch, max_len, dtype,
                                         window=window, device=device)
     if kind in ("hybrid", "ssm"):

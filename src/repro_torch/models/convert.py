@@ -8,8 +8,11 @@ layer-stacked ``blocks`` (leading axis = layer) split into a list of
 per-layer dicts.  An MoE config with ``first_k_dense`` > 0 also has the
 stacked ``dense_blocks`` group of its first layers: those come first in
 the list, then the ``num_layers - first_k_dense`` MoE layers of
-``blocks`` (``router``, ``we_gate``, ``we_up``, ``we_down``, ``shared``).  Leaf dtypes are kept; a bfloat16 leaf (numpy's
-``ml_dtypes`` bfloat16) goes through float32, which holds it exactly.
+``blocks`` (``router``, ``we_gate``, ``we_up``, ``we_down``, ``shared``).
+A config with ``mtp_depth`` > 0 also has the ``mtp`` group (``proj``,
+one unstacked dense ``block``, ``norm``), taken as it is.  Leaf dtypes
+are kept; a bfloat16 leaf (numpy's ``ml_dtypes`` bfloat16) goes through
+float32, which holds it exactly.
 Empty groups (the non-parametric LayerNorm's ``{}``) stay empty.
 """
 
@@ -41,14 +44,17 @@ def params_from_jax(cfg, tree: dict, device=None) -> dict:
     dev = device_mod.resolve(device)
     kd = cfg.moe.first_k_dense if cfg.moe else 0
     groups = ["blocks", "dense_blocks"] if kd else ["blocks"]
-    extra = set(tree) - {"embed", "unembed", "final_norm", *groups}
+    plain = {"embed", "unembed", "final_norm"}
+    if cfg.mtp_depth:
+        plain.add("mtp")
+    extra = set(tree) - plain - set(groups)
     if extra:
         raise NotImplementedError(
             f"parameter groups {sorted(extra)} belong to families the port "
             "does not run yet (ROADMAP Queue 1 item 9: dense_blocks only "
-            "with an MoE config's first_k_dense layers; mtp in 9.5, the "
-            "encoder-decoder and VLM frontends' enc_blocks and "
-            "frontend_proj in 9.4)")
+            "with an MoE config's first_k_dense layers, mtp only with "
+            "mtp_depth; the encoder-decoder and VLM frontends' enc_blocks "
+            "and frontend_proj in 9.4)")
     out = {k: _map(v, lambda a: _leaf(a, dev))
            for k, v in tree.items() if k not in groups}
     out["blocks"] = [

@@ -10,7 +10,9 @@ which hold the same numbers slice by slice.  A tied-embedding model (olmo) has n
 ``unembed`` group and unembeds with the embedding table.  An MoE model's
 first ``first_k_dense`` layers are dense (the reference's
 ``dense_blocks`` group, which runs before ``blocks``); every MoE entry
-point takes ``moe_dispatch`` (None: the identity dispatch).
+point takes ``moe_dispatch`` (None: the identity dispatch).  A config
+with ``mtp_depth`` (deepseek-v3) also gets the reference's ``mtp`` group
+(``proj``, one dense block, ``norm``), which serving never reads.
 
 Cache layout: {"layers": [block cache per layer], "encoder": None}.
 """
@@ -21,7 +23,8 @@ import torch
 
 from .. import device as device_mod
 from . import blocks
-from .layers import apply_norm, embed_lookup, init_embed, init_norm, unembed
+from .layers import (apply_norm, dense_init, embed_lookup, init_embed,
+                     init_norm, unembed)
 
 __all__ = ["init_params", "forward", "prefill", "decode_step", "init_cache",
            "layer_windows"]
@@ -59,6 +62,16 @@ def init_params(cfg, seed: int = 0, device=None, moe_dispatch=None) -> dict:
     p["blocks"] = [blocks.init_block(gen, cfg, dtype, dev, layer_idx=i,
                                      moe_dispatch=moe_dispatch)
                    for i in range(cfg.num_layers)]
+    if cfg.mtp_depth:
+        # the reference's multi-token-prediction group; serving never reads
+        # it (its loss is training's, ROADMAP Queue 1 item 9.5)
+        p["mtp"] = {
+            "proj": dense_init(gen, (2 * cfg.d_model, cfg.d_model), dtype,
+                               device=dev),
+            "block": blocks.init_block(gen, cfg, dtype, dev, layer_idx=0,
+                                       force_dense=True),
+            "norm": init_norm(cfg.norm, cfg.d_model, dtype, dev),
+        }
     return p
 
 

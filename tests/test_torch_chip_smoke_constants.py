@@ -759,7 +759,10 @@ def test_phase_order_puts_the_moe_phases_before_health():
     phases = chip_smoke.PHASES
     assert phases.index("serve-ssm-check") + 1 == phases.index("serve-moe")
     assert phases.index("serve-moe") + 1 == phases.index("serve-moe-check")
-    assert phases.index("serve-moe-check") + 1 == phases.index("health")
+    # then the MLA phases, then health
+    i = phases.index("serve-moe-check")
+    assert phases[i:i + 4] == ("serve-moe-check", "serve-mla",
+                               "serve-mla-check", "health")
     assert phases[-2:] == ("health", "scale")
 
 
@@ -814,3 +817,105 @@ def test_moe_refit_spans_are_the_reference_ones():
     assert (got_base, got_span) == chip_smoke.MOE_REFIT
     assert (got_plan.member == plan.member).all()
     assert got_plan.slot_to_expert.shape == (4, slots)
+
+
+# ------------------------------------------------------------ the MLA slice
+def test_serve_mla_config_is_the_reference_config():
+    import dataclasses
+
+    from repro.configs import get_config as ref_get_config
+    from repro_torch.configs import get_config
+    from repro_torch.models.blocks import block_kind
+
+    arch = chip_smoke.MLA_ARCH
+    cfg, ref = get_config(arch), ref_get_config(arch)
+    assert arch == "deepseek-v3-671b"
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    assert block_kind(cfg) == "moe" and ref.attention == "mla"
+    # cut in depth only: the dense layers and one MoE layer for serve-mla,
+    # the dense layers alone for serve-mla-check
+    kd = ref.moe.first_k_dense
+    assert chip_smoke.MLA_LAYERS == kd + 1 == 4
+    assert chip_smoke.MLA_CHECK_LAYERS == kd == 3
+    # the latent kernels' widths and scale are the config's
+    m = ref.mla
+    assert (chip_smoke.MLA_HEADS, chip_smoke.MLA_RANK,
+            chip_smoke.MLA_ROPE) == (ref.num_heads, m.kv_lora_rank,
+                                     m.qk_rope_head_dim)
+    assert chip_smoke.MLA_SCALE == (m.qk_nope_head_dim
+                                    + m.qk_rope_head_dim) ** -0.5
+
+
+def test_mla_kernel_rows_sit_at_serve_shapes():
+    serve = chip_smoke.SERVE
+    assert ("serve", serve["batch"], serve["prefill_len"]) in \
+        chip_smoke.MLA_FLASH
+    assert ("serve", serve["batch"],
+            serve["prefill_len"] + serve["decode_len"]) in \
+        chip_smoke.MLA_DECODE
+    # serve-mla-check's prefill length and serve's warm-up cache
+    assert ("ragged", 2, 1528) in chip_smoke.MLA_FLASH
+    assert ("warm-up", 1, 18) in chip_smoke.MLA_DECODE
+    assert all(s % 64 and s % 32 for _, _, s in chip_smoke.MLA_FLASH[1:])
+
+
+def test_mla_bounds():
+    bf16, f32 = chip_smoke.BF16_OPS_PER_S, chip_smoke.FP32_OPS_PER_S
+    B, S, H = 8, 2048, 128
+    # 2 B H S (S + 1) / 2 (576 + 512) flops: 4.68e12, 4.73 ms of bf16
+    ms, by = chip_smoke._latent_prefill_bound(B, S, H, 2, bf16)
+    assert by == "operations"
+    assert ms == pytest.approx(4.675e12 / bf16 * 1e3, rel=1e-3)
+    assert ms == pytest.approx(4.727, abs=1e-3)
+    ms32, by32 = chip_smoke._latent_prefill_bound(B, S, H, 4, f32)
+    assert by32 == "operations" and ms32 == pytest.approx(ms * bf16 / f32)
+    # decode over a full cache: 19.5 MB of latent rows, plus q, out and
+    # the positions, bound by bytes
+    T = 2112
+    ms, by = chip_smoke._latent_decode_bound(B, T, H, B * T, 2, bf16)
+    rows = B * T * 576 * 2
+    assert rows == pytest.approx(19.46e6, rel=1e-3)
+    extra = B * T * 4 + B * 4 + B * H * (512 + 576) * 2
+    assert by == "bytes"
+    assert ms == pytest.approx((rows + extra) / chip_smoke.HBM_BYTES_PER_S
+                               * 1e3)
+    assert 0.0058 < ms < 0.0066
+
+
+def test_mla_refit_spans_are_the_reference_ones():
+    from repro.configs import get_config as ref_get_config
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import expert_refit
+
+    arch = chip_smoke.MLA_ARCH
+    m = ref_get_config(arch).moe
+    trace = ref_core.synthetic_routing_trace(m.num_experts, 200,
+                                             top_k=m.top_k, seed=1)
+    slots = m.num_experts // 4 + 2
+    assert slots == 66
+    plan = ref_core.plan_expert_placement(trace, m.num_experts, 4, slots,
+                                          algorithm="lmbr")
+    base = ref_core.baseline_contiguous_placement(m.num_experts, 4, slots)
+    assert (base.avg_span(trace), plan.avg_span(trace)) == \
+        chip_smoke.MLA_REFIT
+    got_base, got_span, got_plan = expert_refit(get_config(arch),
+                                                device="cpu")
+    assert (got_base, got_span) == chip_smoke.MLA_REFIT
+    assert (got_plan.member == plan.member).all()
+
+
+def test_mla_instances_are_parsed_from_their_mangled_names():
+    names = {
+        "_ZN49_GLOBAL__N__c8312cf2_16_mla_attention_cu_38189a8120mla_"
+        "attention_kernelI13__nv_bfloat16Lb1EEEvNS_4ArgsE": ("bf16",
+                                                            "decode"),
+        "_ZN49_GLOBAL__N__c8312cf2_16_mla_attention_cu_38189a8120mla_"
+        "attention_kernelIfLb0EEEvNS_4ArgsE": ("f32", "prefill"),
+    }
+    for entry, want in names.items():
+        assert chip_smoke._mla_instance(entry) == want
+        # no other instance parser takes them
+        assert chip_smoke._attention_instance(entry) is None
+        assert chip_smoke._wgmma_instance(entry) is None
+    assert chip_smoke._mla_instance(
+        "_ZN12_GLOBAL__N_123mla_decode_merge_kernelIfEEvPKfPT_i") is None

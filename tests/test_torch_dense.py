@@ -200,13 +200,11 @@ def test_serve_cli_on_cpu(arch, capsys):
 
 
 UNPORTED = {   # case -> (ROADMAP Queue 1 item, config overrides)
-    "mla": ("9.3", dict(attention="mla")),
     "vlm": ("9.4", dict(family="vlm", frontend="vision_patches",
                         frontend_len=8)),
     "encoder-decoder": ("9.4", dict(family="encdec", encoder_layers=2,
                                     frontend="audio_frames",
                                     frontend_len=8)),
-    "mtp": ("9.5", dict(mtp_depth=1)),
 }
 
 

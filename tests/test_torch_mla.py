@@ -1,0 +1,550 @@
+"""The MLA serving slice: deepseek-v3-671b and multi-head latent attention.
+
+The config copy against the JAX package's; ``mla_attention`` (the
+absorbed formulation) against the reference's on the same parameters and
+inputs, float32, within 1e-4: the cache-free forward, a prefill into an
+empty cache (output, and the cache's c_kv, k_rope and pos) and 4 decode
+steps, at ``reduce_config``'s MLA ranks and at the published ranks (q_lora
+1536, kv_lora 512, nope 128, rope 64, v 128) with d_model 256 and 4 heads.
+The two latent kernels' plain versions (and their wrappers, which run
+them on CPU tensors) against the reference's ``chunked_attention`` on the
+concatenated inputs with ``softmax_scale``, within 1e-5, with empty and
+future cache slots.  Reduced deepseek models (3 layers: one dense, two MoE
+with a shared expert, and the MTP group) on the reference's parameters
+through ``params_from_jax``: the forward, prefill and 4 decode steps
+within 1e-3 of the reference, and the port's teacher-forced decode
+within 2e-3 of its own forward; the MTP group's shapes and its absence
+from serving; the refused cases; ``launch.serve`` on the CPU with the
+reference's refit line.  On the CPU the kernels' plain versions run; the
+CUDA kernels are checked on the card by ``chip_smoke.py``."""
+
+import dataclasses
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro.core as ref_core
+from repro import flags as ref_flags
+from repro.configs import get_config as ref_get_config
+from repro.configs import reduce_config as ref_reduce_config
+from repro.models import attention as ref_attention
+from repro.models import decode_step as ref_decode_step
+from repro.models import forward as ref_forward
+from repro.models import init_params as ref_init_params
+from repro.models import prefill as ref_prefill
+from repro_torch import _build, flags
+from repro_torch.configs import (MLAConfig, get_config, list_configs,
+                                 reduce_config)
+from repro_torch.configs import deepseek_v3_671b as deepseek_config
+from repro_torch.kernels.decode_attention import ops as decode_ops
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.launch import serve as serve_mod
+from repro_torch.models import (attention, decode_step, forward, init_cache,
+                                init_params, params_from_jax, prefill)
+from repro_torch.models.blocks import block_kind
+
+jax = pytest.importorskip("jax")
+jnp = jax.numpy
+
+ARCH = "deepseek-v3-671b"
+ROOT = Path(__file__).resolve().parents[1]
+ATTN_TOL = dict(rtol=1e-4, atol=1e-4)    # one attention block, f32
+PLAIN_TOL = dict(rtol=1e-5, atol=1e-5)   # the plain kernels, f32
+TOL = dict(rtol=1e-3, atol=1e-3)         # a model's logits, f32
+TF_TOL = dict(rtol=2e-3, atol=2e-3)      # teacher-forced decode vs forward
+B, S, N_PREFILL = 2, 40, 36
+# deepseek-v3's published latent ranks, at a width the CPU runs quickly
+PUBLISHED = dict(d_model=256, num_heads=4, mla=MLAConfig())
+RANKS = {"reduced": {}, "published": PUBLISHED}
+
+
+@pytest.fixture(autouse=True)
+def _flag_hygiene():
+    flags.reset()
+    ref_flags.reset()
+    yield
+    flags.reset()
+    ref_flags.reset()
+
+
+def _to_torch(tree):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v) for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, copy=True))
+
+
+def _rng_normal(rng, *shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+# ------------------------------------------------------------ the config
+def test_config_is_the_reference_config():
+    assert ARCH in list_configs()
+    cfg, ref = get_config(ARCH), ref_get_config(ARCH)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    assert cfg.param_count() == ref.param_count()
+    assert "arXiv:2412.19437" in deepseek_config.__doc__
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.d_ff,
+            cfg.vocab_size, cfg.mtp_depth) == (61, 7168, 128, 18432, 129280,
+                                               1)
+    assert cfg.attention == "mla" and cfg.mla == MLAConfig(
+        q_lora_rank=1536, kv_lora_rank=512, qk_nope_head_dim=128,
+        qk_rope_head_dim=64, v_head_dim=128)
+    m = cfg.moe
+    assert (m.num_experts, m.top_k, m.d_ff_expert, m.num_shared_experts,
+            m.first_k_dense) == (256, 8, 2048, 1, 3)
+    assert block_kind(cfg) == "moe"
+    small, ref_small = reduce_config(cfg), ref_reduce_config(ref)
+    assert dataclasses.asdict(small) == dataclasses.asdict(ref_small)
+    assert small.mla.kv_lora_rank == 32 and small.mtp_depth == 1
+
+
+def test_the_cuda_kernel_widths_are_deepseeks():
+    m = get_config(ARCH).mla
+    assert flash_ops.LATENT_WIDTHS == (m.kv_lora_rank, m.qk_rope_head_dim)
+    assert (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5 == 192 ** -0.5
+
+
+# ------------------------------------------------------- the attention
+def _attn_case(ranks, seed=0):
+    extra = RANKS[ranks]
+    ref_cfg = ref_reduce_config(ref_get_config(ARCH), dtype="float32",
+                                **extra)
+    cfg = reduce_config(get_config(ARCH), dtype="float32", **extra)
+    ref_p = ref_attention.init_mla(jax.random.PRNGKey(seed), ref_cfg,
+                                   jnp.float32)
+    return ref_cfg, cfg, ref_p, _to_torch(ref_p)
+
+
+def _positions(b, s, start=0):
+    return np.broadcast_to(np.arange(start, start + s, dtype=np.int32),
+                           (b, s)).copy()
+
+
+@pytest.mark.parametrize("ranks", list(RANKS))
+def test_mla_forward_matches_reference(ranks):
+    ref_cfg, cfg, ref_p, params = _attn_case(ranks)
+    x = _rng_normal(np.random.default_rng(1), B, S, cfg.d_model)
+    pos = _positions(B, S)
+    want, ref_c = ref_attention.mla_attention(
+        ref_p, ref_cfg, jnp.asarray(x), jnp.asarray(pos), chunk=16)
+    got, cache = attention.mla_attention(
+        params, cfg, torch.from_numpy(x), torch.from_numpy(pos))
+    assert ref_c is None and cache is None
+    assert got.shape == (B, S, cfg.d_model) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+
+
+@pytest.mark.parametrize("ranks", list(RANKS))
+def test_mla_prefill_cache_and_decode_match_reference(ranks):
+    ref_cfg, cfg, ref_p, params = _attn_case(ranks, seed=2)
+    rng = np.random.default_rng(3)
+    x = _rng_normal(rng, B, N_PREFILL + 4, cfg.d_model)
+    ref_cache = ref_attention.init_mla_cache(ref_cfg, B, S, jnp.float32)
+    cache = attention.init_mla_cache(cfg, B, S, torch.float32, device="cpu")
+    pos = _positions(B, N_PREFILL)
+    want, ref_cache = ref_attention.mla_attention(
+        ref_p, ref_cfg, jnp.asarray(x[:, :N_PREFILL]), jnp.asarray(pos),
+        kv_cache=ref_cache, chunk=16)
+    got, cache = attention.mla_attention(
+        params, cfg, torch.from_numpy(x[:, :N_PREFILL]),
+        torch.from_numpy(pos), kv_cache=cache)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **ATTN_TOL)
+    assert cache["cursor"] == int(ref_cache["cursor"]) == N_PREFILL
+    for key in ("c_kv", "k_rope"):
+        assert cache[key].shape == ref_cache[key].shape
+        np.testing.assert_allclose(cache[key].numpy(),
+                                   np.asarray(ref_cache[key]), **ATTN_TOL)
+    np.testing.assert_array_equal(cache["pos"].numpy(),
+                                  np.asarray(ref_cache["pos"]))
+    for t in range(N_PREFILL, N_PREFILL + 4):
+        pos = np.full((B, 1), t, np.int32)
+        want, ref_cache = ref_attention.mla_attention(
+            ref_p, ref_cfg, jnp.asarray(x[:, t:t + 1]), jnp.asarray(pos),
+            kv_cache=ref_cache, chunk=16)
+        got, cache = attention.mla_attention(
+            params, cfg, torch.from_numpy(x[:, t:t + 1]),
+            torch.from_numpy(pos), kv_cache=cache)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **ATTN_TOL, err_msg=f"decode step {t}")
+    np.testing.assert_array_equal(cache["pos"].numpy(),
+                                  np.asarray(ref_cache["pos"]))
+    np.testing.assert_allclose(cache["c_kv"].numpy(),
+                               np.asarray(ref_cache["c_kv"]), **ATTN_TOL)
+
+
+def test_a_write_past_the_cache_raises():
+    """The reference's ``dynamic_update_slice`` clamps a write at the
+    cursor past the last slot onto the last slots; the port refuses it."""
+    _, cfg, _, params = _attn_case("reduced")
+    x = torch.from_numpy(_rng_normal(np.random.default_rng(4), B, 5,
+                                     cfg.d_model))
+    cache = attention.init_mla_cache(cfg, B, 4, torch.float32, device="cpu")
+    _, cache = attention.mla_attention(
+        params, cfg, x[:, :4], torch.from_numpy(_positions(B, 4)),
+        kv_cache=cache)
+    with pytest.raises(ValueError, match="overruns the MLA cache"):
+        attention.mla_attention(params, cfg, x[:, 4:],
+                                torch.full((B, 1), 4, dtype=torch.int32),
+                                kv_cache=cache)
+    with pytest.raises(ValueError, match="overruns the MLA cache"):
+        attention.mla_attention(
+            params, cfg, x, torch.from_numpy(_positions(B, 5)),
+            kv_cache=attention.init_mla_cache(cfg, B, 4, torch.float32,
+                                              device="cpu"))
+
+
+def test_uncovered_mla_cases_raise():
+    _, cfg, _, params = _attn_case("reduced")
+    x = torch.from_numpy(_rng_normal(np.random.default_rng(5), B, 8,
+                                     cfg.d_model))
+    cache = attention.init_mla_cache(cfg, B, 16, torch.float32, device="cpu")
+    _, cache = attention.mla_attention(
+        params, cfg, x[:, :4], torch.from_numpy(_positions(B, 4)),
+        kv_cache=cache)
+    with pytest.raises(NotImplementedError):   # prefill into a used cache
+        attention.mla_attention(params, cfg, x[:, 4:],
+                                torch.from_numpy(_positions(B, 4, 4)),
+                                kv_cache=cache)
+    with pytest.raises(NotImplementedError):   # shifted positions, no cache
+        attention.mla_attention(params, cfg, x,
+                                torch.from_numpy(_positions(B, 8, 3)))
+
+
+# ------------------------------------------------- the latent kernels
+def _latent_inputs(seed, b, s, t, h, r, dr):
+    rng = np.random.default_rng(seed)
+    return (_rng_normal(rng, b, s, h, r), _rng_normal(rng, b, s, h, dr),
+            _rng_normal(rng, b, t, r), _rng_normal(rng, b, t, dr))
+
+
+def _reference_latent(q_lat, q_rope, c_kv, k_rope, q_pos, kv_pos, scale):
+    qq = np.concatenate([q_lat, q_rope], axis=-1)
+    kk = np.concatenate([c_kv, k_rope], axis=-1)[:, :, None]
+    return np.asarray(ref_attention.chunked_attention(
+        jnp.asarray(qq), jnp.asarray(kk), jnp.asarray(c_kv[:, :, None]),
+        jnp.asarray(q_pos), jnp.asarray(kv_pos), causal=True, chunk=16,
+        softmax_scale=scale))
+
+
+@pytest.mark.parametrize("s,t,h,r,dr", [(37, 37, 4, 32, 16),
+                                        (24, 24, 3, 512, 64),
+                                        (10, 23, 2, 48, 8)])
+def test_latent_prefill_plain_matches_chunked_attention(s, t, h, r, dr):
+    q_lat, q_rope, c_kv, k_rope = _latent_inputs(6, 2, s, t, h, r, dr)
+    scale = 192 ** -0.5
+    want = _reference_latent(q_lat, q_rope, c_kv, k_rope, _positions(2, s),
+                             _positions(2, t), scale)
+    args = [torch.from_numpy(a) for a in (q_lat, q_rope, c_kv, k_rope)]
+    for fn in (flash_ops.flash_attention_latent_plain,
+               flash_ops.flash_attention_latent):
+        got = fn(*args, scale=scale)
+        assert got.shape == (2, s, h, r) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), want, **PLAIN_TOL)
+
+
+@pytest.mark.parametrize("case", ["filling", "wrapped", "empty-row"])
+def test_latent_decode_plain_matches_chunked_attention(case):
+    b, t, h, r, dr = 3, 40, 4, 32, 16
+    q_lat, q_rope, c_kv, k_rope = _latent_inputs(7, b, 1, t, h, r, dr)
+    rng = np.random.default_rng(8)
+    slot = np.arange(t, dtype=np.int32)
+    if case == "filling":
+        # slots 0..fill-1 hold positions 0..fill-1, the rest are empty
+        q_pos = np.array([0, 17, 30], np.int32)
+        kv_pos = np.where(slot[None] <= q_pos[:, None], slot[None], -1)
+    else:
+        # a rotated cache: some slots hold positions after the query's
+        roll = rng.integers(0, t, b)
+        kv_pos = (slot[None] - roll[:, None]) % t
+        kv_pos[1, :9] = -1
+        q_pos = rng.integers(t // 2, t, b).astype(np.int32)
+        if case == "empty-row":
+            kv_pos[2] = -1      # nothing visible: the output is zero
+    kv_pos = kv_pos.astype(np.int32)
+    scale = 0.3
+    want = _reference_latent(q_lat, q_rope, c_kv, k_rope, q_pos[:, None],
+                             kv_pos, scale)[:, 0]
+    if case == "empty-row":
+        assert not want[2].any()
+    args = [torch.from_numpy(a) for a in (q_lat[:, 0], q_rope[:, 0], c_kv,
+                                          k_rope, kv_pos, q_pos)]
+    for fn in (decode_ops.decode_attention_latent_plain,
+               decode_ops.decode_attention_latent):
+        got = fn(*args, scale=scale)
+        assert got.shape == (b, h, r)
+        np.testing.assert_allclose(got.numpy(), want, **PLAIN_TOL)
+
+
+def test_latent_wrappers_refuse_bad_inputs():
+    q_lat, q_rope, c_kv, k_rope = (torch.from_numpy(a) for a in
+                                   _latent_inputs(9, 2, 4, 4, 2, 8, 4))
+    with pytest.raises(ValueError, match="latent attention takes"):
+        flash_ops.flash_attention_latent(
+            q_lat, q_rope[..., :2].contiguous(), c_kv, k_rope, scale=1.0)
+    with pytest.raises(TypeError):
+        flash_ops.flash_attention_latent(q_lat.double(), q_rope, c_kv,
+                                         k_rope, scale=1.0)
+    kv_pos = torch.zeros((2, 4), dtype=torch.int32)
+    q_pos = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="latent attention takes"):
+        decode_ops.decode_attention_latent(
+            q_lat, q_rope[:, 0].contiguous(), c_kv, k_rope, kv_pos, q_pos,
+            scale=1.0)
+    with pytest.raises(TypeError, match="int32"):
+        decode_ops.decode_attention_latent(
+            q_lat[:, 0].contiguous(), q_rope[:, 0].contiguous(), c_kv,
+            k_rope, kv_pos.long(), q_pos, scale=1.0)
+    with pytest.raises(ValueError, match="kv_pos must be"):
+        decode_ops.decode_attention_latent(
+            q_lat[:, 0].contiguous(), q_rope[:, 0].contiguous(), c_kv,
+            k_rope, kv_pos[:, :3].contiguous(), q_pos, scale=1.0)
+
+
+@pytest.mark.parametrize("b,h,t,sms,keys", [
+    (8, 128, 2112, 132, 64), (8, 128, 2112, 132, 32),
+    (2, 128, 1536, 132, 32), (8, 128, 18, 132, 64), (1, 4, 5000, 132, 64),
+    (64, 128, 2112, 132, 64), (3, 130, 700, 114, 32)])
+def test_latent_split_plan_covers_the_cache(b, h, t, sms, keys):
+    ns, per = decode_ops.latent_split_plan(b, h, t, sms, keys)
+    # the C side's conditions: whole tiles, no empty split, all slots
+    assert per % keys == 0 and (ns - 1) * per < t <= ns * per
+    tiles = -(-t // keys)
+    pairs = b * -(-h // decode_ops.LATENT_BLOCK_ROWS)
+    assert 1 <= ns <= tiles
+    assert ns == 1 or ns * pairs <= sms
+
+
+def _c_params(src: str, name: str) -> list:
+    sig = re.search(rf'extern "C" int {name}\((.*?)\)\s*{{', src, re.S)
+    return [p.strip() for p in sig.group(1).split(",")]
+
+
+def test_latent_entry_points_match_their_ctypes_signatures():
+    import ctypes
+
+    src = (ROOT / "src" / "repro_torch" / "csrc" /
+           "mla_attention.cu").read_text()
+    assert "mla_attention.cu" in _build.SOURCES
+    kinds = {ctypes.c_void_p: "*", ctypes.c_int: "int ",
+             ctypes.c_float: "float "}
+    for name in ("flash_attention_latent_launch",
+                 "decode_attention_latent_launch"):
+        params = _c_params(src, name)
+        args, res = _build._SIGNATURES[name]
+        assert res is ctypes.c_int and len(args) == len(params)
+        for a, p in zip(args, params):
+            assert kinds[a] in p, (name, p)
+    # the wrappers' tile and block constants are the source's
+    assert re.search(r"Tile<float> \{\s*static constexpr int keys = 32;",
+                     src)
+    assert re.search(r"Tile<__nv_bfloat16> \{\s*static constexpr int keys "
+                     r"= 64;", src)
+    assert decode_ops.LATENT_TILE_KEYS == {torch.float32: 32,
+                                           torch.bfloat16: 64}
+    assert "kBlockRows = kWarps * kWarpRows;  // 64" in src
+    assert re.search(r"kWarps = 8;.*kWarpRows = 8;", src, re.S)
+
+
+# ------------------------------------------------------------ the model
+VARIANTS = {"reduced": dict(), "published-ranks": PUBLISHED}
+
+
+def _model_cfg(get, reduce, variant):
+    return reduce(get(ARCH), dtype="float32", num_layers=3,
+                  **VARIANTS[variant])
+
+
+@pytest.fixture(scope="module", params=list(VARIANTS))
+def models(request):
+    ref_cfg = _model_cfg(ref_get_config, ref_reduce_config, request.param)
+    cfg = _model_cfg(get_config, reduce_config, request.param)
+    ref_params = ref_init_params(ref_cfg, jax.random.PRNGKey(0))
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, ref_params),
+                             device="cpu")
+    tokens = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+    return ref_cfg, ref_params, cfg, params, tokens
+
+
+def test_params_carry_over_with_dense_blocks_and_mtp(models):
+    _, ref_params, cfg, params, _ = models
+    assert cfg.moe.first_k_dense == 1 and cfg.mtp_depth == 1
+    assert set(ref_params) == {"embed", "unembed", "final_norm",
+                               "dense_blocks", "blocks", "mtp"}
+    ported = init_params(cfg, seed=0, device="cpu")
+    assert set(params) == set(ported) == set(ref_params) - {"dense_blocks"}
+    shapes = jax.tree.map(lambda a: tuple(a.shape), ref_params)
+    for i in range(cfg.num_layers):
+        group = "dense_blocks" if i == 0 else "blocks"
+        want = jax.tree.map(lambda s: s[1:], shapes[group],
+                            is_leaf=lambda x: isinstance(x, tuple))
+        for tree in (params, ported):
+            assert jax.tree.map(lambda t: tuple(t.shape),
+                                tree["blocks"][i]) == want
+        assert set(params["blocks"][i]["attn"]) == {
+            "wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm", "wk_b", "wv_b",
+            "wo"}
+        j = i if i == 0 else i - 1
+        np.testing.assert_array_equal(
+            params["blocks"][i]["attn"]["wk_b"].numpy(),
+            np.asarray(ref_params[group]["attn"]["wk_b"][j]))
+    # the MTP group: (2d, d) projection, one unstacked dense block, a norm
+    for tree in (params, ported):
+        assert jax.tree.map(lambda t: tuple(t.shape), tree["mtp"]) == \
+            shapes["mtp"]
+    assert params["mtp"]["proj"].shape == (2 * cfg.d_model, cfg.d_model)
+    assert "mlp" in params["mtp"]["block"] and "moe" not in \
+        params["mtp"]["block"]
+    np.testing.assert_array_equal(params["mtp"]["proj"].numpy(),
+                                  np.asarray(ref_params["mtp"]["proj"]))
+
+
+def test_params_from_jax_takes_mtp_only_with_mtp_depth(models):
+    _, ref_params, cfg, _, _ = models
+    tree = jax.tree.map(np.asarray, ref_params)
+    no_mtp = dataclasses.replace(cfg, mtp_depth=0)
+    with pytest.raises(NotImplementedError, match="mtp only with"):
+        params_from_jax(no_mtp, tree, device="cpu")
+    for group in ("enc_blocks", "frontend_proj"):
+        with pytest.raises(NotImplementedError, match="item 9"):
+            params_from_jax(cfg, dict(tree, **{group: {}}), device="cpu")
+
+
+def test_forward_matches_reference(models):
+    ref_cfg, ref_params, cfg, params, tokens = models
+    want, _, want_aux, _ = ref_forward(ref_cfg, ref_params,
+                                       jnp.asarray(tokens), chunk=16)
+    got, cache, aux = forward(cfg, params, torch.from_numpy(tokens).long(),
+                              return_aux=True)
+    assert cache is None and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert float(aux["drop_frac"]) == 0.0
+
+
+def test_prefill_and_decode_match_reference(models):
+    ref_cfg, ref_params, cfg, params, tokens = models
+    ref_last, ref_cache = ref_prefill(
+        ref_cfg, ref_params, {"tokens": jnp.asarray(tokens[:, :N_PREFILL])},
+        max_len=S, chunk=16)
+    last, cache = prefill(cfg, params,
+                          {"tokens": torch.from_numpy(tokens[:, :N_PREFILL])},
+                          max_len=S)
+    np.testing.assert_allclose(last.numpy(), np.asarray(ref_last), **TOL)
+    # the reference's layer-stacked latent cache, slice by slice
+    stacked = ref_cache["layers"]["attn"]
+    for i, lc in enumerate(cache["layers"]):
+        assert set(lc["attn"]) == {"c_kv", "k_rope", "pos", "cursor"}
+        np.testing.assert_array_equal(lc["attn"]["pos"].numpy(),
+                                      np.asarray(stacked["pos"][i]))
+        np.testing.assert_allclose(lc["attn"]["c_kv"].numpy(),
+                                   np.asarray(stacked["c_kv"][i]), **TOL)
+    for t in range(N_PREFILL, S):
+        pos = np.full((B, 1), t, np.int32)
+        want, ref_cache = ref_decode_step(
+            ref_cfg, ref_params, ref_cache, jnp.asarray(tokens[:, t:t + 1]),
+            jnp.asarray(pos), chunk=16)
+        got, cache = decode_step(cfg, params, cache,
+                                 torch.from_numpy(tokens[:, t:t + 1]),
+                                 torch.from_numpy(pos))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                                   err_msg=f"decode step {t}")
+
+
+def test_teacher_forced_decode_matches_forward(models):
+    _, _, cfg, params, tokens = models
+    tok = torch.from_numpy(tokens).long()
+    full, _ = forward(cfg, params, tok)
+    last, cache = prefill(cfg, params, {"tokens": tok[:, :8]}, max_len=S)
+    np.testing.assert_allclose(last.numpy(), full[:, 7].numpy(), **TF_TOL)
+    for t in range(8, S):
+        pos = torch.full((B, 1), t, dtype=torch.int32)
+        got, cache = decode_step(cfg, params, cache, tok[:, t:t + 1], pos)
+        np.testing.assert_allclose(got.numpy(), full[:, t].numpy(),
+                                   **TF_TOL)
+    layers = init_cache(cfg, B, S, device="cpu")["layers"]
+    assert len(layers) == cfg.num_layers
+    assert layers[0]["attn"]["c_kv"].shape == (B, S, cfg.mla.kv_lora_rank)
+
+
+def test_serving_never_reads_the_mtp_group(models):
+    _, _, cfg, params, tokens = models
+    tok = torch.from_numpy(tokens).long()
+    want, _ = forward(cfg, params, tok)
+    last, _ = prefill(cfg, params, {"tokens": tok[:, :N_PREFILL]},
+                      max_len=S)
+    noisy = dict(params, mtp={
+        "proj": params["mtp"]["proj"] + 1.0,
+        "block": jax.tree.map(lambda t: t * 3.0 + 0.5,
+                              params["mtp"]["block"]),
+        "norm": {"scale": params["mtp"]["norm"]["scale"] * -2.0}})
+    got, _ = forward(cfg, noisy, tok)
+    assert torch.equal(got, want)
+    got_last, _ = prefill(cfg, noisy, {"tokens": tok[:, :N_PREFILL]},
+                          max_len=S)
+    assert torch.equal(got_last, last)
+
+
+# ---------------------------------- families that run since this slice
+FORMERLY_UNPORTED = {   # case -> config overrides on the reduced glm4-9b
+    "mla": dict(attention="mla", mla=MLAConfig(
+        q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=16,
+        qk_rope_head_dim=8, v_head_dim=16)),
+    "mtp": dict(mtp_depth=1),
+}
+
+
+@pytest.mark.parametrize("case", list(FORMERLY_UNPORTED))
+def test_mla_and_mtp_families_now_build_and_serve(case):
+    base = reduce_config(get_config("glm4-9b"), dtype="float32")
+    cfg = dataclasses.replace(base, **FORMERLY_UNPORTED[case])
+    assert block_kind(cfg) == "dense"
+    params = init_params(cfg, device="cpu")
+    assert ("mtp" in params) == (case == "mtp")
+    tok = torch.from_numpy(np.random.default_rng(10).integers(
+        0, cfg.vocab_size, (B, 12)))
+    full, _ = forward(cfg, params, tok)
+    last, cache = prefill(cfg, params, {"tokens": tok[:, :10]}, max_len=12)
+    np.testing.assert_allclose(last.numpy(), full[:, 9].numpy(), **TF_TOL)
+    got, _ = decode_step(cfg, params, cache, tok[:, 10:11],
+                         torch.full((B, 1), 10, dtype=torch.int32))
+    np.testing.assert_allclose(got.numpy(), full[:, 10].numpy(), **TF_TOL)
+    kind = "c_kv" if case == "mla" else "k"
+    assert kind in cache["layers"][0]["attn"]
+
+
+# ------------------------------------------------------- the serve CLI
+def test_serve_cli_prints_the_reference_refit_and_counts_no_launches(
+        capsys):
+    kernels = (flash_ops.flash_attention_latent,
+               decode_ops.decode_attention_latent,
+               flash_ops.flash_attention, decode_ops.decode_attention)
+    before = [k.launches for k in kernels]
+    assert serve_mod.main(["--arch", ARCH, "--reduced", "--requests", "2",
+                           "--batch", "2", "--prefill-len", "12",
+                           "--decode-len", "3", "--device", "cpu"]) == 0
+    assert [k.launches for k in kernels] == before
+    out = capsys.readouterr().out
+    assert "served 2 requests, 6 tokens" in out and "on cpu" in out
+    # the reduced config's 8 experts, top-2: 4 ranks of 4 slots
+    trace = ref_core.synthetic_routing_trace(8, 200, top_k=2, seed=1)
+    plan = ref_core.plan_expert_placement(trace, 8, 4, 4, algorithm="lmbr")
+    base = ref_core.baseline_contiguous_placement(8, 4, 4)
+    want = (f"expert placement refit: span {base.avg_span(trace):.2f} -> "
+            f"{plan.avg_span(trace):.2f} across 4 EP ranks")
+    assert out.splitlines()[-1] == want
+
+
+def test_load_model_cuts_depth_only():
+    cfg, params = serve_mod.load_model(ARCH, reduced=True, device="cpu",
+                                       num_layers=4)
+    assert cfg.num_layers == 4 and cfg.moe.first_k_dense == 1
+    kinds = ["moe" in p for p in params["blocks"]]
+    assert kinds == [False, True, True, True]
+    res = serve_mod.serve(cfg, params, requests=2, batch=2, prefill_len=10,
+                          decode_len=2)
+    assert res["prefill_drop_frac"] == [0.0]
+    assert bool(torch.isfinite(res["logits"]).all())

@@ -10,7 +10,8 @@ serving path (deepseek-v3-671b).
 
 Phases, each printed on a line of its own:
 
-1. build       — compile the seven CUDA sources from ``src/repro_torch/csrc``;
+1. build       — compile the seven CUDA sources from ``src/repro_torch/csrc``
+                 (with the header ``wgmma.cuh`` they share);
                  the line gives the registers, spills and blocks per SM of
                  the tensor-core (wgmma) instances of flash_attention (bf16
                  at D 64, 128 and 80, ``WGMMA_HEAD_DIMS``), the registers
@@ -23,7 +24,10 @@ Phases, each printed on a line of its own:
                  serving path's ssd passes and glm4-9b's decode instance
                  (bf16, blocks of 8 heads; ``DENSE_NO_SPILL``); it also
                  gives the registers and spills of the four latent (MLA)
-                 instances (prefill and decode, bf16 and f32).
+                 instances (``MLA_INSTANCES``: the bf16 prefill's
+                 tensor-core kernel, the f32 prefill and both decode
+                 instances on the CUDA cores) and requires no spill in the
+                 tensor-core one.
 2. kernels     — hold each kernel against its plain PyTorch version on the
                  card and time kernel, plain version, library call (where
                  one PyTorch call computes the same function) and the
@@ -92,7 +96,8 @@ Phases, each printed on a line of its own:
                  by the same rules, bf16 and f32, at deepseek-v3's widths
                  (H 128, R 512, Dr 64, scale 192^-0.5):
                  flash_attention_latent at its prefill (``MLA_FLASH``: B 8,
-                 S = T 2048) and at S = T 1528 (B 2), decode_attention_latent
+                 S = T 2048), at S = T 1528 (B 2) and at B 1, S 77, H 3
+                 (64-row blocks that span positions), decode_attention_latent
                  over its serving cache (``MLA_DECODE``: B 8, T 2112, a
                  wrapped ring with empty slots and per-row q_pos) and over
                  serve's warm-up cache (T 18, one split); their rows time
@@ -238,7 +243,8 @@ Phases, each printed on a line of its own:
                  first) with serve's traffic and the identity dispatch;
                  finite logits of shape (8, vocab), prefill tokens/s,
                  decode ms/step, peak memory, each batch's prefill
-                 ``drop_frac``, launches 4 x 2 (flash_attention_latent) and
+                 ``drop_frac``, launches 4 x 2 (flash_attention_latent, all
+                 on its tensor-core ``wgmma`` instance) and
                  4 x 64 x 2 (decode_attention_latent), none of flash,
                  decode or ssd_scan; then the serve CLI's refit (4 EP ranks
                  of 66 slots) fitted on the card, whose spans must be the
@@ -247,7 +253,8 @@ Phases, each printed on a line of its own:
                  dense MLA layers) in f32 with TF32 off, prompt 1536,
                  prefill 1528, held as serve-check holds hymba (the latent
                  kernels patched to their plain versions on the plain
-                 route).
+                 route); the kernel route's latent prefill launches all
+                 on the CUDA-core ``fma`` instance.
 18. health     — ``Simulator(40, 50).run_online`` of fig6's paper default
                  (lmbr ``max_moves=120``) under the flags-built
                  ``HealthMonitor`` (``HEALTH_VARIANT``: snapshots every 100
@@ -939,18 +946,31 @@ DENSE_NO_SPILL = (("decode", "bf16", 8),)
 
 
 def _mla_instance(entry: str):
-    """(dtype, "prefill" or "decode") of a latent-attention kernel's
-    mangled name (mla_attention_kernel<T, decode>); None for any other."""
+    """(dtype, "prefill" or "decode", "wgmma" or "fma") of a latent
+    attention kernel's mangled name: the bf16 prefill's tensor-core kernel
+    (mla_attention_wgmma_kernel) or a CUDA-core instance
+    (mla_attention_kernel<T, decode>); None for any other."""
+    if re.search(r"mla_attention_wgmma_kernel", entry):
+        return ("bf16", "prefill", "wgmma")
     m = re.search(r"mla_attention_kernelI(13__nv_bfloat16|f)Lb([01])E",
                   entry)
     if not m:
         return None
     return ("bf16" if m.group(1) != "f" else "f32",
-            "decode" if m.group(2) == "1" else "prefill")
+            "decode" if m.group(2) == "1" else "prefill", "fma")
+
+
+# the latent (MLA) kernels the build must make: bf16 prefill on the tensor
+# cores (no spill allowed), f32 prefill and both decodes on the CUDA cores
+MLA_INSTANCES = (("bf16", "prefill", "wgmma"), ("f32", "prefill", "fma"),
+                 ("bf16", "decode", "fma"), ("f32", "decode", "fma"))
+MLA_NO_SPILL = (("bf16", "prefill", "wgmma"),)
 
 
 def phase_build(_build):
     so = _build.build(force=True)
+    # read now: _build.lib() below finds the library built and resets them
+    build_s = _build.BUILD_INFO["seconds"]
     entries = _ptxas_entries(_build.BUILD_INFO["ptxas"])
     tc = {_wgmma_instance(e["entry"]): e for e in entries
           if _wgmma_instance(e["entry"])}
@@ -991,22 +1011,22 @@ def phase_build(_build):
         f"registers={att[k, dt, n]['registers']} "
         f"spills={att[k, dt, n]['spill_stores']}/{att[k, dt, n]['spill_loads']}"
         for k, dt, n in DENSE_INSTANCES)
-    # the latent (MLA) kernel's four instances
+    # the latent (MLA) kernels' four instances
     mla = {_mla_instance(e["entry"]): e for e in entries
            if _mla_instance(e["entry"])}
-    _require(sorted(mla) == sorted((d, k) for d in ("bf16", "f32")
-                                   for k in ("prefill", "decode")),
-             f"build: ptxas reports mla_attention instances {sorted(mla)}")
+    _require(sorted(mla) == sorted(MLA_INSTANCES),
+             f"build: ptxas reports mla_attention instances {sorted(mla)}, "
+             f"want {sorted(MLA_INSTANCES)}")
     mla_line = ", ".join(
-        f"{k} {d} registers={e['registers']} "
-        f"spills={e['spill_stores']}/{e['spill_loads']}"
-        for (d, k), e in sorted(mla.items()))
+        f"{k} {d} {r} registers={mla[d, k, r]['registers']} "
+        f"spills={mla[d, k, r]['spill_stores']}/"
+        f"{mla[d, k, r]['spill_loads']}" for d, k, r in MLA_INSTANCES)
     tc_line = ", ".join(
         f"D {n} registers={tc[k]['registers']} spills="
         f"{tc[k]['spill_stores']}/{tc[k]['spill_loads']} "
         f"blocks_per_sm={blocks[n]}"
         for n in WGMMA_HEAD_DIMS for k in [("flash", "bf16", n)])
-    print(f"build: {_build.BUILD_INFO['seconds']:.2f} s -> {Path(so).name} "
+    print(f"build: {build_s:.2f} s -> {Path(so).name} "
           f"flash_attention wgmma instances (bf16, spill stores/loads "
           f"bytes): {tc_line}; decode_attention bf16 G 5 "
           f"instance: registers={dec[0]['registers']} "
@@ -1019,7 +1039,8 @@ def phase_build(_build):
         print(f"  {e['source']} {e['entry'][:60]} registers={e['registers']} "
               f"spill_stores={e['spill_stores']} "
               f"spill_loads={e['spill_loads']}")
-    for inst, e in [*tc.items(), *((i, att[i]) for i in DENSE_NO_SPILL)]:
+    for inst, e in [*tc.items(), *((i, att[i]) for i in DENSE_NO_SPILL),
+                    *((i, mla[i]) for i in MLA_NO_SPILL)]:
         _require(e["spill_stores"] == 0 and e["spill_loads"] == 0,
                  f"build: the instance {inst} spills "
                  f"({e['spill_stores']} / {e['spill_loads']} bytes)")
@@ -1712,13 +1733,16 @@ def _ssd_domain_rows(torch, dev, dtype):
 
 
 # the latent (MLA) kernels at deepseek-v3's widths (H 128, R 512, Dr 64,
-# scale 192^-0.5): prefill at serve's (B 8, S = T 2048) and at
-# serve-mla-check's prefill S = T 1528 (B 2), a multiple of no tile; decode
-# over serve's cache (B 8, T 2112, a wrapped ring with empty slots and
-# per-row q_pos) and serve's warm-up cache (B 1, T 18, one split)
+# scale 192^-0.5): prefill (label, B, S = T, H) at serve's (B 8, S 2048),
+# at serve-mla-check's prefill S 1528 (B 2), a multiple of no tile, and at
+# H 3, S 77 (B 1), whose 64-row blocks span positions (a row of 0.11 s in
+# bf16 and 0.05 s in f32, its plain and SDPA times included); decode over
+# serve's cache (B 8, T 2112, a wrapped ring with empty slots and per-row
+# q_pos) and serve's warm-up cache (B 1, T 18, one split)
 MLA_HEADS, MLA_RANK, MLA_ROPE = 128, 512, 64
 MLA_SCALE = (128 + 64) ** -0.5
-MLA_FLASH = (("serve", 8, 2048), ("ragged", 2, 1528))
+MLA_FLASH = (("serve", 8, 2048, MLA_HEADS), ("ragged", 2, 1528, MLA_HEADS),
+             ("small-H", 1, 77, 3))
 MLA_DECODE = (("serve", 8, 2112), ("warm-up", 1, 18))
 
 
@@ -1794,7 +1818,8 @@ def _latent_rows(torch, dev, dtype, peak):
         LATENT_TILE_KEYS, decode_attention_latent,
         decode_attention_latent_plain, latent_split_plan)
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention_latent, flash_attention_latent_plain)
+        flash_attention_latent, flash_attention_latent_plain,
+        latent_instance)
 
     gen = torch.Generator(device=dev).manual_seed(31)
     esz = torch.finfo(dtype).bits // 8
@@ -1815,13 +1840,20 @@ def _latent_rows(torch, dev, dtype, peak):
                                 None)
 
     flash, decode = [], []
-    for label, B, S in MLA_FLASH:
-        args = (randn(B, S, H, R), randn(B, S, H, Dr), randn(B, S, R),
+    for label, B, S, Hq in MLA_FLASH:
+        t_row = time.perf_counter()
+        args = (randn(B, S, Hq, R), randn(B, S, Hq, Dr), randn(B, S, R),
                 randn(B, S, Dr))
-        fields = check(f"flash_attention_latent {label} {tag} B={B} S={S}",
-                       flash_attention_latent, flash_attention_latent_plain,
-                       args)
-        bound, by = _latent_prefill_bound(B, S, H, esz, peak)
+        before = dict(flash_attention_latent.instance_launches)
+        fields = check(f"flash_attention_latent {label} {tag} B={B} S={S} "
+                       f"H={Hq}", flash_attention_latent,
+                       flash_attention_latent_plain, args)
+        inst = latent_instance(dtype)
+        _require(flash_attention_latent.instance_launches[inst]
+                 == before[inst] + 1,
+                 f"flash_attention_latent {label} {tag}: not launched on "
+                 f"its {inst} instance")
+        bound, by = _latent_prefill_bound(B, S, Hq, esz, peak)
         qT = torch.cat(args[:2], -1).transpose(1, 2).contiguous()
         kT = torch.cat(args[2:], -1)[:, None]
         vT = args[2][:, None]
@@ -1834,12 +1866,13 @@ def _latent_rows(torch, dev, dtype, peak):
                 qT, kT, vT, is_causal=True, scale=scale, enable_gqa=True)
 
         flash.append(dict(
-            shape=f"{label}.B{B}.S{S}.H{H}.R{R}.Dr{Dr}.{tag}",
-            kernel_instance=f"{tag}.prefill", **fields,
+            shape=f"{label}.B{B}.S{S}.H{Hq}.R{R}.Dr{Dr}.{tag}",
+            kernel_instance=f"{tag}.prefill.{inst}", **fields,
             ms=_cuda_ms(torch, kern, 3), device_ms=_device_ms(torch, kern, 3),
             plain_ms=_cuda_ms(torch, lambda: flash_attention_latent_plain(
                 *args, scale=scale), 1),
-            **_sdpa_library(torch, sdpa, 3), bound_ms=bound, bound_by=by))
+            **_sdpa_library(torch, sdpa, 3), bound_ms=bound, bound_by=by,
+            row_s=time.perf_counter() - t_row))
         del args, qT, kT, vT
     for label, B, T in MLA_DECODE:
         slot = torch.arange(T, device=dev, dtype=torch.int32)
@@ -2239,14 +2272,17 @@ def _hold_routes(torch, kernels, label, cfg, params, tokens, n_prefill,
     teacher-forced decode after prefill within 2e-3 of the cache-free
     forward, all finite.  ``on_route("kernel")`` / ``on_route("plain")``,
     if given, runs before each route.  Returns the kernel route's
-    launches, ssd launches by chunk run and cache-free logits, both
-    max|diff|s and the largest |logit|."""
+    launches, launches by instance, ssd launches by chunk run and
+    cache-free logits, both max|diff|s and the largest |logit|."""
     if on_route is not None:
         on_route("kernel")
     _zero_counts(kernels)
     kern = _route_run(torch, cfg, params, tokens, n_prefill)
     launches = _counts(kernels)
     chunks = dict(kernels["ssd_scan"].chunk_launches)
+    instances = {name: dict(fn.instance_launches)
+                 for name, fn in kernels.items()
+                 if hasattr(fn, "instance_launches")}
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
     if on_route is not None:
         on_route("plain")
@@ -2272,6 +2308,7 @@ def _hold_routes(torch, kernels, label, cfg, params, tokens, n_prefill,
     _require(all(bool(torch.isfinite(t).all()) for t in kern),
              f"{label}: non-finite logits")
     return dict(launches=launches, chunk_launches=chunks,
+                instance_launches=instances,
                 route_err=route_err, tf_err=tf_err, full=full,
                 max_abs_logit=float(full.abs().max()))
 
@@ -2717,11 +2754,17 @@ def phase_serve_mla(torch, kernels, dev):
     res = _measured_serve(torch, kernels, "serve-mla", cfg, params,
                           SERVE["requests"], SERVE["decode_len"])
     launches = res["launches"]
+    latent_instances = dict(
+        kernels["flash_attention_latent"].instance_launches)
     L, nb = cfg.num_layers, res["batches"]
     want = {"flash_attention_latent": L * nb,
             "decode_attention_latent": L * SERVE["decode_len"] * nb,
             "flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
     _require_launches("serve-mla", launches, want)
+    _require(latent_instances == {"wgmma": L * nb, "fma": 0},
+             f"serve-mla: flash_attention_latent instances "
+             f"{latent_instances}, want every launch on the tensor-core "
+             f"(wgmma) kernel")
     drops = res["prefill_drop_frac"]
     _require(len(drops) == nb and all(math.isfinite(x) for x in drops),
              f"serve-mla: prefill drop_frac {drops}")
@@ -2746,12 +2789,13 @@ def phase_serve_mla(torch, kernels, dev):
           f"bf16 held_before_gb={held_gb:.3f} init_s={init_s:.2f} "
           f"requests={SERVE['requests']} batch={SERVE['batch']} {line} "
           f"prefill_drop_frac_sum_over_layers={drops} "
-          f"launches={ {n: launches[n] for n in want} }", flush=True)
+          f"launches={ {n: launches[n] for n in want} } "
+          f"flash_attention_latent_instances={latent_instances}", flush=True)
     print(f"serve-mla: {refit_line(base_span, plan_span)} "
           f"(reference {MLA_REFIT[0]} -> {MLA_REFIT[1]}; fit on the card in "
           f"{refit_s:.3f} s) phase_s={time.perf_counter() - t_phase:.1f}",
           flush=True)
-    return dict(launches=launches)
+    return dict(launches=launches, latent_instances=latent_instances)
 
 
 def phase_serve_mla_check(np, torch, kernels, dev):
@@ -2784,13 +2828,19 @@ def phase_serve_mla_check(np, torch, kernels, dev):
          (attention, "decode_attention_latent",
           decode_attention_latent_plain)])
     launches = held["launches"]
+    latent_instances = held["instance_launches"]["flash_attention_latent"]
     L = cfg.num_layers
     want = {"flash_attention_latent": 2 * L,
             "decode_attention_latent": (S - n_prefill) * L,
             "flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
     _require_launches("serve-mla-check", launches, want)
+    _require(latent_instances == {"wgmma": 0, "fma": 2 * L},
+             f"serve-mla-check: flash_attention_latent instances "
+             f"{latent_instances}, want every f32 launch on the CUDA-core "
+             f"(fma) kernel")
     print(f"serve-mla-check: {MLA_ARCH} full width, layers={L} (dense MLA) "
           f"f32 tf32=off batch={B} {_routes_line(held, n_prefill, S)} "
+          f"flash_attention_latent_instances={latent_instances} "
           f"phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
     del params, held
     torch.cuda.empty_cache()
@@ -3955,7 +4005,7 @@ def main(argv=None) -> int:
     launches = {}
     path_launches = {}   # phase -> kernel -> launches on that path
     ssd_chunks = {}      # phase -> ssd_scan launches by the chunk run
-    flash_instances = None
+    flash_instances = latent_instances = None
     ssd_built = att_built = None
     if "build" in phases:
         ssd_built, att_built = phase_build(_build)
@@ -4072,6 +4122,7 @@ def main(argv=None) -> int:
     if "serve-mla" in phases:
         served = phase_serve_mla(torch, kernels, dev)
         launches.update({n: served["launches"][n] for n in latent})
+        latent_instances = served["latent_instances"]
         path_launches["serve-mla"] = {n: served["launches"][n]
                                       for n in model_kernels}
         if args.profile:
@@ -4136,6 +4187,10 @@ def main(argv=None) -> int:
             # ms is the instance's that the serving path runs
             report[-1].update(instance=row.get("instance"),
                               instance_launches=flash_instances)
+        if name == "flash_attention_latent":
+            # ms is the bf16 (wgmma) kernel's, which serve-mla runs
+            report[-1].update(instance=row.get("kernel_instance"),
+                              instance_launches=latent_instances)
         if name == "ssd_scan":
             report[-1].update(chunk_launches_by_path=ssd_chunks)
         if name in latent:

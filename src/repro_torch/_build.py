@@ -4,9 +4,10 @@ The sources under ``csrc/`` have a plain C interface.  At first use each
 is compiled by its own ``nvcc`` process for ``sm_90a`` (all started
 together), the objects are linked into one shared library under
 ``_build/`` (git-ignored), and the library is loaded with ``ctypes``.  The
-library's name carries a hash of the sources and flags, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  A failed build
-raises; nothing falls back to a kernel's plain PyTorch version.
+library's name carries a hash of the sources, the headers they include
+and the flags, so an edited source or header is rebuilt and an unchanged
+one is loaded as it is.  A failed build raises; nothing falls back to a
+kernel's plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ __all__ = ["build", "lib", "check", "BUILD_INFO"]
 SOURCES = ("span_gain.cu", "cover_rounds.cu", "lockstep_peel.cu",
            "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu",
            "mla_attention.cu")
+HEADERS = ("wgmma.cuh",)   # included by the sources: part of the hash
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -75,7 +77,7 @@ def _nvcc() -> str:
 
 def _digest(nvcc: str) -> str:
     h = hashlib.sha1()
-    for name in SOURCES:
+    for name in (*SOURCES, *HEADERS):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(repr((nvcc, NVCC_FLAGS)).encode())

@@ -33,9 +33,80 @@
 // byte at H 128.  At deepseek-v3's prefill (B 8, S = T 2048, H 128) that
 // is 4.68e12 flops, 4.7 ms at the bf16 tensor-core peak and 70 ms at the
 // fp32 CUDA-core one; its decode (B 8, T 2112) reads 19.5 MB of cache for
-// 4.7e9 flops, 5.8 us of bytes.  This first version runs both products as
-// fp32 FMAs on the CUDA cores (a tensor-core design, as in FlashMLA, is
-// ROADMAP work):
+// 4.7e9 flops, 5.8 us of bytes.  Two kernels:
+//
+// * bf16 prefill: mla_attention_wgmma_kernel, both products on the tensor
+//   cores (below);
+// * f32 prefill, and decode in both types: mla_attention_kernel<T, decode>,
+//   both products as fp32 FMAs on the CUDA cores.
+//
+// Tensor-core prefill.  Its floor is the bf16 peak: the P V product runs
+// twice (P split in two bf16 halves, below), so the tensor cores do
+// (576 + 2 x 512) / (576 + 512) = 1.47x the counted work, ~6.95 ms at
+// deepseek-v3's prefill.
+//
+// * One block of two warpgroups takes 64 query rows, the M of one wgmma:
+//   rows r = i H + h in the model layout's order, as in the CUDA-core
+//   kernel (at H 128 a block is 64 heads of one position; at an H that is
+//   not a multiple of 64 it spans positions, so the causal mask is per
+//   row).  Blocks walk the row tiles heaviest first across the batch
+//   (block x: batch row x % B, row tile counted from the last).  The rows'
+//   [q_rope ; q_lat] sit in shared memory for the whole block as 9 pieces
+//   of 64 rows x 64 columns (8 KB each, 128-byte swizzle): 72 KB.
+// * Keys come in tiles of 64 latent rows [k_rope ; c_kv], staged once as 9
+//   pieces (piece 0 k_rope, 1..8 c_kv's 64-column pieces) and used as key
+//   (all 9) and as value (pieces 1..8): no per-head K or V.  Keys at or
+//   past the block's last position are zero-filled (cp.async src-size 0).
+// * S = Q K^T is 36 k16 steps (4 a piece) with both operands in shared
+//   memory, split over the keys: warpgroup w computes keys 32 w .. 32 w +
+//   31 of the tile (m64n32k16), so no product runs twice.  The scale
+//   (times log2 e; the softmax runs in base 2) multiplies the fp32
+//   accumulator: rounding q * scale to bf16 changes 44-49% of the bf16
+//   outputs against the plain version (tests/test_torch_mla.py emulates
+//   it), far past the card's 1%.
+// * The online softmax runs on the accumulator fragment with the
+//   reference's clamps.  Each row's max over the tile needs both halves:
+//   each warpgroup reduces its 32 keys in the row's quad of threads,
+//   writes the row max to shared memory, and after a barrier takes the
+//   other's; max is exact, so both warpgroups hold the same max, the same
+//   rescale factor and the same p.  Each keeps its own part of the row
+//   sum; the parts meet once, at the end.
+// * O += P V on wgmma with A (P) from registers: for 16-bit inputs the fp32
+//   accumulator fragment of S has the layout of A's fragment.  O is 64 x
+//   512 in fp32, 256 registers a thread for one warpgroup, so the value
+//   columns are split: warpgroup w owns columns 256 w .. 256 w + 255
+//   (pieces 1 + 4 w .. 4 + 4 w), four m64n64k16 chains of 32 registers
+//   each, 128 a thread.  Each needs p of all 64 keys: a warpgroup writes its
+//   32 keys' A fragments to shared memory in fragment order (16 words a
+//   thread, thread t's word k at [k][t], no bank conflict), and after a
+//   barrier thread t of the other warpgroup reads them, because the
+//   fragment of keys 32..63 that thread t needs is the one that thread t
+//   of the other warpgroup holds for keys 0..31.  Exchanging p keeps the
+//   products single: recomputing S in both warpgroups would add 36 k16
+//   steps a tile, 36% more tensor work.  P is split as P = bf16(P) +
+//   bf16(P - bf16(P)) and both halves go through the tensor cores: one
+//   bf16 P changes 28-30% of the bf16 outputs, the split 0.13-0.16% (the
+//   same emulation).  V is row-major in shared memory, MN-major for B,
+//   read with the transpose bit.
+// * Shared memory decides the ring.  Q is 72 KB and a tile 72 KB, so two
+//   full stages and the P exchange (16 KB) pass the 227 KB a block may
+//   have.  The ring is of 17 piece slots instead (139 KB; 214 KB dynamic
+//   and 17 KB static in all, one block an SM): piece j of tile n sits in
+//   slot (9 n + j) % 17.  At the top of tile n, once every warpgroup is
+//   done with tile n - 1, pieces 0..7 of tile n + 1 are issued into the
+//   slots of tile n - 1's pieces 1..8; after S of tile n (the row-max
+//   barrier), piece 8 of tile n + 1 goes into the slot of tile n's k_rope
+//   piece, which P V does not read.  So tile n + 1 loads while tile n is
+//   computed, in 16-byte cp.async copies by all 256 threads.
+// * Registers: 128 of O, 16 of S, 32 of P's two halves a thread; no spill
+//   (chip_smoke.py's build phase prints the count).
+//
+// What may bind next: every 64-row block stages its keys from L2, about
+// 40 GB a call at B 8, S = T 2048, H 128, several ms at L2 rates.  A block
+// that served 128 rows from one staged tile would halve that; TMA with a
+// producer warp would take the copies off the compute warps.
+//
+// CUDA-core kernel (f32 prefill, decode):
 //
 // * One block of 8 warps takes 64 query rows: rows are (position, head)
 //   pairs in the model layout's order, row r = i H + h (so a row's q and
@@ -69,6 +140,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -421,6 +494,294 @@ __global__ void __launch_bounds__(kR / 4)
   st4(out + r * kR + d, acc.x / den, acc.y / den, acc.z / den, acc.w / den);
 }
 
+// ------------------------------------------ tensor-core prefill (bf16)
+constexpr int kTcThreads = 256;              // two warpgroups
+constexpr int kPiece = 64 * 128;             // 64 rows x 64 bf16, swizzled
+constexpr int kPieces = kDk / 64;            // 9: k_rope, then c_kv 0..7
+constexpr int kSlots = 2 * kPieces - 1;      // the ring's piece slots
+constexpr int kXWords = 16;                  // p words a thread passes on
+// dynamic shared memory: room to align the base to 1024 bytes (the
+// swizzle's period), Q's 9 pieces, the ring's 17 slots: 214 016 bytes
+constexpr int kTcSmem = 1024 + kPieces * kPiece + kSlots * kPiece;
+
+// 16 x 4 fp32 accumulator registers of an m64n32k16 product
+#define WGMMA_D16                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+
+// d (64 x 32, fp32) (+)= A (64 x 16, K-major in shared memory) .
+// B (16 x 32, K-major in shared memory)
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WGMMA_D16
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// the ring slot of piece j of key tile n
+__device__ __forceinline__ int ring_slot(int n, int j) {
+  return (kPieces * n + j) % kSlots;
+}
+
+// Accumulator fragments (fp32), for thread lt of a warpgroup, warp
+// w = lt / 32, lane l: d[4 j + 2 half + c] holds row 16 w + l / 4 + 8 half,
+// column 8 j + 2 (l % 4) + c.  grid: B x row tiles, one dimension.
+__global__ void __launch_bounds__(kTcThreads, 1)
+    mla_attention_wgmma_kernel(const Args a, int B) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint32_t xw[2][kXWords][128];   // p fragments, [wg][word][lt]
+  __shared__ float red[2][64];               // row max over a half tile
+  __shared__ float lsum[2][64];              // row sums, at the end
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sq = base;                  // Q piece j at sq + j kPiece
+  const uint32_t ring = base + kPieces * kPiece;
+
+  const int tid = threadIdx.x;
+  // broadcast from lane 0, so that the compiler knows it is warp-uniform
+  // and keeps the descriptors derived from it in uniform registers
+  const int wg = __shfl_sync(kFull, tid >> 7, 0);
+  const int lt = tid & 127;
+  const int warp = lt >> 5;
+  const int lane = tid & 31;
+  const int rows = a.rows, H = a.H, Tk = a.Tk;
+  const int b = blockIdx.x % B;
+  const int tile = (rows + 63) / 64 - 1 - blockIdx.x / B;  // heaviest first
+  const int r0 = tile * 64;
+  const int r_last = min(r0 + 64, rows) - 1;
+  const int p_first = r0 / H;
+  const int t_end = min(Tk, r_last / H + 1);  // keys past it: zero-filled
+  const int ntiles = (t_end + 63) / 64;
+  const __nv_bfloat16* ql =
+      static_cast<const __nv_bfloat16*>(a.q_lat) + (long long)b * rows * kR;
+  const __nv_bfloat16* qr =
+      static_cast<const __nv_bfloat16*>(a.q_rope) + (long long)b * rows * kDr;
+  const __nv_bfloat16* ck =
+      static_cast<const __nv_bfloat16*>(a.c_kv) + (long long)b * Tk * kR;
+  const __nv_bfloat16* kr =
+      static_cast<const __nv_bfloat16*>(a.k_rope) + (long long)b * Tk * kDr;
+
+  // Q: 16-byte chunk c of row i; chunks 0..7 are q_rope's (piece 0), the
+  // rest q_lat's (pieces 1..8); rows past the last are zero-filled
+  for (int e = tid; e < 64 * kPieces * 8; e += kTcThreads) {
+    const int i = e / (kPieces * 8), c = e - i * (kPieces * 8);
+    const bool ok = r0 + i < rows;
+    const long long r = ok ? r0 + i : 0;
+    const __nv_bfloat16* src =
+        c < 8 ? qr + r * kDr + 8 * c : ql + r * kR + 8 * (c - 8);
+    cp_async16(swizzled(sq + (c >> 3) * kPiece, i, c & 7), src, ok);
+  }
+  // piece j of key tile n: 64 keys x 8 chunks, 2 copies a thread
+  auto load_piece = [&](int n, int j) {
+    const uint32_t dst = ring + ring_slot(n, j) * kPiece;
+    for (int e = tid; e < 64 * 8; e += kTcThreads) {
+      const int k = e >> 3, c = e & 7;
+      const bool ok = n * 64 + k < t_end;
+      const long long t = ok ? n * 64 + k : 0;
+      const __nv_bfloat16* src =
+          j == 0 ? kr + t * kDr + 8 * c : ck + t * kR + 64 * (j - 1) + 8 * c;
+      cp_async16(swizzled(dst, k, c), src, ok);
+    }
+  };
+  for (int j = 0; j < kPieces; ++j) load_piece(0, j);
+  cp_async_commit();
+
+  // this thread's two rows (block-local) and their positions; a row past
+  // the last takes the last row's position (computed, never stored)
+  const int row0 = warp * 16 + (lane >> 2);
+  const int row1 = row0 + 8;
+  const int pos0 = min(r0 + row0, r_last) / H;
+  const int pos1 = min(r0 + row1, r_last) / H;
+  const int col = 2 * (lane & 3);
+  const uint64_t q_desc = sw128_desc(sq);
+
+  float o[4][32];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[u][i] = 0.f;
+  float m0 = kFloor2, m1 = kFloor2, l0 = 0.f, l1 = 0.f;
+
+  for (int n = 0; n < ntiles; ++n) {
+    // tile n has landed, and both warpgroups are done with tile n - 1,
+    // whose pieces 1..8 hold the slots of tile n + 1's pieces 0..7
+    cp_async_wait_all();
+    fence_proxy_async();
+    __syncthreads();
+    if (n + 1 < ntiles)
+      for (int j = 0; j < kPieces - 1; ++j) load_piece(n + 1, j);
+    cp_async_commit();
+
+    // S for this warpgroup's keys 32 wg .. 32 wg + 31 of the tile: 4 k16
+    // steps (32 bytes each) a piece, its rows 32 wg .. at 4096 bytes
+    float s[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kPieces; ++j) {
+      const uint64_t kd =
+          sw128_desc(ring + ring_slot(n, j) * kPiece + wg * 32 * 128);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss_n32(s, q_desc + j * (kPiece >> 4) + 2 * kk, kd + 2 * kk,
+                     j + kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // scale (base 2) on the fp32 accumulator, then the mask: key t is
+    // visible to a row at position p iff t <= p (and t < Tk)
+    const int t0 = n * 64;
+    const bool masked = t0 + 63 > p_first || t0 + 63 >= Tk;
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float& a0 = s[4 * j + c];
+        float& a1 = s[4 * j + 2 + c];
+        a0 *= a.sc2;
+        a1 *= a.sc2;
+        if (masked) {
+          const int t = t0 + 32 * wg + 8 * j + col + c;
+          if (t > pos0 || t >= Tk) a0 = kNegInf;
+          if (t > pos1 || t >= Tk) a1 = kNegInf;
+        }
+        mx0 = fmaxf(mx0, a0);
+        mx1 = fmaxf(mx1, a1);
+      }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(kFull, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(kFull, mx1, 2));
+    if ((lane & 3) == 0) {
+      red[wg][row0] = mx0;
+      red[wg][row1] = mx1;
+    }
+    // both halves' maxima are written, and both warpgroups' S is done:
+    // tile n's k_rope piece takes tile n + 1's last piece
+    __syncthreads();
+    if (n + 1 < ntiles) load_piece(n + 1, kPieces - 1);
+    cp_async_commit();
+    // m >= the clamp already, so the new max is too
+    mx0 = fmaxf(fmaxf(m0, mx0), red[wg ^ 1][row0]);
+    mx1 = fmaxf(fmaxf(m1, mx1), red[wg ^ 1][row1]);
+    const float c0 = exp2_(m0 - mx0);
+    const float c1 = exp2_(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        s[4 * j + c] = exp2_(s[4 * j + c] - mx0);
+        s[4 * j + 2 + c] = exp2_(s[4 * j + 2 + c] - mx1);
+        sum0 += s[4 * j + c];
+        sum1 += s[4 * j + 2 + c];
+      }
+    }
+    l0 = l0 * c0 + sum0;  // this thread's 8 keys of each row
+    l1 = l1 * c1 + sum1;
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        o[u][4 * j] *= c0;
+        o[u][4 * j + 1] *= c0;
+        o[u][4 * j + 2] *= c1;
+        o[u][4 * j + 3] *= c1;
+      }
+
+    // A fragment of this warpgroup's k step kk (keys 32 wg + 16 kk ..):
+    // register r holds row 8 (r & 1) + l / 4 (+ 16 w), keys 16 kk +
+    // 8 (r >> 1) + 2 (l % 4) + {0, 1}, the accumulator's d[4 j + 2 (r & 1)
+    // + {0, 1}] with j = 2 kk + (r >> 1).  Word 4 kk + r is the hi half,
+    // word 8 + 4 kk + r the lo half.
+    uint32_t own[kXWords], other[kXWords];
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = 4 * (2 * kk + (r >> 1)) + 2 * (r & 1);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(s[i], s[i + 1]);
+        const float2 hf = __bfloat1622float2(hi);
+        own[4 * kk + r] = bf16x2_bits(hi);
+        own[8 + 4 * kk + r] =
+            bf16x2_bits(__floats2bfloat162_rn(s[i] - hf.x, s[i + 1] - hf.y));
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < kXWords; ++w) xw[wg][w][lt] = own[w];
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < kXWords; ++w) other[w] = xw[wg ^ 1][w][lt];
+
+    // O's columns 256 wg + 64 u .. from value piece 1 + 4 wg + u; 16 keys
+    // are 2048 bytes of a piece, 128 descriptor units
+#pragma unroll
+    for (int u = 0; u < 4; ++u) fence_regs(o[u]);
+    wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const uint64_t vd =
+          sw128_desc(ring + ring_slot(n, 1 + 4 * wg + u) * kPiece);
+      const uint64_t v_own = vd + 128 * 2 * wg;
+      const uint64_t v_other = vd + 128 * 2 * (wg ^ 1);
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        wgmma_rs(o[u], own + 4 * kk, v_own + 128 * kk);
+        wgmma_rs(o[u], own + 8 + 4 * kk, v_own + 128 * kk);
+        wgmma_rs(o[u], other + 4 * kk, v_other + 128 * kk);
+        wgmma_rs(o[u], other + 8 + 4 * kk, v_other + 128 * kk);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int u = 0; u < 4; ++u) fence_regs(o[u]);
+  }
+  cp_async_wait_all();
+
+  // each row's sum: the quad's, then the other warpgroup's half
+  l0 += __shfl_xor_sync(kFull, l0, 1);
+  l0 += __shfl_xor_sync(kFull, l0, 2);
+  l1 += __shfl_xor_sync(kFull, l1, 1);
+  l1 += __shfl_xor_sync(kFull, l1, 2);
+  if ((lane & 3) == 0) {
+    lsum[wg][row0] = l0;
+    lsum[wg][row1] = l1;
+  }
+  __syncthreads();
+  const float den0 = fmaxf(l0 + lsum[wg ^ 1][row0], 1e-30f);
+  const float den1 = fmaxf(l1 + lsum[wg ^ 1][row1], 1e-30f);
+  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.out) +
+                      ((long long)b * rows + r0) * kR + 256 * wg + col;
+  const bool ok0 = r0 + row0 < rows, ok1 = r0 + row1 < rows;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 64 * u + 8 * j;
+      if (ok0)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row0 * kR + c) =
+            __floats2bfloat162_rn(o[u][4 * j] / den0, o[u][4 * j + 1] / den0);
+      if (ok1)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row1 * kR + c) =
+            __floats2bfloat162_rn(o[u][4 * j + 2] / den1,
+                                  o[u][4 * j + 3] / den1);
+    }
+  }
+}
+
 // the dynamic shared memory limit, set once per (instance, device)
 template <typename T, bool kDecode>
 cudaError_t allow_smem(int device) {
@@ -433,12 +794,37 @@ cudaError_t allow_smem(int device) {
   return err;
 }
 
-template <typename T>
-cudaError_t prefill(const Args& a, int B, int device, cudaStream_t st) {
-  cudaError_t err = allow_smem<T, false>(device);
+// f32 prefill: the CUDA-core kernel
+cudaError_t prefill_f32(const Args& a, int B, int device, cudaStream_t st) {
+  cudaError_t err = allow_smem<float, false>(device);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.rows + kBlockRows - 1) / kBlockRows, 1, B);
-  mla_attention_kernel<T, false><<<grid, kThreads, smem_bytes<T>(), st>>>(a);
+  mla_attention_kernel<float, false>
+      <<<grid, kThreads, smem_bytes<float>(), st>>>(a);
+  return cudaGetLastError();
+}
+
+// bf16 prefill: the tensor-core kernel, one block an SM (231 424 bytes of
+// shared memory with the static arrays)
+cudaError_t prefill_bf16(const Args& a, int B, int device, cudaStream_t st) {
+  static unsigned long long done = 0;
+  if (device >= 64 || !(done >> device & 1)) {
+    cudaError_t err = cudaFuncSetAttribute(
+        mla_attention_wgmma_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(mla_attention_wgmma_kernel,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    if (device < 64) done |= 1ull << device;
+  }
+  // one grid dimension: B x row tiles blocks (below 2^31 for any q that
+  // fits a card: 2^31 tiles of q would be 158 TB)
+  const long long blocks = (long long)B * ((a.rows + 63) / 64);
+  if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
+  mla_attention_wgmma_kernel<<<(unsigned)blocks, kTcThreads, kTcSmem, st>>>(
+      a, B);
   return cudaGetLastError();
 }
 
@@ -462,10 +848,11 @@ bool misaligned(const void* p) { return (uintptr_t)p % 16 != 0; }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  q_lat (B, S, H, R), q_rope
-// (B, S, H, Dr), c_kv (B, Tk, R), k_rope (B, Tk, Dr), out (B, S, H, R),
-// all contiguous and 16-byte aligned; R must be 512 and Dr 64.  Causal over
-// positions 0..S-1 and 0..Tk-1.
+// dtype: 0 = float32 (the CUDA-core kernel), 1 = bfloat16 (the
+// tensor-core kernel).  q_lat (B, S, H, R), q_rope (B, S, H, Dr), c_kv
+// (B, Tk, R), k_rope (B, Tk, Dr), out (B, S, H, R), all contiguous and
+// 16-byte aligned; R must be 512 and Dr 64.  Causal over positions
+// 0..S-1 and 0..Tk-1.
 extern "C" int flash_attention_latent_launch(
     const void* q_lat, const void* q_rope, const void* c_kv,
     const void* k_rope, void* out, int B, int S, int Tk, int H, int R,
@@ -481,8 +868,8 @@ extern "C" int flash_attention_latent_launch(
   Args a{q_lat, q_rope, c_kv, k_rope, nullptr, nullptr, out, nullptr,
          S * H, H, Tk, 0, scale * kLog2e};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return (int)prefill<float>(a, B, device, st);
-  if (dtype == 1) return (int)prefill<__nv_bfloat16>(a, B, device, st);
+  if (dtype == 0) return (int)prefill_f32(a, B, device, st);
+  if (dtype == 1) return (int)prefill_bf16(a, B, device, st);
   return (int)cudaErrorInvalidValue;
 }
 

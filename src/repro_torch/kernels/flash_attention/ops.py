@@ -30,8 +30,15 @@ concatenated inputs with ``softmax_scale``.
 
 * ``flash_attention_latent_plain`` — its plain PyTorch version.
 * ``flash_attention_latent`` — the wrapper: plain version for CPU tensors,
-  the CUDA kernel (``csrc/mla_attention.cu``, R 512 and Dr 64) for CUDA
-  tensors; ``flash_attention_latent.launches`` counts its launches.
+  the CUDA kernels (``csrc/mla_attention.cu``, R 512 and Dr 64) for CUDA
+  tensors.  ``flash_attention_latent.launches`` counts its launches and
+  ``flash_attention_latent.instance_launches`` splits them by kernel
+  (``latent_instance``): ``"wgmma"`` for bf16, both products on the
+  tensor cores (``mla_attention_wgmma_kernel``: 64 query rows a block in
+  two warpgroups, the keys of S and the value columns of O split between
+  them, P passed between them in two bf16 halves, 64-key latent tiles
+  staged once through a ring of 17 pieces), ``"fma"`` for f32, on the CUDA
+  cores (``mla_attention_kernel``).
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ from .. import check_same_device, launch_args
 
 __all__ = ["flash_attention", "flash_attention_plain", "instance",
            "flash_attention_latent", "flash_attention_latent_plain",
-           "LATENT_WIDTHS", "NEG_INF"]
+           "latent_instance", "LATENT_WIDTHS", "NEG_INF"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -200,7 +207,16 @@ def flash_attention_latent(q_lat: torch.Tensor, q_rope: torch.Tensor,
         q_rope.shape[-1], float(scale), _DTYPES[q_lat.dtype], index, stream)
     _build.check(err, "flash_attention_latent")
     flash_attention_latent.launches += 1
+    inst = latent_instance(q_lat.dtype)
+    flash_attention_latent.instance_launches[inst] += 1
     return out
 
 
+def latent_instance(dtype: torch.dtype) -> str:
+    """The kernel that a latent prefill launch on inputs of ``dtype`` runs
+    (the dispatch of ``flash_attention_latent_launch``)."""
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
 flash_attention_latent.launches = 0
+flash_attention_latent.instance_launches = {"wgmma": 0, "fma": 0}

@@ -848,15 +848,21 @@ def test_serve_mla_config_is_the_reference_config():
 
 def test_mla_kernel_rows_sit_at_serve_shapes():
     serve = chip_smoke.SERVE
-    assert ("serve", serve["batch"], serve["prefill_len"]) in \
-        chip_smoke.MLA_FLASH
+    H = chip_smoke.MLA_HEADS
+    # the serve row comes first: it is the row of the kernels line
+    assert chip_smoke.MLA_FLASH[0] == ("serve", serve["batch"],
+                                       serve["prefill_len"], H)
     assert ("serve", serve["batch"],
             serve["prefill_len"] + serve["decode_len"]) in \
         chip_smoke.MLA_DECODE
     # serve-mla-check's prefill length and serve's warm-up cache
-    assert ("ragged", 2, 1528) in chip_smoke.MLA_FLASH
+    assert ("ragged", 2, 1528, H) in chip_smoke.MLA_FLASH
     assert ("warm-up", 1, 18) in chip_smoke.MLA_DECODE
-    assert all(s % 64 and s % 32 for _, _, s in chip_smoke.MLA_FLASH[1:])
+    assert all(s % 64 and s % 32 for _, _, s, _ in chip_smoke.MLA_FLASH[1:])
+    # a row whose 64-row blocks span positions: H not a multiple of 64,
+    # and more than one position a block
+    small = [(b, s, h) for _, b, s, h in chip_smoke.MLA_FLASH if h % 64]
+    assert small == [(1, 77, 3)] and 64 // 3 > 1
 
 
 def test_mla_bounds():
@@ -908,9 +914,12 @@ def test_mla_instances_are_parsed_from_their_mangled_names():
     names = {
         "_ZN49_GLOBAL__N__c8312cf2_16_mla_attention_cu_38189a8120mla_"
         "attention_kernelI13__nv_bfloat16Lb1EEEvNS_4ArgsE": ("bf16",
-                                                            "decode"),
+                                                            "decode",
+                                                            "fma"),
         "_ZN49_GLOBAL__N__c8312cf2_16_mla_attention_cu_38189a8120mla_"
-        "attention_kernelIfLb0EEEvNS_4ArgsE": ("f32", "prefill"),
+        "attention_kernelIfLb0EEEvNS_4ArgsE": ("f32", "prefill", "fma"),
+        "_ZN49_GLOBAL__N__c8312cf2_16_mla_attention_cu_38189a8126mla_"
+        "attention_wgmma_kernelENS_4ArgsEi": ("bf16", "prefill", "wgmma"),
     }
     for entry, want in names.items():
         assert chip_smoke._mla_instance(entry) == want
@@ -919,3 +928,15 @@ def test_mla_instances_are_parsed_from_their_mangled_names():
         assert chip_smoke._wgmma_instance(entry) is None
     assert chip_smoke._mla_instance(
         "_ZN12_GLOBAL__N_123mla_decode_merge_kernelIfEEvPKfPT_i") is None
+    # the build requires these four, one each; the bf16 prefill is the
+    # tensor-core kernel (the wrapper's dispatch) and must not spill
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import latent_instance
+    assert sorted(chip_smoke.MLA_INSTANCES) == sorted(set(names.values()) | {
+        ("f32", "decode", "fma")})
+    for dt, kind, route in chip_smoke.MLA_INSTANCES:
+        if kind == "prefill":
+            dtype = (torch.bfloat16 if dt == "bf16" else torch.float32)
+            assert latent_instance(dtype) == route
+    assert chip_smoke.MLA_NO_SPILL == (("bf16", "prefill", "wgmma"),)

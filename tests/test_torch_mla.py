@@ -15,8 +15,11 @@ through ``params_from_jax``: the forward, prefill and 4 decode steps
 within 1e-3 of the reference, and the port's teacher-forced decode
 within 2e-3 of its own forward; the MTP group's shapes and its absence
 from serving; the refused cases; ``launch.serve`` on the CPU with the
-reference's refit line.  On the CPU the kernels' plain versions run; the
-CUDA kernels are checked on the card by ``chip_smoke.py``."""
+reference's refit line.  The bf16 latent prefill's tensor-core
+arithmetic (split P, the scale on the fp32 scores) emulated against the
+card's bf16 rule, and its dispatch by dtype.  On the CPU the kernels'
+plain versions run; the CUDA kernels are checked on the card by
+``chip_smoke.py``."""
 
 import dataclasses
 import re
@@ -347,6 +350,156 @@ def test_latent_entry_points_match_their_ctypes_signatures():
                                            torch.bfloat16: 64}
     assert "kBlockRows = kWarps * kWarpRows;  // 64" in src
     assert re.search(r"kWarps = 8;.*kWarpRows = 8;", src, re.S)
+
+
+def test_the_build_hashes_every_included_header():
+    # the library's name hashes the sources and HEADERS, so a header that a
+    # source includes but HEADERS misses would leave a stale build in use
+    csrc = _build.CSRC
+    included = {inc for name in _build.SOURCES for inc in re.findall(
+        r'#include "([^"]+)"', (csrc / name).read_text())}
+    assert included == set(_build.HEADERS) == {
+        p.name for p in csrc.glob("*.cuh")}
+    for name in ("flash_attention.cu", "mla_attention.cu"):
+        assert '#include "wgmma.cuh"' in (csrc / name).read_text()
+
+
+# The bf16 latent prefill runs both products on the tensor cores
+# (csrc/mla_attention.cu, mla_attention_wgmma_kernel): scores in fp32 from
+# bf16 [q_lat ; q_rope] and [c_kv ; k_rope] (each product exact in fp32,
+# the sums in fp32), times scale * log2(e) on the fp32 accumulator, an
+# online softmax in base 2 over 64-key tiles with the reference's clamps,
+# and P c_kv with the fp32 weights split as P = bf16(P) + bf16(P -
+# bf16(P)), two bf16 products summed in fp32.  The card check
+# (chip_smoke.py) holds a bf16 output to rtol 2^-7, atol 1e-5 against the
+# plain version with at most 1% of the elements differing.  This emulates
+# that arithmetic on the CPU: the split meets the rule, while one bf16 P,
+# or q rounded to bf16 after the scale is folded into it, does not.
+LATENT_TILE = 64
+LOG2E = 1.4426950408889634
+BF16_TOL = dict(rtol=2.0 ** -7, atol=1e-5)
+BF16_DIFF_SHARE = 0.01
+
+
+def _emulate_latent_tensor_core_kernel(q_lat, q_rope, c_kv, k_rope, *,
+                                       scale, weights, prescale_q=False):
+    """bf16 q_lat (B, S, H, R), q_rope (B, S, H, Dr), c_kv (B, T, R),
+    k_rope (B, T, Dr) -> bf16 (B, S, H, R), causal, with the softmax
+    weights of the P V product kept in fp32 (``weights="fp32"``, the
+    CUDA-core kernel's arithmetic), split hi / lo in bf16 (``"split"``, the
+    tensor-core kernel's) or rounded once to bf16 (``"bf16"``).
+    ``prescale_q`` folds scale * log2(e) into q and rounds it to bf16
+    before the product, instead of scaling the fp32 scores.  Rows are
+    (position, head) pairs, r = i H + h, as the kernel orders them."""
+    b, s, h, r = q_lat.shape
+    t = c_kv.shape[1]
+    sc2 = scale * LOG2E
+    q = torch.cat([q_lat, q_rope], -1).float().reshape(b, s * h, -1)
+    if prescale_q:
+        q = (q * sc2).bfloat16().float()
+    k = torch.cat([c_kv, k_rope], -1).float()
+    v = c_kv.float()
+    qpos = (torch.arange(s * h) // h)[:, None]
+    m = torch.full((b, s * h, 1), -1e4 * LOG2E)
+    l = torch.zeros((b, s * h, 1))
+    acc = torch.zeros((b, s * h, r))
+    for t0 in range(0, t, LATENT_TILE):
+        sc = torch.matmul(q, k[:, t0:t0 + LATENT_TILE].transpose(1, 2))
+        if not prescale_q:
+            sc = sc * sc2
+        kpos = torch.arange(t0, min(t0 + LATENT_TILE, t))[None, :]
+        sc = torch.where(kpos <= qpos, sc, torch.full_like(sc, -1e30))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(sc - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        vt = v[:, t0:t0 + LATENT_TILE]
+        if weights == "fp32":
+            pv = torch.matmul(p, vt)
+        else:
+            p_hi = p.bfloat16().float()
+            pv = torch.matmul(p_hi, vt)
+            if weights == "split":
+                pv = pv + torch.matmul((p - p_hi).bfloat16().float(), vt)
+        acc = acc * corr + pv
+        m = m_new
+    out = acc / l.clamp_min(1e-30)
+    return out.reshape(b, s, h, r).bfloat16()
+
+
+def _bf16_rule(got, want):
+    """(allclose under the card's bf16 tolerance, share of differing
+    elements) of two bf16 outputs."""
+    close = bool(torch.allclose(got.float(), want.float(), **BF16_TOL))
+    return close, float((got != want).float().mean())
+
+
+@pytest.mark.parametrize("s,h", [
+    pytest.param(256, 16, id="S256-H16"),
+    pytest.param(512, 8, id="S512-H8"),
+    # H not a multiple of 64 (a 64-row block spans positions) and S not a
+    # multiple of the 64-key tile
+    pytest.param(100, 5, id="S100-H5"),
+])
+def test_split_latent_weights_meet_the_card_bf16_rule(s, h):
+    r, dr = flash_ops.LATENT_WIDTHS
+    args = [torch.from_numpy(a).bfloat16()
+            for a in _latent_inputs(31, 1, s, s, h, r, dr)]
+    scale = 192 ** -0.5
+    want = flash_ops.flash_attention_latent_plain(*args, scale=scale)
+    shares = {}
+    for weights in ("fp32", "split", "bf16"):
+        got = _emulate_latent_tensor_core_kernel(*args, scale=scale,
+                                                 weights=weights)
+        assert got.shape == want.shape
+        close, shares[weights] = _bf16_rule(got, want)
+        if weights != "bf16":
+            assert close, (weights, float((got.float() - want.float())
+                                          .abs().max()))
+            assert shares[weights] <= BF16_DIFF_SHARE, (weights, shares)
+    # one bf16 P loses the weights' low bits, which the rule sees
+    assert shares["bf16"] > BF16_DIFF_SHARE, shares
+    assert shares["bf16"] > 10 * shares["split"], shares
+    # the scale belongs on the fp32 scores: folded into q and rounded to
+    # bf16, it moves every score by up to half a bf16 ulp of q
+    got = _emulate_latent_tensor_core_kernel(*args, scale=scale,
+                                             weights="split", prescale_q=True)
+    close, shares["prescaled-q"] = _bf16_rule(got, want)
+    assert not (close and shares["prescaled-q"] <= BF16_DIFF_SHARE), shares
+    assert shares["prescaled-q"] > 10 * shares["split"], shares
+    print(f"S={s} H={h} share of differing bf16 outputs: {shares}")
+
+
+def test_latent_prefill_instances_follow_the_dtype():
+    # bf16 prefill on the tensor-core kernel, f32 on the CUDA-core one: the
+    # wrapper's count keys, and the C dispatch, which builds no bf16
+    # instance of the CUDA-core prefill
+    assert flash_ops.latent_instance(torch.bfloat16) == "wgmma"
+    assert flash_ops.latent_instance(torch.float32) == "fma"
+    assert set(flash_ops.flash_attention_latent.instance_launches) == {
+        "wgmma", "fma"}
+    src = (ROOT / "src" / "repro_torch" / "csrc" /
+           "mla_attention.cu").read_text()
+    body = src[src.index('extern "C" int flash_attention_latent_launch'):]
+    body = body[:body.index("\n}\n")]
+    assert re.findall(r"dtype == (\d)\) return \(int\)prefill_(\w+)\(",
+                      body) == [("0", "f32"), ("1", "bf16")]
+
+    def function(name):
+        f = src[src.index(f"cudaError_t {name}("):]
+        return f[:f.index("\n}\n")]
+
+    assert "mla_attention_wgmma_kernel<<<" in function("prefill_bf16")
+    assert "mla_attention_kernel<" not in function("prefill_bf16")
+    assert "mla_attention_kernel<float, false>" in function("prefill_f32")
+    assert not re.search(r"mla_attention_kernel<(__nv_bfloat16|T), false>",
+                         src)
+    # CPU tensors take the plain version and launch nothing
+    before = dict(flash_ops.flash_attention_latent.instance_launches)
+    args = [torch.from_numpy(a).bfloat16()
+            for a in _latent_inputs(9, 1, 3, 3, 2, 512, 64)]
+    flash_ops.flash_attention_latent(*args, scale=0.1)
+    assert flash_ops.flash_attention_latent.instance_launches == before
 
 
 # ------------------------------------------------------------ the model

@@ -62,6 +62,7 @@ def start_build(name: str, src: str, tmp: str):
     cu, so = Path(tmp) / f"{stem}.cu", Path(tmp) / f"{stem}.so"
     cu.write_text(src)
     proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                             "-I", str(_build.CSRC),
                              str(cu), "-o", str(so)], stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     return so, proc

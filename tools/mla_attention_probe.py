@@ -3,22 +3,46 @@
 
     python3 tools/mla_attention_probe.py
 
-Builds the package's kernels (``src/repro_torch/csrc``), prints the ptxas
-report of ``mla_attention.cu`` (registers, spill bytes of each instance),
-then runs ``flash_attention_latent`` and ``decode_attention_latent`` in
-bf16 and f32 at deepseek-v3-671b's widths (H 128, R 512, Dr 64, scale
-192^-0.5) and at small odd shapes, against their plain versions: the
+Builds the package's kernels (``src/repro_torch/csrc``), prints a ptxas
+line for each kernel of ``mla_attention.cu`` (registers, spill bytes: the
+bf16 prefill's tensor-core kernel ``mla_attention_wgmma_kernel``, the
+CUDA-core ``mla_attention_kernel<T, decode>`` instances and the decode
+merge), then runs ``flash_attention_latent`` and
+``decode_attention_latent`` in bf16 and f32 at deepseek-v3-671b's widths
+(H 128, R 512, Dr 64, scale 192^-0.5) and at small odd shapes (H 3 and
+5, whose 64-row blocks span positions), against their plain versions: the
 largest difference, the share of outputs that differ, and the kernel's
-time by CUDA events (prefill at S >= 1528 over 2 calls, with its fp32
-rate; decode over 20 calls).  Decode runs over a wrapped cache with empty
+time by CUDA events (prefill at S >= 1528 over 2 calls, with its rate in
+TFLOP/s of counted work; decode over 20 calls).  Decode runs over a wrapped cache with empty
 slots and per-row query positions.  The first check of a new kernel on
 the card; ``chip_smoke.py``'s ``kernels`` phase holds the same kernels to
 the card's rules.  Needs a CUDA card and ``nvcc``.
+
+    python3 tools/mla_attention_probe.py --variants [NAME ...] \
+        [--other benchmarks/results/parent/mla_attention.cu]
+
+instead builds ``mla_attention.cu`` as it stands ("base") and copies of
+it with one part of the bf16 prefill's tensor-core kernel cut out
+(``VARIANTS``: its S products, its P V products, its key-tile copies
+after the first tile, or both products), a copy that issues its key
+copies under the asynchronous products, and copies with L2 hints on its
+copies, all at once, checks "base" against the plain
+version and times each at deepseek-v3's prefill (B 8, S = T 2048, H 128)
+in turns (in order, then reversed) by profiler device time: what a cut
+saves is roughly what that part costs.  The cut variants compute wrong
+outputs; they are timed, never used.  ``--other`` adds another source
+(say the parent commit's, copied into the git-ignored
+``benchmarks/results/``), checked and timed beside them.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
+import re
+import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -34,6 +58,73 @@ from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention_latent, flash_attention_latent_plain)
 
 SCALE = 192 ** -0.5
+SOURCE = _build.CSRC / "mla_attention.cu"
+VARIANTS = {
+    "base": [],
+    "no-qk": [("""        wgmma_ss_n32(s, q_desc + j * (kPiece >> 4) + 2 * kk, kd + 2 * kk,
+                     j + kk > 0);""", "        (void)kd;")],
+    "no-pv": [("""        wgmma_rs(o[u], own + 4 * kk, v_own + 128 * kk);
+        wgmma_rs(o[u], own + 8 + 4 * kk, v_own + 128 * kk);
+        wgmma_rs(o[u], other + 4 * kk, v_other + 128 * kk);
+        wgmma_rs(o[u], other + 8 + 4 * kk, v_other + 128 * kk);""",
+               "        (void)v_own; (void)v_other;")],
+    "no-loads": [
+        ("      for (int j = 0; j < kPieces - 1; ++j) load_piece(n + 1, j);",
+         "      ;"),
+        ("    if (n + 1 < ntiles) load_piece(n + 1, kPieces - 1);", "")],
+}
+# two cuts at once: the copies and the barriers alone
+VARIANTS["loads-only"] = VARIANTS["no-qk"] + VARIANTS["no-pv"]
+# the copies issued while the tensor cores run S (tile n + 1's pieces
+# 0..7) and P V (its last piece), instead of before each
+VARIANTS["copies-under-products"] = [
+    ("""    __syncthreads();
+    if (n + 1 < ntiles)
+      for (int j = 0; j < kPieces - 1; ++j) load_piece(n + 1, j);
+    cp_async_commit();
+""", "    __syncthreads();\n"),
+    ("""    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);""", """    wgmma_commit();
+    if (n + 1 < ntiles)
+      for (int j = 0; j < kPieces - 1; ++j) load_piece(n + 1, j);
+    cp_async_commit();
+    wgmma_wait_all();
+    fence_regs(s);"""),
+    ("""    __syncthreads();
+    if (n + 1 < ntiles) load_piece(n + 1, kPieces - 1);
+    cp_async_commit();""", "    __syncthreads();"),
+    ("""    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int u = 0; u < 4; ++u) fence_regs(o[u]);""", """    wgmma_commit();
+    if (n + 1 < ntiles) load_piece(n + 1, kPieces - 1);
+    cp_async_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int u = 0; u < 4; ++u) fence_regs(o[u]);""")]
+# L2 hints on the copies: a 256-byte L2 prefetch on the key copies; or the
+# keys kept in L2 (evict-last) while q, read once, goes first (evict-first)
+_KEY_COPY = "      cp_async16(swizzled(dst, k, c), src, ok);"
+_Q_COPY = "    cp_async16(swizzled(sq + (c >> 3) * kPiece, i, c & 7), src, ok);"
+VARIANTS["l2-prefetch"] = [(_KEY_COPY, """      asm volatile(
+          "cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\\n"
+          ::"r"(swizzled(dst, k, c)), "l"(src), "r"(ok ? 16 : 0));""")]
+VARIANTS["l2-policy"] = [
+    ("  // Q: 16-byte chunk c of row i;", """  uint64_t keep, drop;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
+               : "=l"(keep));
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(drop));
+  // Q: 16-byte chunk c of row i;"""),
+    (_KEY_COPY, """      asm volatile(
+          "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, "
+          "%3;\\n" ::"r"(swizzled(dst, k, c)), "l"(src), "r"(ok ? 16 : 0),
+          "l"(keep));"""),
+    (_Q_COPY, """    asm volatile(
+        "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\\n"
+        ::"r"(swizzled(sq + (c >> 3) * kPiece, i, c & 7)), "l"(src),
+        "r"(ok ? 16 : 0), "l"(drop));""")]
 PREFILL = ((2, 200, 128), (1, 77, 3), (8, 2048, 128), (2, 1528, 128))
 DECODE = ((8, 2112, 128), (2, 300, 5), (8, 18, 128), (3, 1536, 128))
 
@@ -57,21 +148,143 @@ def _diff(got, want) -> str:
     return f"err={err:.3e} diffshare={share:.4f}"
 
 
+def ptxas_lines(report: str) -> list[str]:
+    """'kernel registers spills' of each kernel of mla_attention.cu in a
+    ptxas report (empty when the library was already built)."""
+    out, source, entry, spills = [], None, None, "0/0"
+    for line in report.splitlines():
+        if line.startswith("== "):
+            source = line[3:].strip()
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            entry, spills = m.group(1), "0/0"
+        if m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line):
+            spills = f"{m.group(1)}/{m.group(2)}"
+        if (m := re.search(r"Used (\d+) registers", line)) and entry:
+            if source == "mla_attention.cu":
+                k = re.search(r"mla_(attention_wgmma|attention|decode_merge)"
+                              r"_kernel(I(13__nv_bfloat16|f)(Lb([01]))?)?",
+                              entry)
+                name = f"mla_{k.group(1)}_kernel" if k else entry[:60]
+                if k and k.group(3):
+                    name += "<" + ("bf16" if k.group(3) != "f" else "f32")
+                    if k.group(5):
+                        name += ", " + ("decode" if k.group(5) == "1"
+                                        else "prefill")
+                    name += ">"
+                out.append(f"{name} registers={m.group(1)} "
+                           f"spills={spills}")
+            entry = None
+    return out
+
+
+def _variant_source(name: str) -> str:
+    src = SOURCE.read_text()
+    for old, new in VARIANTS[name]:
+        if src.count(old) != 1:
+            raise SystemExit(f"variant {name}: source text found "
+                             f"{src.count(old)} times, want once:\n{old}")
+        src = src.replace(old, new)
+    return src
+
+
+def time_variants(names: list[str], others: list[Path]) -> int:
+    """Build ``names`` of ``VARIANTS`` and the sources ``others`` at once
+    and time each at the serve shape, in turns, by profiler device time
+    per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    b, s, h = 8, 2048, 128
+    print(f"card: {smi.stdout.strip()}; bf16 latent prefill B {b} S = T {s} "
+          f"H {h}; device ms per call, 5 calls", flush=True)
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        sources = {name: _variant_source(name) for name in names}
+        for path in others:
+            sources[f"{path.parent.name}/{path.stem}"] = path.read_text()
+        procs = {}
+        for name, src in sources.items():
+            stem = name.replace("/", "-")
+            cu, so = Path(tmp) / f"{stem}.cu", Path(tmp) / f"{stem}.so"
+            cu.write_text(src)
+            procs[name] = so, subprocess.Popen(
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+                 str(_build.CSRC), str(cu), "-o", str(so)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        fns = {}
+        for name, (so, proc) in procs.items():
+            out, err = proc.communicate()
+            if proc.returncode:
+                raise SystemExit(f"{name}: nvcc failed\n{err}")
+            lines = [x for x in ptxas_lines("== mla_attention.cu\n" + out
+                                            + err) if "wgmma" in x]
+            lines += [x.strip() for x in (out + err).splitlines()
+                      if "warning" in x.lower()]
+            print(f"{name} ptxas: " + "; ".join(lines), flush=True)
+            fn = ctypes.CDLL(str(so)).flash_attention_latent_launch
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+        gen = torch.Generator(device=dev).manual_seed(0)
+        args = [torch.randn(shape, generator=gen, device=dev).bfloat16()
+                for shape in ((b, s, h, 512), (b, s, h, 64), (b, s, 512),
+                              (b, s, 64))]
+        out = torch.empty_like(args[0])
+
+        def call(fn):
+            err = fn(*(a.data_ptr() for a in args), out.data_ptr(), b, s, s,
+                     h, 512, 64, SCALE, 1, dev.index or 0,
+                     torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"CUDA error {err}")
+
+        want = flash_attention_latent_plain(*args, scale=SCALE)
+        for name in ["base", *(n for n in fns if n not in VARIANTS)]:
+            if name in fns:
+                call(fns[name])
+                torch.cuda.synchronize()
+                print(f"{name} {_diff(out, want)}", flush=True)
+        del want
+        times = {name: [] for name in fns}
+        for name in [*fns, *reversed(fns)]:
+            call(fns[name])
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    call(fns[name])
+                torch.cuda.synchronize()
+            times[name].append(sum(
+                e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA) / 1e3 / 5)
+        print(" ".join(f"{name}=" + "/".join(f"{t:.4f}" for t in ts)
+                       for name, ts in times.items()), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("mla_attention_probe: CUDA is not available", file=sys.stderr)
         return 2
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--variants", nargs="*", default=None,
+                    help=f"time these of {list(VARIANTS)} (all if none)")
+    ap.add_argument("--other", type=Path, action="append", default=[],
+                    help="with --variants: another mla_attention.cu to "
+                         "build, check and time (repeatable)")
+    opts = ap.parse_args()
+    if opts.variants is not None:
+        return time_variants(opts.variants or list(VARIANTS), opts.other)
     t0 = time.time()
     _build.lib()
     print(f"build_s {time.time() - t0:.1f}", flush=True)
-    report = _build.BUILD_INFO.get("ptxas", "")
-    if "== mla_attention.cu" in report:
-        section = report[report.index("== mla_attention.cu"):]
-        for line in section.splitlines()[1:]:
-            if line.startswith("== "):
-                break
-            if "registers" in line or "spill" in line or "entry" in line:
-                print(line.strip()[:200])
+    for line in ptxas_lines(_build.BUILD_INFO.get("ptxas", "")):
+        print(line, flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -91,7 +304,7 @@ def main() -> int:
                 ms = _event_ms(lambda: flash_attention_latent(
                     *args, scale=SCALE), 2)
                 flops = 2 * b * h * s * (s + 1) / 2 * (512 + 576)
-                line += f" ms={ms:.2f} tflops={flops / ms / 1e9:.1f}"
+                line += f" ms={ms:.3f} tflops={flops / ms / 1e9:.1f}"
             print(line, flush=True)
             del args, got, want
         for b, t, h in DECODE:
@@ -113,6 +326,7 @@ def main() -> int:
             print(f"decode {dtype} B{b} T{t} H{h} {_diff(got, want)} "
                   f"ms={ms:.4f}", flush=True)
     print("launches", flash_attention_latent.launches,
+          flash_attention_latent.instance_launches,
           decode_attention_latent.launches)
     return 0
 

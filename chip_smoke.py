@@ -24,10 +24,10 @@ Phases, each printed on a line of its own:
                  serving path's ssd passes and glm4-9b's decode instance
                  (bf16, blocks of 8 heads; ``DENSE_NO_SPILL``); it also
                  gives the registers and spills of the four latent (MLA)
-                 instances (``MLA_INSTANCES``: the bf16 prefill's
-                 tensor-core kernel, the f32 prefill and both decode
-                 instances on the CUDA cores) and requires no spill in the
-                 tensor-core one.
+                 instances (``MLA_INSTANCES``: the bf16 prefill and decode
+                 on the tensor-core kernel, the f32 prefill and decode on
+                 the CUDA cores) and requires no spill in the tensor-core
+                 ones.
 2. kernels     — hold each kernel against its plain PyTorch version on the
                  card and time kernel, plain version, library call (where
                  one PyTorch call computes the same function) and the
@@ -98,9 +98,13 @@ Phases, each printed on a line of its own:
                  flash_attention_latent at its prefill (``MLA_FLASH``: B 8,
                  S = T 2048), at S = T 1528 (B 2) and at B 1, S 77, H 3
                  (64-row blocks that span positions), decode_attention_latent
-                 over its serving cache (``MLA_DECODE``: B 8, T 2112, a
-                 wrapped ring with empty slots and per-row q_pos) and over
-                 serve's warm-up cache (T 18, one split); their rows time
+                 over its serving cache (``MLA_DECODE``: B 8, T 2112, H
+                 128, a wrapped ring with empty slots and per-row q_pos),
+                 over serve's warm-up cache (T 18, one split) and at B 2,
+                 T 777, H 3 (a partial row tile, a partial last split and
+                 splits with no visible slot); each row must launch its
+                 dtype's instance (bf16 ``wgmma``, f32 ``fma``); their rows
+                 time
                  SDPA with the shared key head on the first backend that
                  takes D 576 / Dv 512 and record what the others say.  Every
                  flash and every decode instance the build made must run
@@ -245,7 +249,8 @@ Phases, each printed on a line of its own:
                  decode ms/step, peak memory, each batch's prefill
                  ``drop_frac``, launches 4 x 2 (flash_attention_latent, all
                  on its tensor-core ``wgmma`` instance) and
-                 4 x 64 x 2 (decode_attention_latent), none of flash,
+                 4 x 64 x 2 (decode_attention_latent, all on its ``wgmma``
+                 instance), none of flash,
                  decode or ssd_scan; then the serve CLI's refit (4 EP ranks
                  of 66 slots) fitted on the card, whose spans must be the
                  reference's (``MLA_REFIT``).
@@ -253,8 +258,8 @@ Phases, each printed on a line of its own:
                  dense MLA layers) in f32 with TF32 off, prompt 1536,
                  prefill 1528, held as serve-check holds hymba (the latent
                  kernels patched to their plain versions on the plain
-                 route); the kernel route's latent prefill launches all
-                 on the CUDA-core ``fma`` instance.
+                 route); the kernel route's latent prefill and decode
+                 launch all on their CUDA-core ``fma`` instances.
 18. health     — ``Simulator(40, 50).run_online`` of fig6's paper default
                  (lmbr ``max_moves=120``) under the flags-built
                  ``HealthMonitor`` (``HEALTH_VARIANT``: snapshots every 100
@@ -947,11 +952,12 @@ DENSE_NO_SPILL = (("decode", "bf16", 8),)
 
 def _mla_instance(entry: str):
     """(dtype, "prefill" or "decode", "wgmma" or "fma") of a latent
-    attention kernel's mangled name: the bf16 prefill's tensor-core kernel
-    (mla_attention_wgmma_kernel) or a CUDA-core instance
+    attention kernel's mangled name: a bf16 instance of the tensor-core
+    kernel (mla_attention_wgmma_kernel<decode>) or a CUDA-core instance
     (mla_attention_kernel<T, decode>); None for any other."""
-    if re.search(r"mla_attention_wgmma_kernel", entry):
-        return ("bf16", "prefill", "wgmma")
+    if m := re.search(r"mla_attention_wgmma_kernelILb([01])E", entry):
+        return ("bf16", "decode" if m.group(1) == "1" else "prefill",
+                "wgmma")
     m = re.search(r"mla_attention_kernelI(13__nv_bfloat16|f)Lb([01])E",
                   entry)
     if not m:
@@ -960,11 +966,12 @@ def _mla_instance(entry: str):
             "decode" if m.group(2) == "1" else "prefill", "fma")
 
 
-# the latent (MLA) kernels the build must make: bf16 prefill on the tensor
-# cores (no spill allowed), f32 prefill and both decodes on the CUDA cores
+# the latent (MLA) kernels the build must make: bf16 prefill and decode on
+# the tensor cores (no spill allowed), f32 prefill and decode on the CUDA
+# cores
 MLA_INSTANCES = (("bf16", "prefill", "wgmma"), ("f32", "prefill", "fma"),
-                 ("bf16", "decode", "fma"), ("f32", "decode", "fma"))
-MLA_NO_SPILL = (("bf16", "prefill", "wgmma"),)
+                 ("bf16", "decode", "wgmma"), ("f32", "decode", "fma"))
+MLA_NO_SPILL = (("bf16", "prefill", "wgmma"), ("bf16", "decode", "wgmma"))
 
 
 def phase_build(_build):
@@ -1736,14 +1743,18 @@ def _ssd_domain_rows(torch, dev, dtype):
 # scale 192^-0.5): prefill (label, B, S = T, H) at serve's (B 8, S 2048),
 # at serve-mla-check's prefill S 1528 (B 2), a multiple of no tile, and at
 # H 3, S 77 (B 1), whose 64-row blocks span positions (a row of 0.11 s in
-# bf16 and 0.05 s in f32, its plain and SDPA times included); decode over
-# serve's cache (B 8, T 2112, a wrapped ring with empty slots and per-row
-# q_pos) and serve's warm-up cache (B 1, T 18, one split)
+# bf16 and 0.05 s in f32, its plain and SDPA times included); decode
+# (label, B, T, H) over serve's cache (B 8, T 2112, a wrapped ring with
+# empty slots and per-row q_pos), serve's warm-up cache (B 1, T 18, one
+# split) and at H 3 over a wrapped ring of 777 slots (B 2) whose batch row
+# 1 has its first 128 slots empty: in bf16 13 splits of one 64-slot tile,
+# the last partial, and two with no visible slot
 MLA_HEADS, MLA_RANK, MLA_ROPE = 128, 512, 64
 MLA_SCALE = (128 + 64) ** -0.5
 MLA_FLASH = (("serve", 8, 2048, MLA_HEADS), ("ragged", 2, 1528, MLA_HEADS),
              ("small-H", 1, 77, 3))
-MLA_DECODE = (("serve", 8, 2112), ("warm-up", 1, 18))
+MLA_DECODE = (("serve", 8, 2112, MLA_HEADS), ("warm-up", 1, 18, MLA_HEADS),
+              ("small-H", 2, 777, 3))
 
 
 def _latent_prefill_bound(B, S, H, esz, peak):
@@ -1816,7 +1827,8 @@ def _latent_rows(torch, dev, dtype, peak):
 
     from repro_torch.kernels.decode_attention.ops import (
         LATENT_TILE_KEYS, decode_attention_latent,
-        decode_attention_latent_plain, latent_split_plan)
+        decode_attention_latent_plain, latent_decode_instance,
+        latent_split_plan)
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention_latent, flash_attention_latent_plain,
         latent_instance)
@@ -1824,7 +1836,7 @@ def _latent_rows(torch, dev, dtype, peak):
     gen = torch.Generator(device=dev).manual_seed(31)
     esz = torch.finfo(dtype).bits // 8
     tag = "bf16" if dtype == torch.bfloat16 else "f32"
-    H, R, Dr, scale = MLA_HEADS, MLA_RANK, MLA_ROPE, MLA_SCALE
+    R, Dr, scale = MLA_RANK, MLA_ROPE, MLA_SCALE
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -1874,7 +1886,8 @@ def _latent_rows(torch, dev, dtype, peak):
             **_sdpa_library(torch, sdpa, 3), bound_ms=bound, bound_by=by,
             row_s=time.perf_counter() - t_row))
         del args, qT, kT, vT
-    for label, B, T in MLA_DECODE:
+    inst = latent_decode_instance(dtype)
+    for label, B, T, Hq in MLA_DECODE:
         slot = torch.arange(T, device=dev, dtype=torch.int32)
         if label == "warm-up":
             # serve's warm-up (prompt 16): slots 0..16 filled, q at 16
@@ -1885,19 +1898,24 @@ def _latent_rows(torch, dev, dtype, peak):
             roll = torch.randint(0, T, (B,), generator=gen, device=dev,
                                  dtype=torch.int32)
             kv_pos = ((slot[None] - roll[:, None]) % T).to(torch.int32)
-            kv_pos[1, :30] = -1
+            kv_pos[1, :30 if label == "serve" else 128] = -1
             q_pos = torch.randint(T - 64, T, (B,), generator=gen,
                                   device=dev, dtype=torch.int32)
-        args = (randn(B, H, R), randn(B, H, Dr), randn(B, T, R),
+        args = (randn(B, Hq, R), randn(B, Hq, Dr), randn(B, T, R),
                 randn(B, T, Dr), kv_pos, q_pos)
-        fields = check(f"decode_attention_latent {label} {tag} B={B} T={T}",
-                       decode_attention_latent,
+        before = dict(decode_attention_latent.instance_launches)
+        fields = check(f"decode_attention_latent {label} {tag} B={B} T={T} "
+                       f"H={Hq}", decode_attention_latent,
                        decode_attention_latent_plain, args)
+        _require(decode_attention_latent.instance_launches[inst]
+                 == before[inst] + 1,
+                 f"decode_attention_latent {label} {tag}: not launched on "
+                 f"its {inst} instance")
         vis = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
-        bound, by = _latent_decode_bound(B, T, H, float(vis.sum()), esz,
+        bound, by = _latent_decode_bound(B, T, Hq, float(vis.sum()), esz,
                                          peak)
         ns, per = latent_split_plan(
-            B, H, T, torch.cuda.get_device_properties(
+            B, Hq, T, torch.cuda.get_device_properties(
                 dev).multi_processor_count, LATENT_TILE_KEYS[dtype])
         qT = torch.cat(args[:2], -1)[:, :, None]
         kT = torch.cat(args[2:4], -1)[:, None]
@@ -1912,8 +1930,9 @@ def _latent_rows(torch, dev, dtype, peak):
                 qT, kT, vT, attn_mask=mask, scale=scale, enable_gqa=True)
 
         decode.append(dict(
-            shape=f"{label}.B{B}.T{T}.H{H}.R{R}.Dr{Dr}.{tag}",
-            kernel_instance=f"{tag}.decode", splits=ns, split_slots=per,
+            shape=f"{label}.B{B}.T{T}.H{Hq}.R{R}.Dr{Dr}.{tag}",
+            kernel_instance=f"{tag}.decode.{inst}", splits=ns,
+            split_slots=per,
             **fields, ms=_cuda_ms(torch, kern, 50),
             device_ms=_device_ms(torch, kern, 50),
             plain_ms=_cuda_ms(torch, lambda: decode_attention_latent_plain(
@@ -2756,6 +2775,8 @@ def phase_serve_mla(torch, kernels, dev):
     launches = res["launches"]
     latent_instances = dict(
         kernels["flash_attention_latent"].instance_launches)
+    decode_instances = dict(
+        kernels["decode_attention_latent"].instance_launches)
     L, nb = cfg.num_layers, res["batches"]
     want = {"flash_attention_latent": L * nb,
             "decode_attention_latent": L * SERVE["decode_len"] * nb,
@@ -2764,6 +2785,11 @@ def phase_serve_mla(torch, kernels, dev):
     _require(latent_instances == {"wgmma": L * nb, "fma": 0},
              f"serve-mla: flash_attention_latent instances "
              f"{latent_instances}, want every launch on the tensor-core "
+             f"(wgmma) kernel")
+    _require(decode_instances == {
+        "wgmma": want["decode_attention_latent"], "fma": 0},
+             f"serve-mla: decode_attention_latent instances "
+             f"{decode_instances}, want every launch on the tensor-core "
              f"(wgmma) kernel")
     drops = res["prefill_drop_frac"]
     _require(len(drops) == nb and all(math.isfinite(x) for x in drops),
@@ -2790,12 +2816,15 @@ def phase_serve_mla(torch, kernels, dev):
           f"requests={SERVE['requests']} batch={SERVE['batch']} {line} "
           f"prefill_drop_frac_sum_over_layers={drops} "
           f"launches={ {n: launches[n] for n in want} } "
-          f"flash_attention_latent_instances={latent_instances}", flush=True)
+          f"flash_attention_latent_instances={latent_instances} "
+          f"decode_attention_latent_instances={decode_instances}",
+          flush=True)
     print(f"serve-mla: {refit_line(base_span, plan_span)} "
           f"(reference {MLA_REFIT[0]} -> {MLA_REFIT[1]}; fit on the card in "
           f"{refit_s:.3f} s) phase_s={time.perf_counter() - t_phase:.1f}",
           flush=True)
-    return dict(launches=launches, latent_instances=latent_instances)
+    return dict(launches=launches, latent_instances=latent_instances,
+                decode_instances=decode_instances)
 
 
 def phase_serve_mla_check(np, torch, kernels, dev):
@@ -2829,6 +2858,7 @@ def phase_serve_mla_check(np, torch, kernels, dev):
           decode_attention_latent_plain)])
     launches = held["launches"]
     latent_instances = held["instance_launches"]["flash_attention_latent"]
+    decode_instances = held["instance_launches"]["decode_attention_latent"]
     L = cfg.num_layers
     want = {"flash_attention_latent": 2 * L,
             "decode_attention_latent": (S - n_prefill) * L,
@@ -2838,9 +2868,15 @@ def phase_serve_mla_check(np, torch, kernels, dev):
              f"serve-mla-check: flash_attention_latent instances "
              f"{latent_instances}, want every f32 launch on the CUDA-core "
              f"(fma) kernel")
+    _require(decode_instances == {
+        "wgmma": 0, "fma": want["decode_attention_latent"]},
+             f"serve-mla-check: decode_attention_latent instances "
+             f"{decode_instances}, want every f32 launch on the CUDA-core "
+             f"(fma) kernel")
     print(f"serve-mla-check: {MLA_ARCH} full width, layers={L} (dense MLA) "
           f"f32 tf32=off batch={B} {_routes_line(held, n_prefill, S)} "
           f"flash_attention_latent_instances={latent_instances} "
+          f"decode_attention_latent_instances={decode_instances} "
           f"phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
     del params, held
     torch.cuda.empty_cache()
@@ -4005,7 +4041,7 @@ def main(argv=None) -> int:
     launches = {}
     path_launches = {}   # phase -> kernel -> launches on that path
     ssd_chunks = {}      # phase -> ssd_scan launches by the chunk run
-    flash_instances = latent_instances = None
+    flash_instances = latent_instances = decode_instances = None
     ssd_built = att_built = None
     if "build" in phases:
         ssd_built, att_built = phase_build(_build)
@@ -4123,6 +4159,7 @@ def main(argv=None) -> int:
         served = phase_serve_mla(torch, kernels, dev)
         launches.update({n: served["launches"][n] for n in latent})
         latent_instances = served["latent_instances"]
+        decode_instances = served["decode_instances"]
         path_launches["serve-mla"] = {n: served["launches"][n]
                                       for n in model_kernels}
         if args.profile:
@@ -4187,10 +4224,12 @@ def main(argv=None) -> int:
             # ms is the instance's that the serving path runs
             report[-1].update(instance=row.get("instance"),
                               instance_launches=flash_instances)
-        if name == "flash_attention_latent":
+        if name in latent:
             # ms is the bf16 (wgmma) kernel's, which serve-mla runs
             report[-1].update(instance=row.get("kernel_instance"),
-                              instance_launches=latent_instances)
+                              instance_launches=(
+                                  latent_instances if name == latent[0]
+                                  else decode_instances))
         if name == "ssd_scan":
             report[-1].update(chunk_launches_by_path=ssd_chunks)
         if name in latent:

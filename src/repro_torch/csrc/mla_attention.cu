@@ -35,10 +35,10 @@
 // fp32 CUDA-core one; its decode (B 8, T 2112) reads 19.5 MB of cache for
 // 4.7e9 flops, 5.8 us of bytes.  Two kernels:
 //
-// * bf16 prefill: mla_attention_wgmma_kernel, both products on the tensor
-//   cores (below);
-// * f32 prefill, and decode in both types: mla_attention_kernel<T, decode>,
-//   both products as fp32 FMAs on the CUDA cores.
+// * bf16, prefill and decode: mla_attention_wgmma_kernel<decode>, both
+//   products on the tensor cores (below);
+// * f32, prefill and decode: mla_attention_kernel<float, decode>, both
+//   products as fp32 FMAs on the CUDA cores.
 //
 // Tensor-core prefill.  Its floor is the bf16 peak: the P V product runs
 // twice (P split in two bf16 halves, below), so the tensor cores do
@@ -106,7 +106,33 @@
 // that served 128 rows from one staged tile would halve that; TMA with a
 // producer warp would take the copies off the compute warps.
 //
-// CUDA-core kernel (f32 prefill, decode):
+// Tensor-core decode: the same body (kDecode), the same tile, ring, split
+// P and clamps.  At H 128 one token's decode is two 64-row GEMMs against
+// the cache, one per 64 heads, so the prefill's tile serves it unchanged
+// with the cache split over blocks:
+//
+// * One block per (64 heads, split, batch row): rows r = h, heads past H
+//   zero-filled in Q and never stored.  Split s takes slots [s split_len,
+//   min(Tk, (s + 1) split_len)), whole 64-slot tiles; slots past its end
+//   are zero-filled and masked.  latent_split_plan (the wrapper) fills
+//   the SMs once, one block each: 7 splits of 5 tiles at B 8, T 2112,
+//   H 128, 112 blocks.
+// * The mask is per slot, the same for the 64 rows: visible iff kv_pos in
+//   0..q_pos.  A tile's 64 kv_pos come in its pieces' cp.async group
+//   (4-byte copies) into one of two buffers, so they are in shared memory
+//   at the barrier at the top of their tile.
+// * With more than one split a block writes its rows' unnormalised O, the
+//   base-2 max and the whole row sum (both warpgroups' parts) to `part`,
+//   as the CUDA-core kernel does, and mla_decode_merge_kernel merges them;
+//   a split with no visible slot leaves O 0, sum 0 and max kFloor2, which
+//   the merge weighs 0.  With one split (serve's warm-up) the block writes
+//   the output.
+// * Its floor is bytes: the cache's 19.5 MB at B 8, T 2112 in 5.8 us
+//   (6.4 us with q, out and the positions).  A block stages Q (72 KB) and
+//   five 72 KB tiles through its SM's cp.async path; the merge is a second
+//   launch that reads and writes the part rows (14.8 MB).
+//
+// CUDA-core kernel (f32 prefill and decode):
 //
 // * One block of 8 warps takes 64 query rows: rows are (position, head)
 //   pairs in the model layout's order, row r = i H + h (so a row's q and
@@ -115,16 +141,16 @@
 //   scale * log2(e), sits in shared memory in fp32 (147 KB); each lane
 //   holds the rows' accumulators for 16 of the 512 value dims (dims
 //   4 lane + 128 c, c < 4): 128 registers.
-// * Keys come in tiles of NK latent rows (64 in bf16, 32 in f32; 72 KB
-//   either way), staged in shared memory once and used by all 64 rows:
-//   a latent row is read once for its key and its value, and never as a
-//   per-head K / V.  Rows are padded to 580 elements, so the lanes'
-//   reads of different rows at one column hit different banks.
-// * Scores: lane j takes keys j and j + 32 of the tile (bf16; key j in
-//   f32) for the warp's 8 rows: per 4 dims, NK / 32 key loads and 8
-//   broadcast q loads feed NK FMAs.  The tile's masked scores are -1e30;
-//   each row's max is a warp reduction, the online softmax runs in base
-//   2 and each lane keeps its own partial sum of p.
+// * Keys come in tiles of NK = 32 latent rows (72 KB), staged in shared
+//   memory once and used by all 64 rows: a latent row is read once for
+//   its key and its value, and never as a per-head K / V.  Rows are
+//   padded to 580 elements, so the lanes' reads of different rows at one
+//   column hit different banks.
+// * Scores: lane j takes key j of the tile for the warp's 8 rows: per 4
+//   dims, one key load and 8 broadcast q loads feed 32 FMAs.  The tile's
+//   masked scores are -1e30; each row's max is a warp reduction, the
+//   online softmax runs in base 2 and each lane keeps its own partial sum
+//   of p.
 // * Values: for each key the lane takes the 8 rows' p from the key's
 //   lane by shuffle, loads its 16 dims of the value row and does 128
 //   FMAs.
@@ -132,7 +158,7 @@
 //   most keys) and loads only the keys up to its last row's position.
 //   Decode cuts the cache into `splits` runs of whole tiles, one block
 //   each per (split, 64 heads, batch row), as many as fill the card's SMs
-//   once (one block an SM; 7 splits at B 8, H 128, T 2112).  Each split
+//   once (one block an SM; 8 splits at B 8, H 128, T 2112).  Each split
 //   writes its unnormalised accumulator, max and sum; a second launch
 //   merges them with the same clamps (with one split the block writes
 //   the output itself).  A tile with no visible slot is not loaded.
@@ -140,6 +166,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "wgmma.cuh"
 
@@ -160,7 +188,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kFloor2 = -1e4f * kLog2e;  // the max clamp, base 2
 constexpr float kNegInf = -1e30f;
 
-// keys per staged tile: 64 x 580 bf16 or 32 x 580 f32, 74 240 bytes
+// keys per staged tile: the CUDA-core kernel's 32 x 580 f32 (74 240
+// bytes); the tensor-core kernel's 64 (9 pieces of 64 x 64 bf16).  A
+// decode split is whole tiles of its type.
 template <typename T>
 struct Tile;
 template <>
@@ -184,19 +214,13 @@ __device__ __forceinline__ float exp2_(float x) {
   return y;
 }
 
-// four consecutive elements as fp32 (16 bytes of f32, 8 of bf16)
+// four consecutive f32 elements
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
 
-// an 8-byte piece as fp32: 2 f32 or 4 bf16 elements
+// an 8-byte piece as fp32: 2 f32 elements (the CUDA-core kernel runs f32
+// only; bf16 runs on the tensor cores)
 template <typename T>
 struct Piece;
 template <>
@@ -205,16 +229,6 @@ struct Piece<float> {
   __device__ __forceinline__ static void unpack(uint2 u, float* x) {
     x[0] = __uint_as_float(u.x);
     x[1] = __uint_as_float(u.y);
-  }
-};
-template <>
-struct Piece<__nv_bfloat16> {
-  static constexpr int n = 4;
-  __device__ __forceinline__ static void unpack(uint2 u, float* x) {
-    x[0] = __uint_as_float(u.x << 16);
-    x[1] = __uint_as_float(u.x & 0xffff0000u);
-    x[2] = __uint_as_float(u.y << 16);
-    x[3] = __uint_as_float(u.y & 0xffff0000u);
   }
 };
 
@@ -494,7 +508,7 @@ __global__ void __launch_bounds__(kR / 4)
   st4(out + r * kR + d, acc.x / den, acc.y / den, acc.z / den, acc.w / den);
 }
 
-// ------------------------------------------ tensor-core prefill (bf16)
+// ------------------------------------ tensor-core prefill, decode (bf16)
 constexpr int kTcThreads = 256;              // two warpgroups
 constexpr int kPiece = 64 * 128;             // 64 rows x 64 bf16, swizzled
 constexpr int kPieces = kDk / 64;            // 9: k_rope, then c_kv 0..7
@@ -528,15 +542,25 @@ __device__ __forceinline__ int ring_slot(int n, int j) {
   return (kPieces * n + j) % kSlots;
 }
 
+// 4 bytes, zero-filled when !valid (the source address is then not read)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
 // Accumulator fragments (fp32), for thread lt of a warpgroup, warp
 // w = lt / 32, lane l: d[4 j + 2 half + c] holds row 16 w + l / 4 + 8 half,
-// column 8 j + 2 (l % 4) + c.  grid: B x row tiles, one dimension.
+// column 8 j + 2 (l % 4) + c.  grid: prefill B x row tiles, one
+// dimension; decode (row tiles, splits, B).
+template <bool kDecode>
 __global__ void __launch_bounds__(kTcThreads, 1)
     mla_attention_wgmma_kernel(const Args a, int B) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint32_t xw[2][kXWords][128];   // p fragments, [wg][word][lt]
   __shared__ float red[2][64];               // row max over a half tile
   __shared__ float lsum[2][64];              // row sums, at the end
+  __shared__ int kvs[kDecode ? 2 : 1][64];   // decode: tile n's kv_pos at n & 1
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t sq = base;                  // Q piece j at sq + j kPiece
   const uint32_t ring = base + kPieces * kPiece;
@@ -549,13 +573,23 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const int warp = lt >> 5;
   const int lane = tid & 31;
   const int rows = a.rows, H = a.H, Tk = a.Tk;
-  const int b = blockIdx.x % B;
-  const int tile = (rows + 63) / 64 - 1 - blockIdx.x / B;  // heaviest first
-  const int r0 = tile * 64;
+  // the block's batch row, first query row and keys [t_begin, t_end)
+  int b, r0, t_begin, t_end;
+  if constexpr (kDecode) {
+    b = blockIdx.z;
+    r0 = blockIdx.x * 64;
+    t_begin = blockIdx.y * a.split_len;
+    t_end = min(Tk, t_begin + a.split_len);
+  } else {
+    b = blockIdx.x % B;
+    r0 = ((rows + 63) / 64 - 1 - blockIdx.x / B) * 64;  // heaviest first
+    t_begin = 0;
+    // the last row's position: keys past it are zero-filled
+    t_end = min(Tk, (min(r0 + 64, rows) - 1) / H + 1);
+  }
   const int r_last = min(r0 + 64, rows) - 1;
   const int p_first = r0 / H;
-  const int t_end = min(Tk, r_last / H + 1);  // keys past it: zero-filled
-  const int ntiles = (t_end + 63) / 64;
+  const int ntiles = (t_end - t_begin + 63) / 64;
   const __nv_bfloat16* ql =
       static_cast<const __nv_bfloat16*>(a.q_lat) + (long long)b * rows * kR;
   const __nv_bfloat16* qr =
@@ -580,14 +614,29 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const uint32_t dst = ring + ring_slot(n, j) * kPiece;
     for (int e = tid; e < 64 * 8; e += kTcThreads) {
       const int k = e >> 3, c = e & 7;
-      const bool ok = n * 64 + k < t_end;
-      const long long t = ok ? n * 64 + k : 0;
+      const bool ok = t_begin + n * 64 + k < t_end;
+      const long long t = ok ? t_begin + n * 64 + k : 0;
       const __nv_bfloat16* src =
           j == 0 ? kr + t * kDr + 8 * c : ck + t * kR + 64 * (j - 1) + 8 * c;
       cp_async16(swizzled(dst, k, c), src, ok);
     }
   };
+  // decode: key tile n's 64 slot positions, in the cp.async group of its
+  // pieces 0..7 (so they have landed by the barrier at the top of tile n);
+  // buffer n & 1 was tile n - 2's, done with by then
+  const int* kvp = kDecode ? a.kv_pos + (long long)b * Tk : nullptr;
+  const int qp = kDecode ? a.q_pos[b] : 0;
+  auto load_pos = [&](int n) {
+    if constexpr (kDecode) {
+      if (tid < 64) {
+        const bool ok = t_begin + n * 64 + tid < t_end;
+        cp_async4(smem_addr(&kvs[n & 1][tid]),
+                  kvp + (ok ? t_begin + n * 64 + tid : 0), ok);
+      }
+    }
+  };
   for (int j = 0; j < kPieces; ++j) load_piece(0, j);
+  load_pos(0);
   cp_async_commit();
 
   // this thread's two rows (block-local) and their positions; a row past
@@ -612,8 +661,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     cp_async_wait_all();
     fence_proxy_async();
     __syncthreads();
-    if (n + 1 < ntiles)
+    if (n + 1 < ntiles) {
       for (int j = 0; j < kPieces - 1; ++j) load_piece(n + 1, j);
+      load_pos(n + 1);
+    }
     cp_async_commit();
 
     // S for this warpgroup's keys 32 wg .. 32 wg + 31 of the tile: 4 k16
@@ -636,9 +687,11 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     wgmma_wait_all();
     fence_regs(s);
 
-    // scale (base 2) on the fp32 accumulator, then the mask: key t is
-    // visible to a row at position p iff t <= p (and t < Tk)
-    const int t0 = n * 64;
+    // scale (base 2) on the fp32 accumulator, then the mask.  Prefill:
+    // key t is visible to a row at position p iff t <= p (and t < Tk).
+    // Decode: slot t is visible to every row iff t < t_end and its
+    // position is in 0..q_pos
+    const int t0 = t_begin + n * 64;
     const bool masked = t0 + 63 > p_first || t0 + 63 >= Tk;
     float mx0 = kNegInf, mx1 = kNegInf;
 #pragma unroll
@@ -649,10 +702,16 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         float& a1 = s[4 * j + 2 + c];
         a0 *= a.sc2;
         a1 *= a.sc2;
-        if (masked) {
-          const int t = t0 + 32 * wg + 8 * j + col + c;
-          if (t > pos0 || t >= Tk) a0 = kNegInf;
-          if (t > pos1 || t >= Tk) a1 = kNegInf;
+        const int k = 32 * wg + 8 * j + col + c;  // the key of the tile
+        if constexpr (kDecode) {
+          const int p = kvs[n & 1][k];
+          if (t0 + k >= t_end || p < 0 || p > qp) {
+            a0 = kNegInf;
+            a1 = kNegInf;
+          }
+        } else if (masked) {
+          if (t0 + k > pos0 || t0 + k >= Tk) a0 = kNegInf;
+          if (t0 + k > pos1 || t0 + k >= Tk) a1 = kNegInf;
         }
         mx0 = fmaxf(mx0, a0);
         mx1 = fmaxf(mx1, a1);
@@ -761,11 +820,45 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     lsum[wg][row1] = l1;
   }
   __syncthreads();
-  const float den0 = fmaxf(l0 + lsum[wg ^ 1][row0], 1e-30f);
-  const float den1 = fmaxf(l1 + lsum[wg ^ 1][row1], 1e-30f);
+  l0 += lsum[wg ^ 1][row0];
+  l1 += lsum[wg ^ 1][row1];
+  const bool ok0 = r0 + row0 < rows, ok1 = r0 + row1 < rows;
+  if (kDecode && gridDim.y > 1) {
+    // this split's unnormalised O, base-2 max and row sum, in the layout
+    // of the CUDA-core kernel's, for mla_decode_merge_kernel.  A split
+    // with no visible slot leaves O 0, sum 0 and max kFloor2: weight 0.
+    const long long pr = ((long long)b * rows + r0) * gridDim.y + blockIdx.y;
+    float* p0 = a.part + (pr + (long long)row0 * gridDim.y) * kPart;
+    float* p1 = a.part + (pr + (long long)row1 * gridDim.y) * kPart;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 256 * wg + 64 * u + 8 * j + col;
+        if (ok0)
+          *reinterpret_cast<float2*>(p0 + c) =
+              make_float2(o[u][4 * j], o[u][4 * j + 1]);
+        if (ok1)
+          *reinterpret_cast<float2*>(p1 + c) =
+              make_float2(o[u][4 * j + 2], o[u][4 * j + 3]);
+      }
+    }
+    if (wg == 0 && (lane & 3) == 0) {
+      if (ok0) {
+        p0[kR] = m0;
+        p0[kR + 1] = l0;
+      }
+      if (ok1) {
+        p1[kR] = m1;
+        p1[kR + 1] = l1;
+      }
+    }
+    return;
+  }
+  const float den0 = fmaxf(l0, 1e-30f);
+  const float den1 = fmaxf(l1, 1e-30f);
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.out) +
                       ((long long)b * rows + r0) * kR + 256 * wg + col;
-  const bool ok0 = r0 + row0 < rows, ok1 = r0 + row1 < rows;
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
 #pragma unroll
@@ -804,37 +897,55 @@ cudaError_t prefill_f32(const Args& a, int B, int device, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// bf16 prefill: the tensor-core kernel, one block an SM (231 424 bytes of
-// shared memory with the static arrays)
-cudaError_t prefill_bf16(const Args& a, int B, int device, cudaStream_t st) {
+// the tensor-core kernel's shared memory, set once per (instance,
+// device): one block an SM (231 680 bytes with the static arrays in
+// prefill, 231 936 in decode)
+template <bool kDecode>
+cudaError_t allow_tc_smem(int device) {
   static unsigned long long done = 0;
-  if (device >= 64 || !(done >> device & 1)) {
-    cudaError_t err = cudaFuncSetAttribute(
-        mla_attention_wgmma_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(mla_attention_wgmma_kernel,
-                                 cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 (int)cudaSharedmemCarveoutMaxShared);
-    if (err != cudaSuccess) return err;
-    if (device < 64) done |= 1ull << device;
-  }
+  if (device < 64 && (done >> device & 1)) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      mla_attention_wgmma_kernel<kDecode>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(mla_attention_wgmma_kernel<kDecode>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && device < 64) done |= 1ull << device;
+  return err;
+}
+
+// bf16 prefill: the tensor-core kernel
+cudaError_t prefill_bf16(const Args& a, int B, int device, cudaStream_t st) {
+  const cudaError_t err = allow_tc_smem<false>(device);
+  if (err != cudaSuccess) return err;
   // one grid dimension: B x row tiles blocks (below 2^31 for any q that
   // fits a card: 2^31 tiles of q would be 158 TB)
   const long long blocks = (long long)B * ((a.rows + 63) / 64);
   if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
-  mla_attention_wgmma_kernel<<<(unsigned)blocks, kTcThreads, kTcSmem, st>>>(
-      a, B);
+  mla_attention_wgmma_kernel<false>
+      <<<(unsigned)blocks, kTcThreads, kTcSmem, st>>>(a, B);
   return cudaGetLastError();
 }
 
+// decode: bf16 on the tensor-core kernel, f32 on the CUDA-core one, one
+// block per (64 heads, split, batch row); with more than one split a
+// second launch merges them
 template <typename T>
 cudaError_t decode(const Args& a, int B, int splits, int device,
                    cudaStream_t st) {
-  cudaError_t err = allow_smem<T, true>(device);
-  if (err != cudaSuccess) return err;
   const dim3 grid((a.rows + kBlockRows - 1) / kBlockRows, splits, B);
-  mla_attention_kernel<T, true><<<grid, kThreads, smem_bytes<T>(), st>>>(a);
+  cudaError_t err;
+  if constexpr (std::is_same_v<T, float>) {
+    err = allow_smem<float, true>(device);
+    if (err != cudaSuccess) return err;
+    mla_attention_kernel<float, true>
+        <<<grid, kThreads, smem_bytes<float>(), st>>>(a);
+  } else {
+    err = allow_tc_smem<true>(device);
+    if (err != cudaSuccess) return err;
+    mla_attention_wgmma_kernel<true><<<grid, kTcThreads, kTcSmem, st>>>(a, B);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   mla_decode_merge_kernel<T><<<dim3(a.rows, B), kR / 4, 0, st>>>(
@@ -875,9 +986,10 @@ extern "C" int flash_attention_latent_launch(
 
 // One token a batch row: q_lat (B, H, R), q_rope (B, H, Dr) over the cache
 // c_kv (B, Tk, R), k_rope (B, Tk, Dr) with slot positions kv_pos (B, Tk)
-// and query positions q_pos (B,), int32.  The cache is cut into `splits`
-// runs of split_len slots (whole tiles of Tile<T>::keys slots, none
-// empty); with more than one split, part is (B, H, splits, R + 4) f32
+// and query positions q_pos (B,), int32.  dtype as in prefill: bf16 on the
+// tensor-core kernel, f32 on the CUDA-core one.  The cache is cut into
+// `splits` runs of split_len slots (whole tiles of Tile<T>::keys slots,
+// none empty); with more than one split, part is (B, H, splits, R + 4) f32
 // scratch from the wrapper and a second launch merges the splits.
 extern "C" int decode_attention_latent_launch(
     const void* q_lat, const void* q_rope, const void* c_kv,

@@ -30,9 +30,11 @@ softmax; output (B, H, R) in q's dtype.
 * ``decode_attention_latent_plain`` — its plain PyTorch version.
 * ``decode_attention_latent`` — the wrapper: plain version for CPU
   tensors, the CUDA kernel (``csrc/mla_attention.cu``, R 512 and Dr 64)
-  for CUDA tensors; ``decode_attention_latent.launches`` counts its calls
-  (one kernel launch, and a second that merges the splits when there is
-  more than one).
+  for CUDA tensors: bf16 on the tensor-core kernel, f32 on the CUDA-core
+  one (``latent_decode_instance``).  ``decode_attention_latent.launches``
+  counts its calls (one kernel launch, and a second that merges the
+  splits when there is more than one), ``.instance_launches`` the same
+  calls by instance.
 * ``latent_split_plan`` — how that kernel cuts the cache into splits.
 """
 
@@ -48,7 +50,8 @@ from ..flash_attention.ops import _check_latent, _check_latent_widths
 
 __all__ = ["decode_attention", "decode_attention_plain", "head_groups",
            "resident_blocks", "split_plan", "decode_attention_latent",
-           "decode_attention_latent_plain", "latent_split_plan"]
+           "decode_attention_latent_plain", "latent_decode_instance",
+           "latent_split_plan"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,8 +59,9 @@ CHUNK = 64                # must equal kChunk in csrc/decode_attention.cu
 MAX_CHUNKS = 32           # chunks per split: kMaxSplit / kChunk
 MAX_GROUP = 16            # query heads per kv head; must equal kMaxG
 BLOCK_GROUP = 8           # query heads per block; must equal kBlockG
-# the latent kernel's keys per staged tile and query rows per block; must
-# equal Tile<T>::keys and kBlockRows in csrc/mla_attention.cu
+# the latent kernels' keys per staged tile (f32 on the CUDA cores, bf16 on
+# the tensor cores) and query rows per block; must equal Tile<T>::keys and
+# kBlockRows in csrc/mla_attention.cu
 LATENT_TILE_KEYS = {torch.float32: 32, torch.bfloat16: 64}
 LATENT_BLOCK_ROWS = 64
 # (device index, stream) -> the kernel's int32 arrival counters, one per
@@ -245,7 +249,16 @@ def decode_attention_latent(q_lat: torch.Tensor, q_rope: torch.Tensor,
         _DTYPES[q_lat.dtype], index, stream)
     _build.check(err, "decode_attention_latent")
     decode_attention_latent.launches += 1
+    decode_attention_latent.instance_launches[
+        latent_decode_instance(q_lat.dtype)] += 1
     return out
 
 
+def latent_decode_instance(dtype: torch.dtype) -> str:
+    """The kernel that a latent decode launch on inputs of ``dtype`` runs
+    (the dispatch of ``decode_attention_latent_launch``)."""
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
 decode_attention_latent.launches = 0
+decode_attention_latent.instance_launches = {"wgmma": 0, "fma": 0}

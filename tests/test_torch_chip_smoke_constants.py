@@ -852,17 +852,28 @@ def test_mla_kernel_rows_sit_at_serve_shapes():
     # the serve row comes first: it is the row of the kernels line
     assert chip_smoke.MLA_FLASH[0] == ("serve", serve["batch"],
                                        serve["prefill_len"], H)
-    assert ("serve", serve["batch"],
-            serve["prefill_len"] + serve["decode_len"]) in \
-        chip_smoke.MLA_DECODE
+    assert chip_smoke.MLA_DECODE[0] == (
+        "serve", serve["batch"], serve["prefill_len"] + serve["decode_len"],
+        H)
     # serve-mla-check's prefill length and serve's warm-up cache
     assert ("ragged", 2, 1528, H) in chip_smoke.MLA_FLASH
-    assert ("warm-up", 1, 18) in chip_smoke.MLA_DECODE
+    assert ("warm-up", 1, 18, H) in chip_smoke.MLA_DECODE
     assert all(s % 64 and s % 32 for _, _, s, _ in chip_smoke.MLA_FLASH[1:])
     # a row whose 64-row blocks span positions: H not a multiple of 64,
     # and more than one position a block
     small = [(b, s, h) for _, b, s, h in chip_smoke.MLA_FLASH if h % 64]
     assert small == [(1, 77, 3)] and 64 // 3 > 1
+    # decode's small-H row: a partial row tile and, in bf16, 13 splits of
+    # one 64-slot tile, the last partial; batch row 1's first 128 slots
+    # (two splits) are empty, so those splits see no visible slot
+    import inspect
+
+    from repro_torch.kernels.decode_attention.ops import latent_split_plan
+    small = [row for row in chip_smoke.MLA_DECODE if row[3] % 64]
+    assert small == [("small-H", 2, 777, 3)]
+    assert latent_split_plan(2, 3, 777, 132, 64) == (13, 64) and 777 % 64
+    src = inspect.getsource(chip_smoke._latent_rows)
+    assert 'kv_pos[1, :30 if label == "serve" else 128] = -1' in src
 
 
 def test_mla_bounds():
@@ -913,13 +924,15 @@ def test_mla_refit_spans_are_the_reference_ones():
 def test_mla_instances_are_parsed_from_their_mangled_names():
     names = {
         "_ZN49_GLOBAL__N__c8312cf2_16_mla_attention_cu_38189a8120mla_"
-        "attention_kernelI13__nv_bfloat16Lb1EEEvNS_4ArgsE": ("bf16",
-                                                            "decode",
-                                                            "fma"),
+        "attention_kernelIfLb1EEEvNS_4ArgsE": ("f32", "decode", "fma"),
         "_ZN49_GLOBAL__N__c8312cf2_16_mla_attention_cu_38189a8120mla_"
         "attention_kernelIfLb0EEEvNS_4ArgsE": ("f32", "prefill", "fma"),
         "_ZN49_GLOBAL__N__c8312cf2_16_mla_attention_cu_38189a8126mla_"
-        "attention_wgmma_kernelENS_4ArgsEi": ("bf16", "prefill", "wgmma"),
+        "attention_wgmma_kernelILb0EEEvNS_4ArgsEi": ("bf16", "prefill",
+                                                    "wgmma"),
+        "_ZN49_GLOBAL__N__c8312cf2_16_mla_attention_cu_38189a8126mla_"
+        "attention_wgmma_kernelILb1EEEvNS_4ArgsEi": ("bf16", "decode",
+                                                    "wgmma"),
     }
     for entry, want in names.items():
         assert chip_smoke._mla_instance(entry) == want
@@ -928,15 +941,44 @@ def test_mla_instances_are_parsed_from_their_mangled_names():
         assert chip_smoke._wgmma_instance(entry) is None
     assert chip_smoke._mla_instance(
         "_ZN12_GLOBAL__N_123mla_decode_merge_kernelIfEEvPKfPT_i") is None
-    # the build requires these four, one each; the bf16 prefill is the
-    # tensor-core kernel (the wrapper's dispatch) and must not spill
+    # a bf16 CUDA-core instance still parses (as one the build refuses)
+    assert chip_smoke._mla_instance(
+        "_ZN12_GLOBAL__N_120mla_attention_kernelI13__nv_bfloat16Lb1EEEvNS_"
+        "4ArgsE") == ("bf16", "decode", "fma")
+    # the build requires these four, one each; bf16 runs on the
+    # tensor-core kernel in prefill and decode (the wrappers' dispatch),
+    # and neither bf16 instance may spill
     import torch
 
+    from repro_torch.kernels.decode_attention.ops import (
+        latent_decode_instance)
     from repro_torch.kernels.flash_attention.ops import latent_instance
-    assert sorted(chip_smoke.MLA_INSTANCES) == sorted(set(names.values()) | {
-        ("f32", "decode", "fma")})
+    assert sorted(chip_smoke.MLA_INSTANCES) == sorted(names.values())
+    pick = {"prefill": latent_instance, "decode": latent_decode_instance}
     for dt, kind, route in chip_smoke.MLA_INSTANCES:
-        if kind == "prefill":
-            dtype = (torch.bfloat16 if dt == "bf16" else torch.float32)
-            assert latent_instance(dtype) == route
-    assert chip_smoke.MLA_NO_SPILL == (("bf16", "prefill", "wgmma"),)
+        dtype = (torch.bfloat16 if dt == "bf16" else torch.float32)
+        assert pick[kind](dtype) == route
+    assert chip_smoke.MLA_NO_SPILL == (("bf16", "prefill", "wgmma"),
+                                       ("bf16", "decode", "wgmma"))
+
+
+def test_mla_serving_phases_require_the_latent_decode_instances():
+    import inspect
+
+    # serve-mla: 4 layers x 64 steps x 2 batches, all on the tensor-core
+    # kernel; serve-mla-check: 3 layers x 8 decode steps, all on the
+    # CUDA-core one (its f32 route)
+    serve = chip_smoke.SERVE
+    assert (chip_smoke.MLA_LAYERS * serve["decode_len"]
+            * serve["requests"] // serve["batch"]) == 512
+    src = inspect.getsource(chip_smoke.phase_serve_mla)
+    assert '"decode_attention_latent": L * SERVE["decode_len"] * nb' in src
+    assert re.search(r'decode_instances == \{\s*"wgmma": want\['
+                     r'"decode_attention_latent"\], "fma": 0\}', src)
+    src = inspect.getsource(chip_smoke.phase_serve_mla_check)
+    assert "B, S, n_prefill = 2, 1536, 1528" in src
+    assert chip_smoke.MLA_CHECK_LAYERS * (1536 - 1528) == 24
+    assert '"decode_attention_latent": (S - n_prefill) * L' in src
+    assert re.search(r'decode_instances == \{\s*"wgmma": 0, "fma": '
+                     r'want\["decode_attention_latent"\]\}', src)
+    assert 'held["instance_launches"]["decode_attention_latent"]' in src

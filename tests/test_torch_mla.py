@@ -15,11 +15,12 @@ through ``params_from_jax``: the forward, prefill and 4 decode steps
 within 1e-3 of the reference, and the port's teacher-forced decode
 within 2e-3 of its own forward; the MTP group's shapes and its absence
 from serving; the refused cases; ``launch.serve`` on the CPU with the
-reference's refit line.  The bf16 latent prefill's tensor-core
-arithmetic (split P, the scale on the fp32 scores) emulated against the
-card's bf16 rule, and its dispatch by dtype.  On the CPU the kernels'
-plain versions run; the CUDA kernels are checked on the card by
-``chip_smoke.py``."""
+reference's refit line.  The bf16 latent prefill's and decode's
+tensor-core arithmetic (split P, the scale on the fp32 scores; in decode
+per-slot visibility, per-split partials in base 2 and their merge)
+emulated against the card's bf16 rule, and their dispatch by dtype.  On
+the CPU the kernels' plain versions run; the CUDA kernels are checked on
+the card by ``chip_smoke.py``."""
 
 import dataclasses
 import re
@@ -400,31 +401,44 @@ def _emulate_latent_tensor_core_kernel(q_lat, q_rope, c_kv, k_rope, *,
     k = torch.cat([c_kv, k_rope], -1).float()
     v = c_kv.float()
     qpos = (torch.arange(s * h) // h)[:, None]
-    m = torch.full((b, s * h, 1), -1e4 * LOG2E)
-    l = torch.zeros((b, s * h, 1))
-    acc = torch.zeros((b, s * h, r))
+    state = _softmax_state(b, s * h, r)
     for t0 in range(0, t, LATENT_TILE):
         sc = torch.matmul(q, k[:, t0:t0 + LATENT_TILE].transpose(1, 2))
         if not prescale_q:
             sc = sc * sc2
         kpos = torch.arange(t0, min(t0 + LATENT_TILE, t))[None, :]
-        sc = torch.where(kpos <= qpos, sc, torch.full_like(sc, -1e30))
-        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
-        corr = torch.exp2(m - m_new)
-        p = torch.exp2(sc - m_new)
-        l = l * corr + p.sum(-1, keepdim=True)
-        vt = v[:, t0:t0 + LATENT_TILE]
-        if weights == "fp32":
-            pv = torch.matmul(p, vt)
-        else:
-            p_hi = p.bfloat16().float()
-            pv = torch.matmul(p_hi, vt)
-            if weights == "split":
-                pv = pv + torch.matmul((p - p_hi).bfloat16().float(), vt)
-        acc = acc * corr + pv
-        m = m_new
+        state = _online_tile(state, sc, kpos <= qpos,
+                             v[:, t0:t0 + LATENT_TILE], weights)
+    m, l, acc = state
     out = acc / l.clamp_min(1e-30)
     return out.reshape(b, s, h, r).bfloat16()
+
+
+def _softmax_state(b, rows, r):
+    """(max, sum, O) of an online softmax in base 2 before any key: the
+    max at the reference's clamp, -1e4 in base 2."""
+    return (torch.full((b, rows, 1), -1e4 * LOG2E),
+            torch.zeros((b, rows, 1)), torch.zeros((b, rows, r)))
+
+
+def _online_tile(state, sc, visible, vt, weights):
+    """One key tile of the online softmax: base-2 scores ``sc`` (B, rows,
+    keys), masked to -1e30 where not ``visible``, the weights of the P V
+    product in fp32, split hi / lo in bf16 or one bf16 (``weights``)."""
+    m, l, acc = state
+    sc = torch.where(visible, sc, torch.full_like(sc, -1e30))
+    m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+    corr = torch.exp2(m - m_new)
+    p = torch.exp2(sc - m_new)
+    l = l * corr + p.sum(-1, keepdim=True)
+    if weights == "fp32":
+        pv = torch.matmul(p, vt)
+    else:
+        p_hi = p.bfloat16().float()
+        pv = torch.matmul(p_hi, vt)
+        if weights == "split":
+            pv = pv + torch.matmul((p - p_hi).bfloat16().float(), vt)
+    return m_new, l, acc * corr + pv
 
 
 def _bf16_rule(got, want):
@@ -489,7 +503,7 @@ def test_latent_prefill_instances_follow_the_dtype():
         f = src[src.index(f"cudaError_t {name}("):]
         return f[:f.index("\n}\n")]
 
-    assert "mla_attention_wgmma_kernel<<<" in function("prefill_bf16")
+    assert "mla_attention_wgmma_kernel<false>" in function("prefill_bf16")
     assert "mla_attention_kernel<" not in function("prefill_bf16")
     assert "mla_attention_kernel<float, false>" in function("prefill_f32")
     assert not re.search(r"mla_attention_kernel<(__nv_bfloat16|T), false>",
@@ -500,6 +514,164 @@ def test_latent_prefill_instances_follow_the_dtype():
             for a in _latent_inputs(9, 1, 3, 3, 2, 512, 64)]
     flash_ops.flash_attention_latent(*args, scale=0.1)
     assert flash_ops.flash_attention_latent.instance_launches == before
+
+
+# The bf16 latent decode runs on the same tensor-core kernel
+# (mla_attention_wgmma_kernel<true>): one block per (64 heads, split of the
+# cache, batch row), the mask per slot (kv_pos in 0..q_pos), each split's
+# unnormalised O, base-2 max and row sum written in fp32 and merged by
+# mla_decode_merge_kernel (max from the clamp, each split weighed by
+# exp2(its max - the max), the divisor clamped at 1e-30); with one split
+# the block divides itself.
+def _emulate_latent_tensor_core_decode(q_lat, q_rope, c_kv, k_rope, kv_pos,
+                                       q_pos, *, scale, weights):
+    """bf16 q_lat (B, H, R), q_rope (B, H, Dr) over the cache c_kv (B, T,
+    R), k_rope (B, T, Dr) with slot positions kv_pos (B, T) and query
+    positions q_pos (B,) -> bf16 (B, H, R), in the splits of
+    ``latent_split_plan`` on 132 SMs; the P V weights as in
+    ``_emulate_latent_tensor_core_kernel``."""
+    b, h, r = q_lat.shape
+    t = c_kv.shape[1]
+    ns, per = decode_ops.latent_split_plan(
+        b, h, t, 132, decode_ops.LATENT_TILE_KEYS[torch.bfloat16])
+    q = torch.cat([q_lat, q_rope], -1).float()
+    k = torch.cat([c_kv, k_rope], -1).float()
+    v = c_kv.float()
+    visible = ((kv_pos >= 0) & (kv_pos <= q_pos[:, None]))[:, None, :]
+    parts = []
+    for t_begin in range(0, t, per):
+        state = _softmax_state(b, h, r)
+        for t0 in range(t_begin, min(t, t_begin + per), LATENT_TILE):
+            t1 = min(t, t_begin + per, t0 + LATENT_TILE)
+            sc = torch.matmul(q, k[:, t0:t1].transpose(1, 2)) * (
+                scale * LOG2E)
+            state = _online_tile(state, sc, visible[..., t0:t1],
+                                 v[:, t0:t1], weights)
+        parts.append(state)
+    assert len(parts) == ns
+    if ns == 1:
+        _, l, acc = parts[0]
+        return (acc / l.clamp_min(1e-30)).bfloat16()
+    mx = torch.full((b, h, 1), -1e4 * LOG2E)
+    for m, _, _ in parts:
+        mx = torch.maximum(mx, m)
+    l_all, acc_all = torch.zeros((b, h, 1)), torch.zeros((b, h, r))
+    for m, l, acc in parts:
+        c = torch.exp2(m - mx)
+        l_all = l_all + l * c
+        acc_all = acc_all + acc * c
+    return (acc_all / l_all.clamp_min(1e-30)).bfloat16()
+
+
+def _latent_decode_case(case):
+    """(bf16 decode arguments, splits on 132 SMs) of a named case."""
+    b, t, h, empty = {"wrapped-ring": (3, 512, 16, 0),
+                      "empty-split": (2, 384, 8, 192),
+                      "H-not-a-multiple-of-64": (1, 256, 67, 0),
+                      "T-not-a-multiple-of-64": (2, 777, 3, 128),
+                      "one-split": (1, 18, 128, 0)}[case]
+    r, dr = flash_ops.LATENT_WIDTHS
+    rng = np.random.default_rng(32)
+    q_lat, q_rope, c_kv, k_rope = _latent_inputs(33, b, 1, t, h, r, dr)
+    slot = np.arange(t)
+    if case == "one-split":
+        # serve's warm-up: slots 0..16 filled, q at 16
+        kv_pos = np.where(slot <= 16, slot, -1)[None].repeat(b, 0)
+        q_pos = np.full(b, 16)
+    else:
+        # a wrapped ring, per-row q_pos: some slots hold later positions
+        roll = rng.integers(0, t, b)
+        kv_pos = (slot[None] - roll[:, None]) % t
+        kv_pos[b - 1, :empty] = -1
+        q_pos = rng.integers(t - 64, t, b)
+    args = [torch.from_numpy(a).bfloat16() for a in
+            (q_lat[:, 0], q_rope[:, 0], c_kv, k_rope)]
+    args += [torch.from_numpy(kv_pos.astype(np.int32)),
+             torch.from_numpy(q_pos.astype(np.int32))]
+    ns, per = decode_ops.latent_split_plan(
+        b, h, t, 132, decode_ops.LATENT_TILE_KEYS[torch.bfloat16])
+    return args, ns, per
+
+
+@pytest.mark.parametrize("case", ["wrapped-ring", "empty-split",
+                                  "H-not-a-multiple-of-64",
+                                  "T-not-a-multiple-of-64", "one-split"])
+def test_latent_tensor_core_decode_meets_the_card_bf16_rule(case):
+    args, ns, per = _latent_decode_case(case)
+    kv_pos, q_pos = args[4], args[5]
+    b, h, _ = args[0].shape
+    t = kv_pos.shape[1]
+    visible = (kv_pos >= 0) & (kv_pos <= q_pos[:, None])
+    # each case exercises what its name says
+    if case == "one-split":
+        assert ns == 1
+    else:
+        assert ns > 1
+    if case == "empty-split":
+        assert not visible[b - 1, :per].any()
+    if case == "H-not-a-multiple-of-64":
+        assert h % 64 and h > 64
+    if case == "T-not-a-multiple-of-64":
+        # a partial last split, splits with no visible slot and a row tile
+        # of 3 real heads
+        assert t % 64 and (ns - 1) * per < t < ns * per
+        assert not visible[b - 1, :2 * per].any() and h < 64
+    scale = 192 ** -0.5
+    want = decode_ops.decode_attention_latent_plain(*args, scale=scale)
+    shares = {}
+    for weights in ("fp32", "split", "bf16"):
+        got = _emulate_latent_tensor_core_decode(*args, scale=scale,
+                                                 weights=weights)
+        assert got.shape == want.shape == (b, h, 512)
+        close, shares[weights] = _bf16_rule(got, want)
+        if weights != "bf16":
+            assert close, (weights, float((got.float() - want.float())
+                                          .abs().max()))
+            assert shares[weights] <= BF16_DIFF_SHARE, (weights, shares)
+    # the negative control: one bf16 P loses the weights' low bits
+    assert shares["bf16"] > BF16_DIFF_SHARE, shares
+    assert shares["bf16"] > 10 * max(shares["split"], 1e-4), shares
+    print(f"{case}: {ns} splits of {per}; share of differing bf16 "
+          f"outputs: {shares}")
+
+
+def test_latent_decode_instances_follow_the_dtype():
+    # bf16 decode on the tensor-core kernel, f32 on the CUDA-core one: the
+    # wrapper's count keys, and the C dispatch, which builds no bf16
+    # instance of the CUDA-core decode
+    assert decode_ops.latent_decode_instance(torch.bfloat16) == "wgmma"
+    assert decode_ops.latent_decode_instance(torch.float32) == "fma"
+    assert set(decode_ops.decode_attention_latent.instance_launches) == {
+        "wgmma", "fma"}
+    src = (ROOT / "src" / "repro_torch" / "csrc" /
+           "mla_attention.cu").read_text()
+    body = src[src.index('extern "C" int decode_attention_latent_launch'):]
+    body = body[:body.index("\n}\n")]
+    assert re.findall(r"dtype == (\d)\) return \(int\)decode<([\w:]+)>\(",
+                      body) == [("0", "float"), ("1", "__nv_bfloat16")]
+    f = src[src.index("cudaError_t decode(const Args& a"):]
+    f = f[:f.index("\n}\n")]
+    assert re.search(r"if constexpr \(std::is_same_v<T, float>\) \{\s*"
+                     r"err = allow_smem<float, true>\(device\);.*?"
+                     r"mla_attention_kernel<float, true>.*?\} else \{"
+                     r"\s*err = allow_tc_smem<true>\(device\);.*?"
+                     r"mla_attention_wgmma_kernel<true><<<", f, re.S)
+    assert not re.search(r"mla_attention_kernel<(__nv_bfloat16|T), true>",
+                         src)
+    assert not re.search(r"allow_smem<(__nv_bfloat16|T), ", src)
+    # CPU tensors take the plain version and launch nothing
+    before = dict(decode_ops.decode_attention_latent.instance_launches)
+    launches = decode_ops.decode_attention_latent.launches
+    args, _, _ = _latent_decode_case("one-split")
+    for dtype in (torch.bfloat16, torch.float32):
+        cast = [a.to(dtype) if a.is_floating_point() else a for a in args]
+        got = decode_ops.decode_attention_latent(*cast, scale=0.1)
+        assert got.dtype == dtype
+        torch.testing.assert_close(
+            got, decode_ops.decode_attention_latent_plain(*cast, scale=0.1),
+            rtol=0, atol=0)
+    assert decode_ops.decode_attention_latent.instance_launches == before
+    assert decode_ops.decode_attention_latent.launches == launches
 
 
 # ------------------------------------------------------------ the model

@@ -5,33 +5,36 @@
 
 Builds the package's kernels (``src/repro_torch/csrc``), prints a ptxas
 line for each kernel of ``mla_attention.cu`` (registers, spill bytes: the
-bf16 prefill's tensor-core kernel ``mla_attention_wgmma_kernel``, the
-CUDA-core ``mla_attention_kernel<T, decode>`` instances and the decode
-merge), then runs ``flash_attention_latent`` and
-``decode_attention_latent`` in bf16 and f32 at deepseek-v3-671b's widths
-(H 128, R 512, Dr 64, scale 192^-0.5) and at small odd shapes (H 3 and
-5, whose 64-row blocks span positions), against their plain versions: the
-largest difference, the share of outputs that differ, and the kernel's
-time by CUDA events (prefill at S >= 1528 over 2 calls, with its rate in
-TFLOP/s of counted work; decode over 20 calls).  Decode runs over a wrapped cache with empty
-slots and per-row query positions.  The first check of a new kernel on
-the card; ``chip_smoke.py``'s ``kernels`` phase holds the same kernels to
-the card's rules.  Needs a CUDA card and ``nvcc``.
+bf16 tensor-core kernel ``mla_attention_wgmma_kernel<decode>`` in
+prefill and decode, the f32 CUDA-core ``mla_attention_kernel<f32,
+decode>`` instances and the decode merge), then runs
+``flash_attention_latent`` and ``decode_attention_latent`` in bf16 and
+f32 at deepseek-v3-671b's widths (H 128, R 512, Dr 64, scale 192^-0.5)
+and at small odd shapes (H 3 and 5, whose 64-row blocks span positions
+or hold fewer than 64 heads), against their plain versions: the largest
+difference, the share of outputs that differ, and the kernel's time by
+CUDA events (prefill at S >= 1528 over 2 calls, with its rate in TFLOP/s
+of counted work; decode over 20 calls).  Decode runs over a wrapped
+cache with empty slots and per-row query positions.  The first check of
+a new kernel on the card; ``chip_smoke.py``'s ``kernels`` phase holds the
+same kernels to the card's rules.  Needs a CUDA card and ``nvcc``.
 
     python3 tools/mla_attention_probe.py --variants [NAME ...] \
         [--other benchmarks/results/parent/mla_attention.cu]
 
 instead builds ``mla_attention.cu`` as it stands ("base") and copies of
-it with one part of the bf16 prefill's tensor-core kernel cut out
-(``VARIANTS``: its S products, its P V products, its key-tile copies
-after the first tile, or both products), a copy that issues its key
-copies under the asynchronous products, and copies with L2 hints on its
-copies, all at once, checks "base" against the plain
-version and times each at deepseek-v3's prefill (B 8, S = T 2048, H 128)
-in turns (in order, then reversed) by profiler device time: what a cut
-saves is roughly what that part costs.  The cut variants compute wrong
-outputs; they are timed, never used.  ``--other`` adds another source
-(say the parent commit's, copied into the git-ignored
+it with one part of the bf16 tensor-core kernel cut out (``VARIANTS``:
+its S products, its P V products, its key-tile copies after the first
+tile, or both products), a copy that issues its key copies under the
+asynchronous products, and copies with L2 hints on its copies, all at
+once, checks "base" against the plain versions and times each, in bf16,
+at deepseek-v3's prefill (B 8, S = T 2048, H 128) and at its serving
+decode (B 8, T 2112, H 128, the wrapper's split plan, the merge launch
+included) in turns (in order, then reversed) by profiler device time:
+what a cut saves is roughly what that part costs.  Prefill and decode
+share the kernel's body, so each cut acts on both.  The cut variants
+compute wrong outputs; they are timed, never used.  ``--other`` adds
+another source (say the parent commit's, copied into the git-ignored
 ``benchmarks/results/``), checked and timed beside them.
 """
 
@@ -53,7 +56,8 @@ import torch  # noqa: E402
 
 from repro_torch import _build  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import (  # noqa: E402
-    decode_attention_latent, decode_attention_latent_plain)
+    LATENT_TILE_KEYS, decode_attention_latent, decode_attention_latent_plain,
+    latent_split_plan)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention_latent, flash_attention_latent_plain)
 
@@ -76,20 +80,20 @@ VARIANTS = {
 # two cuts at once: the copies and the barriers alone
 VARIANTS["loads-only"] = VARIANTS["no-qk"] + VARIANTS["no-pv"]
 # the copies issued while the tensor cores run S (tile n + 1's pieces
-# 0..7) and P V (its last piece), instead of before each
-VARIANTS["copies-under-products"] = [
-    ("""    __syncthreads();
-    if (n + 1 < ntiles)
+# 0..7 and, in decode, its slot positions) and P V (its last piece),
+# instead of before each
+_FIRST_COPIES = """    if (n + 1 < ntiles) {
       for (int j = 0; j < kPieces - 1; ++j) load_piece(n + 1, j);
+      load_pos(n + 1);
+    }
     cp_async_commit();
-""", "    __syncthreads();\n"),
+"""
+VARIANTS["copies-under-products"] = [
+    ("    __syncthreads();\n" + _FIRST_COPIES, "    __syncthreads();\n"),
     ("""    wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);""", """    wgmma_commit();
-    if (n + 1 < ntiles)
-      for (int j = 0; j < kPieces - 1; ++j) load_piece(n + 1, j);
-    cp_async_commit();
-    wgmma_wait_all();
+""" + _FIRST_COPIES + """    wgmma_wait_all();
     fence_regs(s);"""),
     ("""    __syncthreads();
     if (n + 1 < ntiles) load_piece(n + 1, kPieces - 1);
@@ -126,7 +130,8 @@ VARIANTS["l2-policy"] = [
         ::"r"(swizzled(sq + (c >> 3) * kPiece, i, c & 7)), "l"(src),
         "r"(ok ? 16 : 0), "l"(drop));""")]
 PREFILL = ((2, 200, 128), (1, 77, 3), (8, 2048, 128), (2, 1528, 128))
-DECODE = ((8, 2112, 128), (2, 300, 5), (8, 18, 128), (3, 1536, 128))
+DECODE = ((8, 2112, 128), (2, 300, 5), (8, 18, 128), (3, 1536, 128),
+          (2, 777, 3))
 
 
 def _event_ms(fn, n: int) -> float:
@@ -163,15 +168,16 @@ def ptxas_lines(report: str) -> list[str]:
         if (m := re.search(r"Used (\d+) registers", line)) and entry:
             if source == "mla_attention.cu":
                 k = re.search(r"mla_(attention_wgmma|attention|decode_merge)"
-                              r"_kernel(I(13__nv_bfloat16|f)(Lb([01]))?)?",
+                              r"_kernelI(13__nv_bfloat16|f)?(Lb([01]))?E",
                               entry)
                 name = f"mla_{k.group(1)}_kernel" if k else entry[:60]
-                if k and k.group(3):
-                    name += "<" + ("bf16" if k.group(3) != "f" else "f32")
-                    if k.group(5):
-                        name += ", " + ("decode" if k.group(5) == "1"
-                                        else "prefill")
-                    name += ">"
+                if k:
+                    args = [] if not k.group(2) else [
+                        "bf16" if k.group(2) != "f" else "f32"]
+                    if k.group(4):
+                        args.append("decode" if k.group(4) == "1"
+                                    else "prefill")
+                    name += "<" + ", ".join(args) + ">"
                 out.append(f"{name} registers={m.group(1)} "
                            f"spills={spills}")
             entry = None
@@ -188,22 +194,55 @@ def _variant_source(name: str) -> str:
     return src
 
 
-def time_variants(names: list[str], others: list[Path]) -> int:
-    """Build ``names`` of ``VARIANTS`` and the sources ``others`` at once
-    and time each at the serve shape, in turns, by profiler device time
-    per call."""
+def _device_ms(fn, n: int) -> tuple[float, float]:
+    """Profiler device time of ``n`` calls of ``fn`` per call: of every
+    kernel they launch, and of the decode merge's alone."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    times = [(e.key, e.self_device_time_total / 1e3 / n)
+             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(t for _, t in times),
+            sum(t for k, t in times if "mla_decode_merge_kernel" in k))
+
+
+def _decode_inputs(dev, gen, b: int, t: int, h: int, dtype):
+    """Decode arguments over a wrapped cache with empty slots and per-row
+    query positions."""
+    slot = torch.arange(t, device=dev, dtype=torch.int32)
+    roll = torch.randint(0, t, (b,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    kv_pos = ((slot[None] - roll[:, None]) % t).to(torch.int32)
+    kv_pos[min(1, b - 1), :30] = -1
+    q_pos = torch.randint(t // 2, t, (b,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                 for shape in ((b, h, 512), (b, h, 64), (b, t, 512),
+                               (b, t, 64))) + (kv_pos, q_pos)
+
+
+def time_variants(names: list[str], others: list[Path]) -> int:
+    """Build ``names`` of ``VARIANTS`` and the sources ``others`` at once
+    and time each at the serve shapes of the bf16 prefill and decode, in
+    turns, by profiler device time per call."""
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
-    b, s, h = 8, 2048, 128
+    b, s, h, t = 8, 2048, 128, 2112
     print(f"card: {smi.stdout.strip()}; bf16 latent prefill B {b} S = T {s} "
-          f"H {h}; device ms per call, 5 calls", flush=True)
+          f"H {h}, device ms per call over 5 calls; bf16 latent decode B "
+          f"{b} T {t} H {h}, over 50 calls", flush=True)
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
-        sources = {name: _variant_source(name) for name in names}
+        sources = {name: _variant_source(name)
+                   for name in ["base", *(n for n in names if n != "base")]}
         for path in others:
             sources[f"{path.parent.name}/{path.stem}"] = path.read_text()
         procs = {}
@@ -215,7 +254,7 @@ def time_variants(names: list[str], others: list[Path]) -> int:
                 [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
                  str(_build.CSRC), str(cu), "-o", str(so)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        fns = {}
+        libs = {}
         for name, (so, proc) in procs.items():
             out, err = proc.communicate()
             if proc.returncode:
@@ -225,45 +264,62 @@ def time_variants(names: list[str], others: list[Path]) -> int:
             lines += [x.strip() for x in (out + err).splitlines()
                       if "warning" in x.lower()]
             print(f"{name} ptxas: " + "; ".join(lines), flush=True)
-            fn = ctypes.CDLL(str(so)).flash_attention_latent_launch
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-                ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            fns[name] = fn
+            lib = ctypes.CDLL(str(so))
+            for entry in ("flash_attention_latent_launch",
+                          "decode_attention_latent_launch"):
+                getattr(lib, entry).argtypes, getattr(lib, entry).restype = \
+                    _build._SIGNATURES[entry]
+            libs[name] = lib
         gen = torch.Generator(device=dev).manual_seed(0)
-        args = [torch.randn(shape, generator=gen, device=dev).bfloat16()
-                for shape in ((b, s, h, 512), (b, s, h, 64), (b, s, 512),
-                              (b, s, 64))]
-        out = torch.empty_like(args[0])
+        stream = torch.cuda.current_stream().cuda_stream
+        index = dev.index or 0
+        pre = [torch.randn(shape, generator=gen, device=dev).bfloat16()
+               for shape in ((b, s, h, 512), (b, s, h, 64), (b, s, 512),
+                             (b, s, 64))]
+        pre_out = torch.empty_like(pre[0])
+        dec = _decode_inputs(dev, gen, b, t, h, torch.bfloat16)
+        dec_out = torch.empty_like(dec[0])
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        ns, per = latent_split_plan(b, h, t, sms,
+                                    LATENT_TILE_KEYS[torch.bfloat16])
+        part = torch.empty((b, h, ns, 516), dtype=torch.float32, device=dev)
 
-        def call(fn):
-            err = fn(*(a.data_ptr() for a in args), out.data_ptr(), b, s, s,
-                     h, 512, 64, SCALE, 1, dev.index or 0,
-                     torch.cuda.current_stream().cuda_stream)
+        def prefill(lib):
+            err = lib.flash_attention_latent_launch(
+                *(a.data_ptr() for a in pre), pre_out.data_ptr(), b, s, s, h,
+                512, 64, SCALE, 1, index, stream)
             if err:
                 raise RuntimeError(f"CUDA error {err}")
 
-        want = flash_attention_latent_plain(*args, scale=SCALE)
-        for name in ["base", *(n for n in fns if n not in VARIANTS)]:
-            if name in fns:
-                call(fns[name])
+        def decode(lib):
+            err = lib.decode_attention_latent_launch(
+                *(a.data_ptr() for a in dec), part.data_ptr(),
+                dec_out.data_ptr(), b, t, h, 512, 64, ns, per, SCALE, 1,
+                index, stream)
+            if err:
+                raise RuntimeError(f"CUDA error {err}")
+
+        runs = {"prefill": (prefill, pre_out, 5, flash_attention_latent_plain(
+                    *pre, scale=SCALE)),
+                "decode": (decode, dec_out, 50, decode_attention_latent_plain(
+                    *dec, scale=SCALE))}
+        for kind, (call, out, _, want) in runs.items():
+            for name in ["base", *(n for n in libs if n not in VARIANTS)]:
+                call(libs[name])
                 torch.cuda.synchronize()
-                print(f"{name} {_diff(out, want)}", flush=True)
-        del want
-        times = {name: [] for name in fns}
-        for name in [*fns, *reversed(fns)]:
-            call(fns[name])
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    call(fns[name])
-                torch.cuda.synchronize()
-            times[name].append(sum(
-                e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA) / 1e3 / 5)
-        print(" ".join(f"{name}=" + "/".join(f"{t:.4f}" for t in ts)
-                       for name, ts in times.items()), flush=True)
+                print(f"{kind} {name} {_diff(out, want)}", flush=True)
+        for kind, (call, _, n, _) in runs.items():
+            times = {name: [] for name in libs}
+            for name in [*libs, *reversed(libs)]:
+                times[name].append(_device_ms(lambda: call(libs[name]), n))
+            # decode: each turn's whole call, its merge launch in brackets
+            print(f"{kind} (splits {ns} of {per} slots; merge in brackets) "
+                  if kind == "decode" else f"{kind} ", end="")
+            print(" ".join(
+                f"{name}=" + "/".join(
+                    f"{t:.4f}" + (f" ({m:.4f})" if kind == "decode" else "")
+                    for t, m in ts)
+                for name, ts in times.items()), flush=True)
     return 0
 
 
@@ -273,7 +329,8 @@ def main() -> int:
         return 2
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--variants", nargs="*", default=None,
-                    help=f"time these of {list(VARIANTS)} (all if none)")
+                    help=f"time these of {list(VARIANTS)} beside base (all "
+                         f"if none)")
     ap.add_argument("--other", type=Path, action="append", default=[],
                     help="with --variants: another mla_attention.cu to "
                          "build, check and time (repeatable)")
@@ -308,16 +365,7 @@ def main() -> int:
             print(line, flush=True)
             del args, got, want
         for b, t, h in DECODE:
-            slot = torch.arange(t, device=dev, dtype=torch.int32)
-            roll = torch.randint(0, t, (b,), generator=gen, device=dev,
-                                 dtype=torch.int32)
-            kv_pos = ((slot[None] - roll[:, None]) % t).to(torch.int32)
-            kv_pos[min(1, b - 1), :30] = -1
-            q_pos = torch.randint(t // 2, t, (b,), generator=gen, device=dev,
-                                  dtype=torch.int32)
-            args = (randn(b, h, 512).to(dtype), randn(b, h, 64).to(dtype),
-                    randn(b, t, 512).to(dtype), randn(b, t, 64).to(dtype),
-                    kv_pos, q_pos)
+            args = _decode_inputs(dev, gen, b, t, h, dtype)
             got = decode_attention_latent(*args, scale=SCALE)
             want = decode_attention_latent_plain(*args, scale=SCALE)
             torch.cuda.synchronize()
@@ -327,7 +375,8 @@ def main() -> int:
                   f"ms={ms:.4f}", flush=True)
     print("launches", flash_attention_latent.launches,
           flash_attention_latent.instance_launches,
-          decode_attention_latent.launches)
+          decode_attention_latent.launches,
+          decode_attention_latent.instance_launches)
     return 0
 
 

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA GPU: the placement pipeline,
 the hymba-1.5b serving path, the dense-GQA serving path (glm4-9b,
-olmo-1b, h2o-danube-1.8b, nemotron-4-15b), the pure-SSM serving path
-(mamba2-2.7b), the MoE serving path (qwen3-moe-30b-a3b) and the MLA
+olmo-1b, h2o-danube-1.8b, nemotron-4-15b), the encoder-decoder and VLM
+serving paths (seamless-m4t-medium, internvl2-2b), the pure-SSM serving
+path (mamba2-2.7b), the MoE serving path (qwen3-moe-30b-a3b) and the MLA
 serving path (deepseek-v3-671b).
 
     python3 chip_smoke.py                      # every phase, as CI runs it
@@ -92,7 +93,19 @@ Phases, each printed on a line of its own:
                  config likewise, in bf16: flash_attention at its prefill
                  (``MOE_FLASH``: B 8, S = T 2048, H 32 / K 4, D 128) and
                  decode_attention at its serving cache (``MOE_DECODE``:
-                 G 8, one head group).  The MLA config's latent kernels
+                 G 8, one head group).  The encoder-decoder and VLM
+                 configs likewise (``FRONTEND_FLASH``): flash_attention
+                 non-causal at seamless-m4t-medium's encoder (B 8, S = T
+                 1024, H = K 16, D 64) and cross-attention prefill (S 2048
+                 over T 1024), at S 760 over T 1000 (B 2, bf16 and f32),
+                 and causal at internvl2-2b's prefill (B 8, S = T 2048, H
+                 16 / K 8, D 128); each non-causal check must also reject
+                 the causal variant.  decode_attention over seamless's
+                 encoder k / v (``CROSS_DECODE``: B 8, T 1024, kv_pos
+                 0..1023, the query at 1023; bf16 and f32; the check must
+                 reject queries at decoder positions below the frames) and
+                 at internvl2's serving cache (``VLM_DECODE``: G 2).  The
+                 MLA config's latent kernels
                  by the same rules, bf16 and f32, at deepseek-v3's widths
                  (H 128, R 512, Dr 64, scale 192^-0.5):
                  flash_attention_latent at its prefill (``MLA_FLASH``: B 8,
@@ -204,18 +217,39 @@ Phases, each printed on a line of its own:
 11. serve-dense-check — ``DENSE_CHECKS`` (glm4-9b; h2o-danube-1.8b with its
                  window cut to 1024) at full width and 4 layers in f32 with
                  TF32 off, prompt 1536, held as serve-check holds hymba.
-12. serve-ssm  — ``repro_torch.launch.serve`` on mamba2-2.7b at full
+12. serve-encdec — ``repro_torch.launch.serve`` on seamless-m4t-medium at
+                 full width and depth (12 encoder and 12 decoder layers,
+                 16 heads of 64, LayerNorm, gelu, vocab 256 206; bf16,
+                 random weights from seed 0) with serve's traffic, each
+                 batch with 1 024 standard-normal frames; finite logits,
+                 prefill tokens/s, decode ms/step, peak memory, launches
+                 (12 + 2 x 12) x 2 (flash: the non-causal encoder, the
+                 decoder's self- and cross-attention; every one on the
+                 tensor-core instance) and 2 x 12 x 64 x 2 (decode, cross
+                 included), no other model kernel (``frontend_launches``).
+13. serve-encdec-check — seamless at full width, 4 encoder and 4 decoder
+                 layers, in f32 with TF32 off, 1 000 frames, prompt 768,
+                 prefill 760 (cross-attention ragged at S != T; every
+                 decode position below the frames), held as serve-check
+                 holds hymba (``FRONTEND_CHECKS``).
+14. serve-vlm  — the same for internvl2-2b (24 layers, 16 / 8 heads of
+                 128, RMSNorm, SwiGLU, rope 1e6; 256 patches in place of
+                 the first prompt positions): launches 24 x 2 (flash) and
+                 24 x 64 x 2 (decode).
+15. serve-vlm-check — internvl2-2b at full width and 4 layers in f32,
+                 prompt 1536 with its 256 patches, prefill 1528.
+16. serve-ssm  — ``repro_torch.launch.serve`` on mamba2-2.7b at full
                  width and depth (64 layers, 80 SSM heads of 64, state 128,
                  chunk 256, no FFN; bf16, random weights from seed 0) with
                  serve's traffic; finite logits of shape (8, vocab),
                  prefill tokens/s, decode ms/step, peak memory, launches
                  64 x 2 (ssd_scan, every one with its passes at chunk 128)
                  and none of flash or decode.
-13. serve-ssm-check — mamba2-2.7b at full width and 4 layers in f32 with
+17. serve-ssm-check — mamba2-2.7b at full width and 4 layers in f32 with
                  TF32 off, prompt 1536, prefill 1528, held as serve-check
                  holds hymba (``ssd_scan`` patched to its plain version on
                  the plain route).
-14. serve-moe  — ``repro_torch.launch.serve`` on qwen3-moe-30b-a3b at full
+18. serve-moe  — ``repro_torch.launch.serve`` on qwen3-moe-30b-a3b at full
                  width and depth (48 layers, 32 / 4 heads of 128, 128
                  experts top-8 of d_ff 768; bf16, random weights from
                  seed 0 created on the card, ~61 GB; every earlier model
@@ -229,7 +263,7 @@ Phases, each printed on a line of its own:
                  routing trace, 4 EP ranks of 34 slots) fitted on the
                  card, whose spans must be the reference's
                  (``MOE_REFIT``).
-15. serve-moe-check — qwen3-moe-30b-a3b at full width and 4 layers in f32
+19. serve-moe-check — qwen3-moe-30b-a3b at full width and 4 layers in f32
                  with TF32 off, prompt 1536, prefill 1528, at capacity
                  factor E / top_k = 16 (no token can drop), held as
                  serve-check holds hymba; besides, every MoE call of the
@@ -238,7 +272,7 @@ Phases, each printed on a line of its own:
                  refit's replicated ``dispatch_from_plan`` dispatch (136
                  slots) on the same per-expert weights must come within
                  1e-3 of the identity dispatch's logits.
-16. serve-mla  — ``repro_torch.launch.serve`` on deepseek-v3-671b at full
+20. serve-mla  — ``repro_torch.launch.serve`` on deepseek-v3-671b at full
                  width (d_model 7168, 128 heads, MLA with q_lora 1536,
                  kv_lora 512, rope 64; 256 experts top-8 of d_ff 2048 and a
                  shared expert; vocab 129 280) cut to 4 layers (its three
@@ -254,13 +288,13 @@ Phases, each printed on a line of its own:
                  decode or ssd_scan; then the serve CLI's refit (4 EP ranks
                  of 66 slots) fitted on the card, whose spans must be the
                  reference's (``MLA_REFIT``).
-17. serve-mla-check — deepseek-v3-671b at full width and 3 layers (the
+21. serve-mla-check — deepseek-v3-671b at full width and 3 layers (the
                  dense MLA layers) in f32 with TF32 off, prompt 1536,
                  prefill 1528, held as serve-check holds hymba (the latent
                  kernels patched to their plain versions on the plain
                  route); the kernel route's latent prefill and decode
                  launch all on their CUDA-core ``fma`` instances.
-18. health     — ``Simulator(40, 50).run_online`` of fig6's paper default
+22. health     — ``Simulator(40, 50).run_online`` of fig6's paper default
                  (lmbr ``max_moves=120``) under the flags-built
                  ``HealthMonitor`` (``HEALTH_VARIANT``: snapshots every 100
                  queries, window 4, skew SLO 3.0), with a storm (partitions
@@ -274,7 +308,7 @@ Phases, each printed on a line of its own:
                  The storm fires and resolves degraded_rate, and the same
                  storm unmonitored serves the same spans, access load and
                  member; the clean replay fires nothing.
-19. scale      — the cluster-scale pipeline at bench_scale's sizes:
+23. scale      — the cluster-scale pipeline at bench_scale's sizes:
                  ``web_scale_chunks(seed=0)`` (100 000 items, 1 000 000
                  queries) through ``StreamingHypergraphBuilder``, plain and
                  with duplicates merged (host only); the sharded lmbr fits
@@ -293,7 +327,8 @@ Phases, each printed on a line of its own:
 
 ``--profile`` runs each fit once more under torch.profiler and the
 package's tracer, and one serving batch (prefill, 8 decode steps) of
-hymba-1.5b (serve), glm4-9b (serve-dense), mamba2-2.7b (serve-ssm),
+hymba-1.5b (serve), glm4-9b (serve-dense), seamless-m4t-medium
+(serve-encdec), internvl2-2b (serve-vlm), mamba2-2.7b (serve-ssm),
 qwen3-moe-30b-a3b (serve-moe) and deepseek-v3-671b at 4 layers
 (serve-mla, its latent kernels' device time as the ``mla_attention``
 group) under torch.profiler,
@@ -334,9 +369,10 @@ TF32_OPS_PER_S = 495e12      # H100 SXM dense tf32 tensor cores, data sheet
 BF16_OPS_PER_S = 989e12      # H100 SXM dense bf16 tensor cores, data sheet
 PHASES = ("build", "kernels", "fit-stress", "fit-paper", "paper-algos",
           "placement-api", "online", "serve", "serve-check", "serve-dense",
-          "serve-dense-check", "serve-ssm", "serve-ssm-check", "serve-moe",
-          "serve-moe-check", "serve-mla", "serve-mla-check", "health",
-          "scale")
+          "serve-dense-check", "serve-encdec", "serve-encdec-check",
+          "serve-vlm", "serve-vlm-check", "serve-ssm", "serve-ssm-check",
+          "serve-moe", "serve-moe-check", "serve-mla", "serve-mla-check",
+          "health", "scale")
 PAPER_NODES = 69429          # ibm10, the largest fig9 circuit
 # paper-algos: the workloads (generator, arguments) and the runs (workload,
 # partitions, capacity, algorithm, extra arguments, avg_span of the JAX
@@ -1297,10 +1333,17 @@ def _close(torch, got, want, tol) -> bool:
                for g, w in zip(got, want))
 
 
-def _attention_check(torch, label, dtype, got, want, plain32, unmasked):
+# the wrong variants a check must reject: its field and what it is
+WRONG_VARIANTS = {"no_window": "a missing window mask",
+                  "causal": "a causal mask where none belongs"}
+
+
+def _attention_check(torch, label, dtype, got, want, plain32, unmasked,
+                     wrong="no_window"):
     """Hold an attention kernel's output against its plain version and
     show that the check rejects two wrong variants: the plain version
-    without the window mask (``unmasked``, window layers only) and, in
+    ``unmasked`` (without the window mask, window layers only; or, with
+    ``wrong="causal"``, with a causal mask in a non-causal row) and, in
     bf16, a store that truncates the fp32 result (``plain32``) instead of
     rounding it.  Returns the row's check fields."""
     err = _max_abs([got], [want])
@@ -1319,64 +1362,86 @@ def _attention_check(torch, label, dtype, got, want, plain32, unmasked):
         out.update(bf16_diff_share=share, trunc_store_share=trunc_share,
                    trunc_store_err=_max_abs([trunc], [want]))
     if unmasked is not None:
-        out["no_window_err"] = _max_abs([unmasked], [want])
+        out[f"{wrong}_err"] = _max_abs([unmasked], [want])
         _require(not _close(torch, [unmasked], [want], tol),
-                 f"{label}: the check cannot see a missing window mask")
+                 f"{label}: the check cannot see {WRONG_VARIANTS[wrong]}")
     return out
 
 
+def _flash_pairs(torch, dev, S, T, causal, window):
+    """(visible (query, key) mask or None when every pair is visible, the
+    number of visible pairs) of one (batch, head)."""
+    if not causal and window is None:
+        return None, float(S * T)
+    qi = torch.arange(S, device=dev)[:, None]
+    kj = torch.arange(T, device=dev)[None, :]
+    mask = torch.ones((S, T), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kj <= qi
+    if window is not None:
+        mask &= kj > qi - window
+    return mask, float(mask.sum())
+
+
 def _flash_rows(torch, randn, dev, dtype, peak, B, S, H, K, D,
-                windows=(None, 1024), label=""):
-    """flash_attention at (B, S = T, H, K, D) in the global and window-1024
-    layers (or ``windows``): the check against the plain version and the
-    times, kernel and SDPA each also as profiler device time per call."""
+                windows=(None, 1024), label="", T=None, causal=True):
+    """flash_attention at (B, S, T (default S), H, K, D) in the global and
+    window-1024 layers (or ``windows``), causal or not: the check against
+    the plain version (a non-causal row must also reject the causal
+    variant) and the times, kernel and SDPA (with no mask where every pair
+    is visible) each also as profiler device time per call."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import (
         flash_attention, flash_attention_plain, instance)
 
+    T = S if T is None else T
     esz = torch.finfo(dtype).bits // 8
     tag = "bf16" if dtype == torch.bfloat16 else "f32"
     q = randn(B, S, H, D).to(dtype)
-    k, v = randn(B, S, K, D).to(dtype), randn(B, S, K, D).to(dtype)
+    k, v = randn(B, T, K, D).to(dtype), randn(B, T, K, D).to(dtype)
     qT, kT, vT = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     wants, rows = {}, []
     for window in windows:
-        got = flash_attention(q, k, v, window=window)
-        wants[window] = want = flash_attention_plain(q, k, v, window=window)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        wants[window] = want = flash_attention_plain(
+            q, k, v, causal=causal, window=window)
         plain32 = (flash_attention_plain(q.float(), k.float(), v.float(),
-                                         window=window)
+                                         causal=causal, window=window)
                    if dtype == torch.bfloat16 else None)
+        if causal:
+            wrong, name = (wants[None] if window else None), "no_window"
+        else:
+            wrong = flash_attention_plain(q, k, v, causal=True,
+                                          window=window)
+            name = "causal"
         torch.cuda.synchronize()
         check = _attention_check(
-            torch, f"flash_attention {label}{tag} S={S} D={D} "
-            f"window={window}", dtype, got, want, plain32,
-            wants[None] if window else None)
-        del got, plain32
-        qi = torch.arange(S, device=dev)[:, None]
-        kj = torch.arange(S, device=dev)[None, :]
-        mask = kj <= qi
-        if window is not None:
-            mask &= kj > qi - window
-        pairs = float(mask.sum())
-        nbytes = (2 * B * S * H * D + 2 * B * S * K * D) * esz
+            torch, f"flash_attention {label}{tag} S={S} T={T} D={D} "
+            f"causal={causal} window={window}", dtype, got, want, plain32,
+            wrong, name)
+        del got, plain32, wrong
+        mask, pairs = _flash_pairs(torch, dev, S, T, causal, window)
+        nbytes = (2 * B * S * H * D + 2 * B * T * K * D) * esz
         bound, by = _bound_ms(nbytes, 4.0 * D * pairs * B * H, peak)
 
         def kern():
-            return flash_attention(q, k, v, window=window)
+            return flash_attention(q, k, v, causal=causal, window=window)
 
         def sdpa():
             return F.scaled_dot_product_attention(
                 qT, kT, vT, attn_mask=mask, enable_gqa=True)
 
         rows.append(dict(
-            shape=f"{label}B{B}.S{S}.H{H}.K{K}.D{D}.{tag}.w{window}",
+            shape=f"{label}B{B}.S{S}" + (f".T{T}" if T != S else "")
+            + f".H{H}.K{K}.D{D}.{tag}.w{window}"
+            + ("" if causal else ".noncausal"),
             instance=instance(dtype, D), kernel_instance=f"{tag}.D{D}",
             **check,
             ms=_cuda_ms(torch, kern, 5),
             device_ms=_device_ms(torch, kern, 5),
             plain_ms=_cuda_ms(torch, lambda: flash_attention_plain(
-                q, k, v, window=window), 2),
+                q, k, v, causal=causal, window=window), 2),
             library_ms=_cuda_ms(torch, sdpa, 5),
             library_device_ms=_device_ms(torch, sdpa, 5),
             bound_ms=bound, bound_by=by))
@@ -1492,6 +1557,27 @@ DECODE_GROUPS = (2, 3, 7, 9, 10, 12)
 # cache (B 8, T 2112), bf16: label, H, K, D, windows (G 8, one head group)
 MOE_FLASH = (("qwen3-moe-30b-a3b", 32, 4, 128, (None,)),)
 MOE_DECODE = (("qwen3-moe-30b-a3b", 32, 4, 128, (None,)),)
+# the encoder-decoder's and the VLM's prefill: seamless-m4t-medium's
+# encoder (non-causal, S = T = its 1024 frames) and cross-attention
+# (non-causal, the 2048-token prompt over the frames), the same at
+# serve-encdec-check's ragged prefill 760 over 1000 frames (no 64-key tile
+# divides T; in f32 as well), and internvl2-2b's causal prefill (G 2):
+# label, B, S, T, H, K, D, causal, also in f32
+FRONTEND_FLASH = (
+    ("seamless-encoder", 8, 1024, 1024, 16, 16, 64, False, False),
+    ("seamless-cross", 8, 2048, 1024, 16, 16, 64, False, False),
+    ("ragged-cross", 2, 760, 1000, 16, 16, 64, False, True),
+    ("internvl2-2b", 8, 2048, 2048, 16, 8, 128, True, False),
+)
+# seamless's cross-attention decode over the encoder's k / v: every slot
+# valid (kv_pos 0..F-1) and the query at F - 1: label, B, T = F, H, K, D
+CROSS_DECODE = (("seamless-cross", 8, 1024, 16, 16, 64),)
+# the decoder positions that serve-encdec-check's decode runs at, all
+# below its frames: a query there would hide frames (the wrong variant)
+CROSS_DECODE_LOW_POS = 760
+# internvl2-2b's self-attention decode over the serving cache (B 8, T
+# 2112), bf16: label, H, K, D, windows (G 2, one head group)
+VLM_DECODE = (("internvl2-2b", 16, 8, 128, (None,)),)
 
 
 def _decode_dense_rows(torch, dev, dtype, peak, table=DENSE_DECODE,
@@ -1578,6 +1664,75 @@ def _decode_dense_rows(torch, dev, dtype, peak, table=DENSE_DECODE,
                     library_device_ms=_device_ms(torch, sdpa, 50),
                     bound_ms=bound, bound_by=by)
             rows.append(row)
+    return rows
+
+
+def _cross_decode_rows(torch, dev, dtype, peak):
+    """decode_attention as an encoder-decoder's cross-attention runs it in
+    decode (``CROSS_DECODE``): over the encoder's k / v with every slot
+    valid and the query at the last encoder position, so nothing is
+    masked; the check must also reject queries at decoder positions below
+    the frames (``CROSS_DECODE_LOW_POS`` on), which hide some.  Checked,
+    and timed beside SDPA with no mask."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_plain, head_groups,
+        resident_blocks, split_plan)
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    esz = torch.finfo(dtype).bits // 8
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    rows = []
+    for label, B, T, H, K, D in CROSS_DECODE:
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        q = randn(B, H, D).to(dtype)
+        k, v = randn(B, T, K, D).to(dtype), randn(B, T, K, D).to(dtype)
+        kv_pos = torch.arange(T, device=dev, dtype=torch.int32).expand(
+            B, T).contiguous()
+        q_pos = torch.full((B,), T - 1, dtype=torch.int32, device=dev)
+        low = torch.arange(CROSS_DECODE_LOW_POS, CROSS_DECODE_LOW_POS + B,
+                           device=dev, dtype=torch.int32)
+        got = decode_attention(q, k, v, kv_pos, q_pos)
+        want = decode_attention_plain(q, k, v, kv_pos, q_pos)
+        plain32 = (decode_attention_plain(q.float(), k.float(), v.float(),
+                                          kv_pos, q_pos)
+                   if dtype == torch.bfloat16 else None)
+        wrong = decode_attention_plain(q, k, v, kv_pos, low)
+        torch.cuda.synchronize()
+        check = _attention_check(
+            torch, f"decode_attention {label} {tag}", dtype, got, want,
+            plain32, wrong, "causal")
+        g = H // K
+        ng = head_groups(g)
+        ns = split_plan(B, K * ng, T, resident_blocks(
+            torch.cuda.current_device(), g // ng))
+        nbytes = (2 * B * T * K * D * esz + B * T * 4 + B * 4
+                  + 2 * B * H * D * esz)
+        bound, by = _bound_ms(nbytes, 4.0 * D * H * B * T, peak)
+        qT, kT, vT = (q[:, :, None], k.transpose(1, 2).contiguous(),
+                      v.transpose(1, 2).contiguous())
+
+        def kern():
+            return decode_attention(q, k, v, kv_pos, q_pos)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qT, kT, vT,
+                                                  enable_gqa=True)
+
+        rows.append(dict(
+            shape=f"{label}.B{B}.T{T}.H{H}.K{K}.D{D}.{tag}.qpos{T - 1}",
+            kernel_instance=f"{tag}.G{g // ng}", head_groups=ng, splits=ns,
+            **check,
+            ms=_cuda_ms(torch, kern, 50),
+            device_ms=_device_ms(torch, kern, 50),
+            plain_ms=_cuda_ms(torch, lambda: decode_attention_plain(
+                q, k, v, kv_pos, q_pos), 10),
+            library_ms=_cuda_ms(torch, sdpa, 50),
+            library_device_ms=_device_ms(torch, sdpa, 50),
+            bound_ms=bound, bound_by=by))
     return rows
 
 
@@ -2004,6 +2159,15 @@ def phase_model_kernels(np, torch, dev):
             rows["flash_attention"] += _flash_rows(
                 torch, randn, dev, dtype, peak, B, S, dh, dk, dd,
                 windows=windows, label=label + ".")
+        # the encoder-decoder's non-causal encoder and cross-attention (S
+        # != T) and the VLM's prefill
+        for (label, fb, fs, ft, dh, dk, dd, causal,
+             f32) in FRONTEND_FLASH:
+            if tag == "bf16" or f32:
+                rows["flash_attention"] += _flash_rows(
+                    torch, randn_ragged, dev, dtype, peak, fb, fs, dh, dk,
+                    dd, windows=(None,), label=label + ".", T=ft,
+                    causal=causal)
 
         # decode_attention: one step in the middle of decode (2080 of the
         # 2112 slots filled), global and window-1024 layers
@@ -2062,6 +2226,11 @@ def phase_model_kernels(np, torch, dev):
         if tag == "bf16":
             rows["decode_attention"] += _decode_dense_rows(
                 torch, dev, dtype, peak, MOE_DECODE, ())
+            rows["decode_attention"] += _decode_dense_rows(
+                torch, dev, dtype, peak, VLM_DECODE, ())
+        # the encoder-decoder's cross-attention decode
+        rows["decode_attention"] += _cross_decode_rows(torch, dev, dtype,
+                                                       peak)
         # the latent (MLA) kernels at deepseek-v3's prefill and decode
         flash, decode = _latent_rows(torch, dev, dtype, peak)
         rows["flash_attention_latent"] += flash
@@ -2107,13 +2276,16 @@ def _load_timed(torch, arch, dev, **overrides):
 def _measured_serve(torch, kernels, label, cfg, params, requests,
                     decode_len):
     """``repro_torch.launch.serve`` in batches of 8 with prompt 2048, after
-    a warm-up (cuBLAS handles, allocator) outside the measured run: the
+    a warm-up (cuBLAS handles, allocator; a prompt of at least the
+    frontend's length) outside the measured run: the
     result with each kernel's launches, the peak memory, prefill tokens/s
     and decode ms/step.  The last batch's logits must be finite, (8,
     vocab)."""
     from repro_torch.launch.serve import serve
 
-    serve(cfg, params, requests=1, batch=1, prefill_len=16, decode_len=2)
+    # a VLM's prompt holds its patches
+    serve(cfg, params, requests=1, batch=1,
+          prefill_len=max(16, cfg.frontend_len), decode_len=2)
     torch.cuda.reset_peak_memory_stats()
     _zero_counts(kernels)
     res = serve(cfg, params, requests=requests, batch=SERVE["batch"],
@@ -2193,13 +2365,17 @@ def phase_serve_profile(np, torch, dev, arch="hymba-1.5b", layers=None):
     cfg, params = load_model(arch, device=dev, seed=0,
                              **({"num_layers": layers} if layers else {}))
     B, S, n_dec = SERVE["batch"], SERVE["prefill_len"], 8
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (B, S))).to(dev)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S))).to(dev)}
+    if cfg.frontend:
+        batch["frontend"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.frontend_len, cfg.d_model), dtype=np.float32)).to(dev)
     state = {}
 
     def run_prefill():
         state["logits"], state["cache"] = prefill(
-            cfg, params, {"tokens": tokens}, max_len=S + SERVE["decode_len"])
+            cfg, params, batch, max_len=S + SERVE["decode_len"])
 
     def run_decode():
         tok = state["logits"].argmax(-1)[:, None]
@@ -2264,14 +2440,17 @@ def _leaves(tree):
         yield tree
 
 
-def _route_run(torch, cfg, params, tokens, n_prefill):
+def _route_run(torch, cfg, params, tokens, n_prefill, frontend=None):
     """Cache-free forward logits, prefill's last logits and teacher-forced
-    decode logits of one route."""
+    decode logits of one route; ``frontend``: the frames or patches that
+    the forward and the prefill take."""
     from repro_torch.models import decode_step, forward, prefill
 
-    full, _ = forward(cfg, params, tokens)
-    last, cache = prefill(cfg, params, {"tokens": tokens[:, :n_prefill]},
-                          max_len=tokens.shape[1])
+    full, _ = forward(cfg, params, tokens, frontend_embeds=frontend)
+    batch = {"tokens": tokens[:, :n_prefill]}
+    if frontend is not None:
+        batch["frontend"] = frontend
+    last, cache = prefill(cfg, params, batch, max_len=tokens.shape[1])
     steps = []
     for t in range(n_prefill, tokens.shape[1]):
         pos = torch.full((tokens.shape[0], 1), t, dtype=torch.int32,
@@ -2284,8 +2463,9 @@ def _route_run(torch, cfg, params, tokens, n_prefill):
 
 
 def _hold_routes(torch, kernels, label, cfg, params, tokens, n_prefill,
-                 patched, on_route=None):
-    """``_route_run`` on the kernel route, then on the plain route with
+                 patched, on_route=None, frontend=None):
+    """``_route_run`` (with ``frontend``) on the kernel route, then on the
+    plain route with
     each (module, name, plain version) of ``patched`` swapped in: no
     launch on the plain route, the routes' logits within 1e-3, and
     teacher-forced decode after prefill within 2e-3 of the cache-free
@@ -2296,7 +2476,7 @@ def _hold_routes(torch, kernels, label, cfg, params, tokens, n_prefill,
     if on_route is not None:
         on_route("kernel")
     _zero_counts(kernels)
-    kern = _route_run(torch, cfg, params, tokens, n_prefill)
+    kern = _route_run(torch, cfg, params, tokens, n_prefill, frontend)
     launches = _counts(kernels)
     chunks = dict(kernels["ssd_scan"].chunk_launches)
     instances = {name: dict(fn.instance_launches)
@@ -2309,7 +2489,8 @@ def _hold_routes(torch, kernels, label, cfg, params, tokens, n_prefill,
     try:
         for mod, name, fn in patched:
             setattr(mod, name, fn)
-        plain = _route_run(torch, cfg, params, tokens, n_prefill)
+        plain = _route_run(torch, cfg, params, tokens, n_prefill,
+                           frontend)
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
@@ -2468,6 +2649,124 @@ def phase_serve_dense_check(np, torch, kernels, dev):
               flush=True)
         del params
         torch.cuda.empty_cache()
+
+
+# serve-encdec / serve-vlm: the encoder-decoder seamless-m4t-medium (12
+# encoder and 12 decoder layers) and the VLM internvl2-2b (24 layers) at
+# their published widths and depths with serve's traffic, each batch with
+# standard-normal frames / patches (launch.serve draws them).
+# FRONTEND_CHECKS: the -check phases at the same widths in f32: arch,
+# overrides (4 layers; seamless 4 encoder and 4 decoder layers), frames or
+# patches, prompt, prefill.  seamless's prefill of 760 tokens over 1000
+# frames runs its cross-attention ragged at S != T, and every decode
+# position (760..767) lies below the frame count
+ENCDEC_ARCH = "seamless-m4t-medium"
+VLM_ARCH = "internvl2-2b"
+FRONTEND_CHECKS = {
+    "serve-encdec-check": (ENCDEC_ARCH, dict(num_layers=4, encoder_layers=4),
+                           1000, 768, 760),
+    "serve-vlm-check": (VLM_ARCH, dict(num_layers=4), 256, 1536, 1528),
+}
+
+
+def frontend_launches(cfg, batches: int, decode_len: int) -> dict:
+    """flash and decode launches of ``batches`` served batches: per batch
+    one flash an encoder layer, and per decoder layer one for
+    self-attention and, with an encoder, one for cross-attention, in the
+    prefill and in each decode step."""
+    calls = 2 if cfg.encoder_layers else 1
+    return {"flash_attention":
+            (cfg.encoder_layers + calls * cfg.num_layers) * batches,
+            "decode_attention": calls * cfg.num_layers * decode_len * batches}
+
+
+def phase_serve_frontend(torch, kernels, dev, arch, label):
+    """``arch`` (``ENCDEC_ARCH`` or ``VLM_ARCH``) through
+    ``repro_torch.launch.serve`` at full width and depth (bf16, random
+    weights from seed 0) with serve's traffic: every prefill attention on
+    flash's tensor-core instance and every decode attention on
+    decode_attention, as many as ``frontend_launches`` says, no other
+    model kernel.  Returns the launches."""
+    t_phase = time.perf_counter()
+    cfg, params, init_s, nparams = _load_timed(torch, arch, dev)
+    res = _measured_serve(torch, kernels, label, cfg, params,
+                          SERVE["requests"], SERVE["decode_len"])
+    launches = res["launches"]
+    flash_instances = dict(kernels["flash_attention"].instance_launches)
+    nb = res["batches"]
+    want = dict(frontend_launches(cfg, nb, SERVE["decode_len"]),
+                ssd_scan=0, flash_attention_latent=0,
+                decode_attention_latent=0)
+    _require_launches(label, launches, want)
+    _require(flash_instances == {"wgmma": want["flash_attention"], "fma": 0},
+             f"{label}: flash_attention instances {flash_instances}, want "
+             "every launch on the tensor-core (wgmma) instance")
+    print(f"{label}: {arch} layers={cfg.num_layers} "
+          f"encoder_layers={cfg.encoder_layers} frontend={cfg.frontend} "
+          f"frontend_len={cfg.frontend_len} d_model={cfg.d_model} "
+          f"head_dim={cfg.resolved_head_dim} "
+          f"G={cfg.num_heads // cfg.num_kv_heads} vocab={cfg.vocab_size} "
+          f"params={nparams} bf16 init_s={init_s:.2f} "
+          f"requests={SERVE['requests']} batch={SERVE['batch']} "
+          f"{_serve_line(res)} launches={ {n: launches[n] for n in want} } "
+          f"flash_attention_instances={flash_instances} "
+          f"phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    del params, res
+    torch.cuda.empty_cache()
+    return dict(launches=launches, flash_instances=flash_instances)
+
+
+def phase_serve_frontend_check(np, torch, kernels, dev, phase):
+    """``FRONTEND_CHECKS[phase]`` at full width in f32 with TF32 off, batch
+    2, standard-normal frames or patches: the kernel route against the
+    plain route on the card (logits within 1e-3), teacher-forced decode
+    after prefill against the cache-free forward (within 2e-3), the
+    launches ``frontend_launches`` counts for a forward and a prefill (all
+    flash on the CUDA-core instance) and the decode steps, and nothing on
+    the plain route."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention_plain
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    from repro_torch.launch.serve import load_model
+    from repro_torch.models import attention
+
+    t_phase = time.perf_counter()
+    arch, overrides, frames, S, n_prefill = FRONTEND_CHECKS[phase]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, params = load_model(arch, device=dev, seed=1, dtype="float32",
+                             **overrides)
+    if cfg.encoder_layers:
+        _require(S <= frames, f"{phase}: a decode position at or past the "
+                 f"{frames} frames")
+    B = 2
+    rng = np.random.default_rng(10)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
+    frontend = torch.from_numpy(rng.standard_normal(
+        (B, frames, cfg.d_model), dtype=np.float32)).to(dev)
+    held = _hold_routes(
+        torch, kernels, phase, cfg, params, tokens, n_prefill,
+        [(attention, "flash_attention", flash_attention_plain),
+         (attention, "decode_attention", decode_attention_plain)],
+        frontend=frontend)
+    launches = held["launches"]
+    flash_instances = held["instance_launches"]["flash_attention"]
+    # a forward and a prefill, then S - n_prefill decode steps
+    want = dict(frontend_launches(cfg, 2, 0),
+                decode_attention=frontend_launches(
+                    cfg, 1, S - n_prefill)["decode_attention"],
+                ssd_scan=0, flash_attention_latent=0,
+                decode_attention_latent=0)
+    _require_launches(phase, launches, want)
+    _require(flash_instances == {"wgmma": 0, "fma": want["flash_attention"]},
+             f"{phase}: flash_attention instances {flash_instances}, want "
+             "every f32 launch on the CUDA-core (fma) instance")
+    print(f"{phase}: {arch} full width, layers={cfg.num_layers} "
+          f"encoder_layers={cfg.encoder_layers} frontend_len={frames} f32 "
+          f"tf32=off batch={B} {_routes_line(held, n_prefill, S)} "
+          f"flash_attention_instances={flash_instances} "
+          f"phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    del params, held
+    torch.cuda.empty_cache()
 
 
 # serve-ssm: mamba2-2.7b at its published widths and depth with serve's
@@ -4138,6 +4437,17 @@ def main(argv=None) -> int:
             phase_serve_profile(np, torch, dev, "glm4-9b")
     if "serve-dense-check" in phases:
         phase_serve_dense_check(np, torch, kernels, dev)
+    for phase, arch in (("serve-encdec", ENCDEC_ARCH),
+                        ("serve-vlm", VLM_ARCH)):
+        if phase in phases:
+            served = phase_serve_frontend(torch, kernels, dev, arch, phase)
+            path_launches[phase] = {n: served["launches"][n]
+                                    for n in model_kernels}
+            if args.profile:
+                phase_serve_profile(np, torch, dev, arch)
+        if f"{phase}-check" in phases:
+            phase_serve_frontend_check(np, torch, kernels, dev,
+                                       f"{phase}-check")
     if "serve-ssm" in phases:
         served = phase_serve_ssm(torch, kernels, dev)
         path_launches["serve-ssm"] = {n: served["launches"][n]

@@ -9,7 +9,8 @@ pure-SSM mamba2-2.7b (whose cache holds only the SSM state) and the MoE
 qwen3-moe-30b-a3b and deepseek-v3-671b (served with the identity expert
 dispatch; deepseek-v3's attention is MLA, its cache the latent rows, and
 at its published widths only a few layers fit one card:
-``load_model("deepseek-v3-671b", num_layers=4)``).  The
+``load_model("deepseek-v3-671b", num_layers=4)``), the encoder-decoder
+seamless-m4t-medium and the VLM internvl2-2b.  The
 reference driver (``repro.launch.serve``) with the same CLI plus
 ``--device`` (default "cuda"; raises without CUDA unless "cpu" is given):
 random prompts from ``numpy.random.default_rng(seed)``, one prefill per
@@ -17,6 +18,15 @@ batch of requests into a cache of ``prefill_len + decode_len`` slots,
 then ``decode_len`` greedy (argmax) steps; the last logits of every batch
 must be finite.  Weights are random, from the port's ``init_params`` with
 a seeded generator.  Prints tokens per second with the device's name.
+A config with a frontend (seamless's audio frames, internvl2's image
+patches; stubs in the reference too) gets ``(batch, frontend_len,
+d_model)`` f32 embeddings with each batch, drawn standard normal from the
+same generator right after the prompt.  The reference CLI feeds zeros
+there, which ``serve`` does not copy: zero frames project to zeros, and
+every LayerNorm and attention of seamless's encoder then gives zeros, so
+the cross-attention would attend over nothing but zero keys and values.
+A VLM's prompt must be at least ``frontend_len`` tokens long (its patches
+replace the first ones).
 After an MoE arch it prints the reference's expert-placement refit: LMBR
 fitted to a synthetic routing trace (200 token groups, seed 1) on 4 EP
 ranks of ``E // 4 + 2`` slots, its avg span against the contiguous
@@ -78,12 +88,16 @@ def serve(cfg, params, *, requests: int = 16, prefill_len: int = 64,
     logits = generated = None
     drops = []
     for _ in range(batches):
-        tokens = torch.from_numpy(
-            rng.integers(0, cfg.vocab_size, (batch, prefill_len))).to(dev)
+        inputs = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (batch, prefill_len))).to(dev)}
+        if cfg.frontend:
+            inputs["frontend"] = torch.from_numpy(rng.standard_normal(
+                (batch, cfg.frontend_len, cfg.d_model),
+                dtype=np.float32)).to(dev)
         _sync(dev)
         t0 = time.perf_counter()
-        logits, cache, aux = prefill(cfg, params, {"tokens": tokens},
-                                     max_len=max_len, return_aux=True)
+        logits, cache, aux = prefill(cfg, params, inputs, max_len=max_len,
+                                     return_aux=True)
         if "drop_frac" in aux:
             drops.append(aux["drop_frac"])
         tok = logits.argmax(-1)[:, None]

@@ -1,6 +1,7 @@
 """The model stack of the port: the serving path of the hybrid (hymba),
-dense-GQA (glm4, olmo, h2o-danube, nemotron), pure-SSM (mamba2) and MoE
-(qwen3-moe; deepseek-v3, with MLA) families."""
+dense-GQA (glm4, olmo, h2o-danube, nemotron), pure-SSM (mamba2), MoE
+(qwen3-moe; deepseek-v3, with MLA), encoder-decoder (seamless-m4t) and
+VLM (internvl2) families."""
 
 from .convert import params_from_jax  # noqa: F401
 from .model import (  # noqa: F401

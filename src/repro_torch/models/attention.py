@@ -6,10 +6,17 @@ paths go through the kernel wrappers, which run the CUDA kernel on CUDA
 tensors and the plain PyTorch version on CPU tensors:
 
 * cache-free forward, and prefill into an empty cache (cursor 0,
-  positions 0..S-1): ``flash_attention`` over the fresh k / v.  Attending
-  over the whole cache, whose other slots are empty (position -1), is the
-  same function;
-* one-token decode with a cache: ``decode_attention`` over the cache.
+  positions 0..S-1): ``flash_attention`` over the fresh k / v, causal
+  (``causal=False`` for an encoder layer).  Attending over the whole
+  cache, whose other slots are empty (position -1), is the same function;
+* one-token decode with a cache: ``decode_attention`` over the cache;
+* cross-attention of an encoder-decoder's decoder (``cross_kv``, the
+  encoder states' k / v at positions 0..F-1, every one valid): q without
+  rope, no cache write, nothing masked (the reference's ``causal=False``).
+  Several tokens (forward, prefill) run ``flash_attention(causal=False)``
+  at S != T; one token (decode) runs ``decode_attention`` with the query
+  at the last encoder position, so that every frame is visible whatever
+  the decoder's position.
 
 MLA runs the reference's absorbed formulation (``FLAGS["mla_decomp"]``
 off, its default): latent queries ``[q_nope W_kb ; q_rope]`` against the
@@ -71,18 +78,37 @@ def _check_fresh_positions(positions: torch.Tensor) -> None:
             "(cache-free forward or prefill into an empty cache)")
 
 
-def gqa_attention(params, cfg, x, positions, *, window=None,
-                  kv_cache: dict | None = None):
+def _cross_attention(params, cfg, x, cross_kv):
+    """Non-causal attention of x's queries (no rope) over the encoder's
+    ``cross_kv = (k, v, kv_pos)``; the decoder's positions play no part."""
+    b, s, _ = x.shape
+    q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, cfg.resolved_head_dim)
+    k, v, kv_pos = cross_kv
+    if s == 1:
+        # the query at the last encoder position sees every frame
+        return decode_attention(q[:, 0], k, v, kv_pos,
+                                kv_pos.amax(dim=1))[:, None]
+    return flash_attention(q, k, v, causal=False)
+
+
+def gqa_attention(params, cfg, x, positions, *, window=None, causal=True,
+                  kv_cache: dict | None = None, cross_kv=None):
     """Full GQA block.  kv_cache (serving): dict(k, v, pos, cursor) with
     cursor a Python int; the cache tensors are updated IN PLACE (the
     reference returns new arrays; in place saves a copy of the cache per
-    layer and step) and the dict is returned with the new cursor."""
+    layer and step) and the dict is returned with the new cursor.
+    ``causal`` applies to the cache-free path (False in an encoder layer).
+    cross_kv: the encoder's precomputed (k, v, kv_positions) for
+    cross-attention, which reads no cache and writes none."""
     b, s, _ = x.shape
+    if cross_kv is not None:
+        out = _cross_attention(params, cfg, x, cross_kv)
+        return out.reshape(b, s, -1) @ params["wo"], None
     q, k, v = gqa_qkv(params, cfg, x, positions)
     new_cache = None
     if kv_cache is None:
         _check_fresh_positions(positions)
-        out = flash_attention(q, k, v, causal=True, window=window)
+        out = flash_attention(q, k, v, causal=causal, window=window)
     else:
         ck, cv, cpos, cursor = (kv_cache["k"], kv_cache["v"], kv_cache["pos"],
                                 kv_cache["cursor"])

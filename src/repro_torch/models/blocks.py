@@ -11,10 +11,12 @@ Ported families (the reference's ``models/blocks.py``):
 * hybrid (hymba): pre-norm, then GQA attention AND mamba2 in PARALLEL on
   the same input, each path RMS-normalized, averaged, added to the
   residual, then the pre-norm SwiGLU FFN;
-* pure SSM (mamba2): pre-norm mamba2 -> residual, no FFN.
-
-The encoder-decoder and VLM families raise NotImplementedError, naming
-the ROADMAP Queue 1 sub-item that holds them.
+* pure SSM (mamba2): pre-norm mamba2 -> residual, no FFN;
+* encoder-decoder (seamless-m4t): encoder layers are dense blocks run
+  non-causal; a decoder layer adds pre-norm cross-attention over the
+  encoder states (``ln_cross``, ``cross``) between self-attention and the
+  MLP.  The VLM (internvl2) runs dense blocks; its frontend is
+  ``models/model.py``'s.
 """
 
 from __future__ import annotations
@@ -28,14 +30,8 @@ __all__ = ["init_block", "apply_block", "init_block_cache", "block_kind"]
 
 
 def block_kind(cfg) -> str:
-    """"hybrid", "ssm", "moe" or "dense" (the last two with GQA or MLA);
-    raises on the families the port does not run yet."""
-    if cfg.encoder_layers or cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): only the dense, MoE, hybrid "
-            "GQA+mamba2 and pure-SSM blocks are ported; this family waits "
-            "in ROADMAP Queue 1 item 9.4: the encoder-decoder and VLM "
-            "frontends")
+    """"hybrid", "ssm", "moe" or "dense" (the last two with GQA or MLA;
+    the encoder-decoder's and the VLM's blocks are dense)."""
     if cfg.moe:
         return "moe"
     if cfg.attention == "hybrid":
@@ -50,11 +46,13 @@ def _is_moe_layer(cfg, layer_idx: int) -> bool:
 
 
 def init_block(gen, cfg, dtype, device=None, *, layer_idx: int = 0,
-               force_dense: bool = False, moe_dispatch=None) -> dict:
+               force_dense: bool = False, moe_dispatch=None,
+               cross_attention: bool = False) -> dict:
     """One layer's parameters.  In an MoE config, layer ``layer_idx`` gets
     the MoE block (slot-major under ``moe_dispatch``) unless it is one of
     the first ``first_k_dense`` or ``force_dense`` is set; then a dense MLP
-    at ``cfg.d_ff``."""
+    at ``cfg.d_ff``.  ``cross_attention`` adds an encoder-decoder's
+    decoder groups ``ln_cross`` and ``cross``."""
     kind = block_kind(cfg)
     d = cfg.d_model
     p = {}
@@ -70,6 +68,9 @@ def init_block(gen, cfg, dtype, device=None, *, layer_idx: int = 0,
     if kind == "hybrid":
         p["out_norm_attn"] = init_norm("rmsnorm", d, dtype, device)
         p["out_norm_ssm"] = init_norm("rmsnorm", d, dtype, device)
+    if cross_attention:
+        p["ln_cross"] = init_norm(cfg.norm, d, dtype, device)
+        p["cross"] = attn.init_gqa(gen, cfg, dtype, device)
     if kind != "ssm":
         p["ln_mlp"] = init_norm(cfg.norm, d, dtype, device)
         if _is_moe_layer(cfg, layer_idx) and not force_dense:
@@ -80,9 +81,12 @@ def init_block(gen, cfg, dtype, device=None, *, layer_idx: int = 0,
     return p
 
 
-def apply_block(params: dict, cfg, x, positions, *, window=None,
-                cache: dict | None = None, moe_dispatch=None):
-    """x (B, S, d), positions (B, S).  Returns (y, new_cache, aux): aux is
+def apply_block(params: dict, cfg, x, positions, *, causal=True,
+                window=None, cache: dict | None = None, cross_kv=None,
+                moe_dispatch=None):
+    """x (B, S, d), positions (B, S).  ``causal=False`` runs an encoder
+    layer; ``cross_kv`` (the encoder's k, v and positions) runs a
+    decoder layer's cross-attention.  Returns (y, new_cache, aux): aux is
     the MoE block's ``lb_loss``, ``z_loss`` and ``drop_frac`` in a layer
     that has one, else empty."""
     kind = block_kind(cfg)
@@ -101,7 +105,7 @@ def apply_block(params: dict, cfg, x, positions, *, window=None,
     else:
         a_out, c_attn = attn.gqa_attention(params["attn"], cfg, h,
                                            positions, window=window,
-                                           kv_cache=kv_cache)
+                                           causal=causal, kv_cache=kv_cache)
     new_cache = dict(attn=c_attn) if cache is not None else None
     if kind == "hybrid":
         s_out, c_ssm = ssm_mod.apply_mamba2(
@@ -113,6 +117,11 @@ def apply_block(params: dict, cfg, x, positions, *, window=None,
             new_cache["ssm"] = c_ssm
     else:
         x = x + a_out
+    if cross_kv is not None:
+        h = apply_norm(cfg.norm, params["ln_cross"], x)
+        c_out, _ = attn.gqa_attention(params["cross"], cfg, h, positions,
+                                      cross_kv=cross_kv)
+        x = x + c_out
     h = apply_norm(cfg.norm, params["ln_mlp"], x)
     if "moe" in params:
         m_out, aux = moe_mod.apply_moe(params["moe"], cfg, h, moe_dispatch)

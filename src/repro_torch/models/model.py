@@ -14,7 +14,20 @@ point takes ``moe_dispatch`` (None: the identity dispatch).  A config
 with ``mtp_depth`` (deepseek-v3) also gets the reference's ``mtp`` group
 (``proj``, one dense block, ``norm``), which serving never reads.
 
-Cache layout: {"layers": [block cache per layer], "encoder": None}.
+The frontends are the reference's stubs: the model takes precomputed
+embeddings ``frontend_embeds`` (B, F, d_model) and projects them by
+``frontend_proj`` as JAX promotes the product (f32 frames times a bf16
+weight in f32), then casts them to the model dtype.  A VLM
+(``frontend="vision_patches"``, internvl2) puts the projected patches in
+place of the first F token embeddings.  An encoder-decoder
+(``encoder_layers`` > 0, seamless-m4t) runs the projected frames through
+its non-causal encoder stack (``enc_blocks``, ``enc_final_norm``); each
+decoder layer cross-attends to the encoder states, its k / v computed
+from them at every call, as the reference does.
+
+Cache layout: {"layers": [block cache per layer], "encoder": None, or
+(enc_hidden, enc_pos) for an encoder-decoder: prefill runs the encoder
+once and decode reuses its states}.
 """
 
 from __future__ import annotations
@@ -59,9 +72,18 @@ def init_params(cfg, seed: int = 0, device=None, moe_dispatch=None) -> dict:
     if not cfg.tie_embeddings:
         p["unembed"] = init_embed(gen, cfg.vocab_size, cfg.d_model, dtype, dev)
     p["final_norm"] = init_norm(cfg.norm, cfg.d_model, dtype, dev)
+    cross = cfg.encoder_layers > 0
     p["blocks"] = [blocks.init_block(gen, cfg, dtype, dev, layer_idx=i,
-                                     moe_dispatch=moe_dispatch)
+                                     moe_dispatch=moe_dispatch,
+                                     cross_attention=cross)
                    for i in range(cfg.num_layers)]
+    if cfg.encoder_layers:
+        p["enc_blocks"] = [blocks.init_block(gen, cfg, dtype, dev)
+                           for _ in range(cfg.encoder_layers)]
+        p["enc_final_norm"] = init_norm(cfg.norm, cfg.d_model, dtype, dev)
+    if cfg.frontend:
+        p["frontend_proj"] = dense_init(gen, (cfg.d_model, cfg.d_model),
+                                        dtype, device=dev)
     if cfg.mtp_depth:
         # the reference's multi-token-prediction group; serving never reads
         # it (its loss is training's, ROADMAP Queue 1 item 9.5)
@@ -96,7 +118,55 @@ def init_cache(cfg, batch: int, max_len: int, *, window_only: bool = False,
     return {"layers": layers, "encoder": None}
 
 
-def _hidden(cfg, params, tokens, positions, cache, moe_dispatch):
+def _project_frontend(params, frontend_embeds, dtype) -> torch.Tensor:
+    """(B, F, d) embeddings through ``frontend_proj`` in the dtype that JAX
+    promotes the two to (f32 for f32 frames and a bf16 weight), then cast
+    to ``dtype``."""
+    w = params["frontend_proj"]
+    pt = torch.promote_types(frontend_embeds.dtype, w.dtype)
+    return (frontend_embeds.to(pt) @ w.to(pt)).to(dtype)
+
+
+def _embed_inputs(cfg, params, tokens, frontend_embeds):
+    """Token embeddings; a VLM's projected patches replace the first F
+    positions.  Raises ValueError when the prompt is shorter than F."""
+    patches = cfg.frontend == "vision_patches" and frontend_embeds is not None
+    f = frontend_embeds.shape[1] if patches else 0
+    if tokens.shape[1] < f:
+        raise ValueError(
+            f"a prompt of {tokens.shape[1]} tokens cannot hold the {f} "
+            "visual tokens that replace its first positions")
+    x = embed_lookup(params["embed"], tokens)
+    if patches:
+        vis = _project_frontend(params, frontend_embeds, x.dtype)
+        x = torch.cat([vis, x[:, f:]], dim=1)
+    return x
+
+
+def _run_encoder(cfg, params, frontend_embeds):
+    """The audio stub's frame embeddings -> the non-causal encoder stack
+    -> ``enc_final_norm``.  Returns (enc_h (B, F, d), enc_pos (B, F))."""
+    x = _project_frontend(params, frontend_embeds, _torch_dtype(cfg))
+    b, f = x.shape[:2]
+    pos = torch.arange(f, dtype=torch.int32,
+                       device=x.device).expand(b, f).contiguous()
+    for layer_params in params["enc_blocks"]:
+        x, _, _ = blocks.apply_block(layer_params, cfg, x, pos, causal=False)
+    return apply_norm(cfg.norm, params["enc_final_norm"], x), pos
+
+
+def _cross_kv_from(cfg, layer_params, enc_states):
+    """A decoder layer's cross-attention k / v from the encoder states."""
+    enc_h, enc_pos = enc_states
+    b, f, _ = enc_h.shape
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    cross = layer_params["cross"]
+    return ((enc_h @ cross["wk"]).reshape(b, f, kv, hd),
+            (enc_h @ cross["wv"]).reshape(b, f, kv, hd), enc_pos)
+
+
+def _hidden(cfg, params, tokens, positions, cache, moe_dispatch,
+            frontend_embeds=None):
     """Final-normed hidden states (B, S, d), the updated cache and the MoE
     aux terms summed over the layers (0-d device tensors; empty without
     MoE layers)."""
@@ -104,18 +174,32 @@ def _hidden(cfg, params, tokens, positions, cache, moe_dispatch):
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
                                  device=tokens.device).expand(b, s)
-    x = embed_lookup(params["embed"], tokens)
+    enc_states = None
+    if cfg.encoder_layers:
+        if cache is not None and cache.get("encoder") is not None:
+            enc_states = cache["encoder"]
+        elif frontend_embeds is not None:
+            enc_states = _run_encoder(cfg, params, frontend_embeds)
+        else:
+            raise ValueError("encoder-decoder model needs frontend_embeds "
+                             "or cached encoder states")
+        x = embed_lookup(params["embed"], tokens)
+    else:
+        x = _embed_inputs(cfg, params, tokens, frontend_embeds)
     new_layers, aux = [], {}
     for i, w in enumerate(layer_windows(cfg)):
+        lp = params["blocks"][i]
         lc = cache["layers"][i] if cache is not None else None
-        x, nc, a = blocks.apply_block(params["blocks"][i], cfg, x, positions,
-                                      window=w, cache=lc,
+        cross_kv = (_cross_kv_from(cfg, lp, enc_states)
+                    if enc_states is not None and "cross" in lp else None)
+        x, nc, a = blocks.apply_block(lp, cfg, x, positions, window=w,
+                                      cache=lc, cross_kv=cross_kv,
                                       moe_dispatch=moe_dispatch)
         new_layers.append(nc)
         for key, v in a.items():
             aux[key] = aux[key] + v if key in aux else v
     h = apply_norm(cfg.norm, params["final_norm"], x)
-    new_cache = ({"layers": new_layers, "encoder": None}
+    new_cache = ({"layers": new_layers, "encoder": enc_states}
                  if cache is not None else None)
     return h, new_cache, aux
 
@@ -124,12 +208,14 @@ def _head(params):
     return params["unembed"] if "unembed" in params else params["embed"]
 
 
-def forward(cfg, params, tokens, *, positions=None, cache=None,
-            moe_dispatch=None, return_aux=False):
+def forward(cfg, params, tokens, *, positions=None, frontend_embeds=None,
+            cache=None, moe_dispatch=None, return_aux=False):
     """Returns (logits fp32 (B, S, V), new_cache), and the summed MoE aux
-    terms third with ``return_aux``."""
+    terms third with ``return_aux``.  ``frontend_embeds`` (B, F, d): a
+    VLM's patches or an encoder-decoder's frames (which it needs unless
+    ``cache`` holds the encoder states)."""
     h, new_cache, aux = _hidden(cfg, params, tokens, positions, cache,
-                                moe_dispatch)
+                                moe_dispatch, frontend_embeds)
     logits = unembed(_head(params), h)
     return (logits, new_cache, aux) if return_aux else (logits, new_cache)
 
@@ -141,18 +227,25 @@ def prefill(cfg, params, batch, *, max_len=None, moe_dispatch=None,
     (B, V), cache).  Only the last position is unembedded: the reference
     computes every position's logits and keeps the last, which is the same
     numbers.  ``return_aux`` adds the MoE aux terms summed over the layers
-    (``drop_frac`` among them) third."""
+    (``drop_frac`` among them) third.  ``batch["frontend"]`` (B, F, d):
+    a VLM's patches, or an encoder-decoder's frames, whose encoder states
+    go into ``cache["encoder"]`` before the decoder runs."""
     tokens = batch["tokens"]
     b, s = tokens.shape
+    frontend = batch.get("frontend")
     cache = init_cache(cfg, b, max_len or s, device=_param_device(params))
-    h, cache, aux = _hidden(cfg, params, tokens, None, cache, moe_dispatch)
+    if cfg.encoder_layers and frontend is not None:
+        cache["encoder"] = _run_encoder(cfg, params, frontend)
+    h, cache, aux = _hidden(cfg, params, tokens, None, cache, moe_dispatch,
+                            frontend)
     logits = unembed(_head(params), h[:, -1])
     return (logits, cache, aux) if return_aux else (logits, cache)
 
 
 def decode_step(cfg, params, cache, tokens, positions, *, moe_dispatch=None):
     """One serving step: tokens (B, 1) at positions (B, 1).  Returns
-    (logits (B, V), cache); the cache is updated in place."""
+    (logits (B, V), cache); the cache is updated in place (an
+    encoder-decoder's encoder states are read from it, never recomputed)."""
     h, new_cache, _ = _hidden(cfg, params, tokens, positions, cache,
                               moe_dispatch)
     return unembed(_head(params), h[:, -1]), new_cache

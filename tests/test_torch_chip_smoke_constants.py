@@ -982,3 +982,156 @@ def test_mla_serving_phases_require_the_latent_decode_instances():
     assert re.search(r'decode_instances == \{\s*"wgmma": 0, "fma": '
                      r'want\["decode_attention_latent"\]\}', src)
     assert 'held["instance_launches"]["decode_attention_latent"]' in src
+
+
+# ------------------------------------- the encoder-decoder and VLM slice
+FRONTEND_PHASES = ("serve-encdec", "serve-encdec-check", "serve-vlm",
+                   "serve-vlm-check")
+
+
+def test_frontend_configs_are_the_reference_configs():
+    import dataclasses
+
+    from repro.configs import get_config as ref_get_config
+    from repro_torch.configs import get_config
+
+    assert (chip_smoke.ENCDEC_ARCH, chip_smoke.VLM_ARCH) == (
+        "seamless-m4t-medium", "internvl2-2b")
+    for arch in (chip_smoke.ENCDEC_ARCH, chip_smoke.VLM_ARCH):
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(ref_get_config(arch))
+    # the -check phases cut depth only: 4 layers (seamless 4 + 4)
+    checks = chip_smoke.FRONTEND_CHECKS
+    assert set(checks) == {"serve-encdec-check", "serve-vlm-check"}
+    arch, overrides, frames, S, n_prefill = checks["serve-encdec-check"]
+    assert arch == chip_smoke.ENCDEC_ARCH
+    assert overrides == dict(num_layers=4, encoder_layers=4)
+    assert (frames, S, n_prefill) == (1000, 768, 760)
+    arch, overrides, patches, S, n_prefill = checks["serve-vlm-check"]
+    assert arch == chip_smoke.VLM_ARCH and overrides == dict(num_layers=4)
+    assert patches == ref_get_config(arch).frontend_len == 256
+    assert (S, n_prefill) == (1536, 1528) and n_prefill >= patches
+
+
+def test_phase_order_puts_the_frontend_phases_after_the_dense_ones():
+    phases = chip_smoke.PHASES
+    i = phases.index("serve-dense-check")
+    assert phases[i + 1:i + 6] == FRONTEND_PHASES + ("serve-ssm",)
+    assert len(set(phases)) == len(phases)
+
+
+def test_frontend_launch_counts_follow_the_configs():
+    from repro.configs import get_config as ref_get_config
+
+    serve = chip_smoke.SERVE
+    batches = -(-serve["requests"] // serve["batch"])
+    steps = serve["decode_len"]
+    # seamless: per batch 12 encoder layers, then 12 decoder layers of
+    # self- and cross-attention in prefill and in every decode step
+    enc = ref_get_config(chip_smoke.ENCDEC_ARCH)
+    assert (enc.encoder_layers, enc.num_layers) == (12, 12)
+    flash = (enc.encoder_layers + 2 * enc.num_layers) * batches
+    decode = 2 * enc.num_layers * steps * batches
+    assert (flash, decode) == (72, 3072)
+    assert chip_smoke.frontend_launches(enc, batches, steps) == dict(
+        flash_attention=flash, decode_attention=decode)
+    # internvl2: one self-attention a layer
+    vlm = ref_get_config(chip_smoke.VLM_ARCH)
+    assert (vlm.encoder_layers, vlm.num_layers) == (0, 24)
+    assert chip_smoke.frontend_launches(vlm, batches, steps) == dict(
+        flash_attention=vlm.num_layers * batches,
+        decode_attention=vlm.num_layers * steps * batches) == dict(
+        flash_attention=48, decode_attention=3072)
+    # the -check phases: a forward and a prefill (4 + 2 x 4 flash each for
+    # seamless), then 8 decode steps
+    import dataclasses
+    for phase, (flash, decode) in (("serve-encdec-check", (24, 64)),
+                                   ("serve-vlm-check", (8, 32))):
+        arch, overrides, _, S, n_prefill = chip_smoke.FRONTEND_CHECKS[phase]
+        cfg = dataclasses.replace(ref_get_config(arch), **overrides)
+        assert chip_smoke.frontend_launches(cfg, 2, 0)["flash_attention"] \
+            == flash
+        assert chip_smoke.frontend_launches(
+            cfg, 1, S - n_prefill)["decode_attention"] == decode
+
+
+def test_frontend_check_decode_positions_lie_below_the_frames():
+    _, _, frames, S, n_prefill = \
+        chip_smoke.FRONTEND_CHECKS["serve-encdec-check"]
+    # every decode position sees frames past itself, so a query at the
+    # decoder's position would hide some
+    assert all(t < frames - 1 for t in range(n_prefill, S))
+    # the prefill's cross-attention runs at S != T, neither a multiple of
+    # the 64-key tile or the 128-row block
+    assert n_prefill != frames and n_prefill % 64 and frames % 64
+    # the kernels phase's wrong decode variant sits at those positions
+    B = chip_smoke.CROSS_DECODE[0][1]
+    assert chip_smoke.CROSS_DECODE_LOW_POS == n_prefill
+    assert chip_smoke.CROSS_DECODE_LOW_POS + B - 1 < \
+        chip_smoke.CROSS_DECODE[0][2] - 1
+
+
+def test_frontend_kernel_rows_sit_at_the_config_shapes():
+    from repro.configs import get_config as ref_get_config
+
+    enc = ref_get_config(chip_smoke.ENCDEC_ARCH)
+    vlm = ref_get_config(chip_smoke.VLM_ARCH)
+    serve = chip_smoke.SERVE
+    B, P = serve["batch"], serve["prefill_len"]
+    e_heads = (enc.num_heads, enc.num_kv_heads, enc.resolved_head_dim)
+    v_heads = (vlm.num_heads, vlm.num_kv_heads, vlm.resolved_head_dim)
+    assert e_heads == (16, 16, 64) and v_heads == (16, 8, 128)
+    F = enc.frontend_len
+    _, _, frames, _, n_prefill = \
+        chip_smoke.FRONTEND_CHECKS["serve-encdec-check"]
+    rows = {r[0]: r[1:] for r in chip_smoke.FRONTEND_FLASH}
+    assert rows == {
+        "seamless-encoder": (B, F, F) + e_heads + (False, False),
+        "seamless-cross": (B, P, F) + e_heads + (False, False),
+        "ragged-cross": (2, n_prefill, frames) + e_heads + (False, True),
+        "internvl2-2b": (B, P, P) + v_heads + (True, False),
+    }
+    assert chip_smoke.CROSS_DECODE == (("seamless-cross", B, F)
+                                       + e_heads,)
+    assert chip_smoke.VLM_DECODE == (("internvl2-2b",) + v_heads
+                                     + ((None,),),)
+    # bf16 at D 64 and 128 on the tensor-core instance; the f32 ragged
+    # cross row on the CUDA-core one
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import instance
+    assert instance(torch.bfloat16, 64) == instance(torch.bfloat16, 128) \
+        == "wgmma"
+    assert instance(torch.float32, 64) == "fma"
+
+
+def test_frontend_bounds():
+    import torch
+
+    bf16, hbm = chip_smoke.BF16_OPS_PER_S, chip_smoke.HBM_BYTES_PER_S
+    want = {"seamless-encoder": 0.0347, "seamless-cross": 0.0695,
+            "internvl2-2b": 0.1391}
+    for label, B, S, T, H, K, D, causal, _ in chip_smoke.FRONTEND_FLASH:
+        mask, pairs = chip_smoke._flash_pairs(torch, "cpu", S, T, causal,
+                                              None)
+        # non-causal: every (query, key) pair, no mask; causal: S (S + 1) / 2
+        assert pairs == (S * (S + 1) / 2 if causal else S * T)
+        assert (mask is None) == (not causal)
+        ms, by = chip_smoke._bound_ms(
+            (2 * B * S * H * D + 2 * B * T * K * D) * 2,
+            4.0 * D * pairs * B * H, bf16)
+        if label in want:
+            assert by == "operations"
+            assert ms == pytest.approx(want[label], abs=1e-4)
+    # cross decode: the encoder's k and v, every slot, are the bytes
+    _, B, T, H, K, D = chip_smoke.CROSS_DECODE[0]
+    kv = 2 * B * T * K * D * 2
+    ms, by = chip_smoke._bound_ms(kv + B * T * 4 + B * 4 + 2 * B * H * D * 2,
+                                  4.0 * D * H * B * T, bf16)
+    assert by == "bytes" and ms == pytest.approx(0.0100, abs=1e-4)
+    assert kv / hbm * 1e3 == pytest.approx(0.0100, abs=1e-4)
+    # internvl2's decode over a full serving cache, bytes
+    label, H, K, D, _ = chip_smoke.VLM_DECODE[0]
+    T = chip_smoke.SERVE["prefill_len"] + chip_smoke.SERVE["decode_len"]
+    assert 2 * 8 * T * K * D * 2 / hbm * 1e3 == pytest.approx(0.0207,
+                                                              abs=1e-4)

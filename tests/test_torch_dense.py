@@ -199,29 +199,43 @@ def test_serve_cli_on_cpu(arch, capsys):
     assert "served 2 requests, 6 tokens" in out and "on cpu" in out
 
 
-UNPORTED = {   # case -> (ROADMAP Queue 1 item, config overrides)
-    "vlm": ("9.4", dict(family="vlm", frontend="vision_patches",
-                        frontend_len=8)),
-    "encoder-decoder": ("9.4", dict(family="encdec", encoder_layers=2,
-                                    frontend="audio_frames",
-                                    frontend_len=8)),
+FRONTEND_FAMILIES = {   # case -> config overrides of the reduced glm4-9b
+    "vlm": dict(family="vlm", frontend="vision_patches", frontend_len=8),
+    "encoder-decoder": dict(family="encdec", encoder_layers=2,
+                            frontend="audio_frames", frontend_len=8),
 }
 
 
-@pytest.mark.parametrize("case", list(UNPORTED))
+@pytest.mark.parametrize("case", list(FRONTEND_FAMILIES))
 def test_unported_families_name_their_roadmap_item(case):
-    item, overrides = UNPORTED[case]
-    base = reduce_config(get_config("glm4-9b"), dtype="float32")
-    cfg = dataclasses.replace(base, **overrides)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        init_params(cfg, device="cpu")
+    """The frontend families on a dense config build the reference's
+    parameter groups, layer for layer, and run a forward."""
+    overrides = FRONTEND_FAMILIES[case]
+    cfg = dataclasses.replace(
+        reduce_config(get_config("glm4-9b"), dtype="float32"), **overrides)
+    ref_cfg = dataclasses.replace(
+        ref_reduce_config(ref_get_config("glm4-9b"), dtype="float32"),
+        **overrides)
+    params = init_params(cfg, device="cpu")
+    ref_params = ref_init_params(ref_cfg, jax.random.PRNGKey(0))
+    assert set(params) == set(ref_params)
+    for group in ("blocks", "enc_blocks"):
+        if group in ref_params:
+            assert set(params[group][0]) == set(ref_params[group])
+    assert ("enc_blocks" in params) == (case == "encoder-decoder")
+    assert ("cross" in params["blocks"][0]) == (case == "encoder-decoder")
+    frames = torch.ones((1, 8, cfg.d_model))
+    logits, _ = forward(cfg, params, torch.zeros((1, 9), dtype=torch.long),
+                        frontend_embeds=frames)
+    assert logits.shape == (1, 9, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
 
 
 def test_params_from_jax_refuses_unported_groups(models):
     _, ref_params, cfg, _, _ = models
     tree = dict(jax.tree.map(np.asarray, ref_params))
     for group in ("dense_blocks", "enc_blocks", "mtp", "frontend_proj"):
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(NotImplementedError, match=f"{group} only with"):
             params_from_jax(cfg, dict(tree, **{group: {}}), device="cpu")
 
 

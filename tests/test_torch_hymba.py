@@ -168,11 +168,13 @@ def test_uncovered_attention_cases_raise(models):
     with pytest.raises(NotImplementedError):   # shifted positions, no cache
         forward(cfg, params, tok[:, :8],
                 positions=torch.arange(3, 11).expand(B, 8))
-    with pytest.raises(NotImplementedError):   # other families wait
-        init_params(get_config("hymba-1.5b").__class__(
+    with pytest.raises(ValueError):   # a prompt shorter than its patches
+        vlm = get_config("hymba-1.5b").__class__(
             name="s", family="vlm", num_layers=1, d_model=8, num_heads=2,
             num_kv_heads=1, d_ff=8, vocab_size=16,
-            frontend="vision_patches", frontend_len=4), device="cpu")
+            frontend="vision_patches", frontend_len=4)
+        forward(vlm, init_params(vlm, device="cpu"), tok[:, :3] % 16,
+                frontend_embeds=torch.zeros((B, 4, 8)))
 
 
 def test_serve_runs_on_cpu_and_counts_no_launches():

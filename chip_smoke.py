@@ -3,15 +3,15 @@
 the hymba-1.5b serving path, the dense-GQA serving path (glm4-9b,
 olmo-1b, h2o-danube-1.8b, nemotron-4-15b), the encoder-decoder and VLM
 serving paths (seamless-m4t-medium, internvl2-2b), the pure-SSM serving
-path (mamba2-2.7b), the MoE serving path (qwen3-moe-30b-a3b) and the MLA
-serving path (deepseek-v3-671b).
+path (mamba2-2.7b), the MoE serving path (qwen3-moe-30b-a3b), the MLA
+serving path (deepseek-v3-671b) and the training path (olmo-1b).
 
     python3 chip_smoke.py                      # every phase, as CI runs it
     python3 chip_smoke.py --phases build,kernels
 
 Phases, each printed on a line of its own:
 
-1. build       — compile the seven CUDA sources from ``src/repro_torch/csrc``
+1. build       — compile the eight CUDA sources from ``src/repro_torch/csrc``
                  (with the header ``wgmma.cuh`` they share);
                  the line gives the registers, spills and blocks per SM of
                  the tensor-core (wgmma) instances of flash_attention (bf16
@@ -28,7 +28,9 @@ Phases, each printed on a line of its own:
                  instances (``MLA_INSTANCES``: the bf16 prefill and decode
                  on the tensor-core kernel, the f32 prefill and decode on
                  the CUDA cores) and requires no spill in the tensor-core
-                 ones.
+                 ones; and of flash_attention's backward (three passes, f32
+                 and bf16, D 32, 64, 80 and 128: ``BWD_INSTANCES``, each of
+                 which the build must make).
 2. kernels     — hold each kernel against its plain PyTorch version on the
                  card and time kernel, plain version, library call (where
                  one PyTorch call computes the same function) and the
@@ -122,7 +124,21 @@ Phases, each printed on a line of its own:
                  takes D 576 / Dv 512 and record what the others say.  Every
                  flash and every decode instance the build made must run
                  in some row, and the wrapper's head groups must be the
-                 source's.
+                 source's.  flash_attention's backward (dq, dk, dv from q,
+                 k, v, the kernel forward's output and a standard-normal
+                 output gradient) against flash_attention_bwd_plain at
+                 ``FLASH_BWD``: olmo-1b's training shape (B 8, S = T 1024,
+                 H = K 16, D 128) in bf16 and f32, glm4-9b's heads (H 32,
+                 K 2), D 64 and D 80 under a window of 1024, S = T 1000,
+                 non-causal S 760 over T 1000, the --reduced olmo-1b (D
+                 32, G 4, f32) and bf16 D 32 under a window of 40 (every
+                 instance the build makes); f32 within 2e-4 of each tensor's largest
+                 |value|, bf16 each element within 2^-6 of itself plus 2^-8
+                 of the largest; each check must reject the backward
+                 without the causal mask (with it, in the non-causal row)
+                 and, where G > 1, dk / dv of the first query head of each
+                 group only.  Its rows time the kernel, the plain version
+                 and SDPA's backward (``library_ms``) beside the bound.
 3. fit-stress  — ``Simulator(64, 50).run(lmbr_stress_workload(seed=0), lmbr,
                  seed=0, max_moves=1200)`` on the card with the dense peel
                  and the span_gain kernel pinned; the summary and member
@@ -294,7 +310,31 @@ Phases, each printed on a line of its own:
                  kernels patched to their plain versions on the plain
                  route); the kernel route's latent prefill and decode
                  launch all on their CUDA-core ``fma`` instances.
-22. health     — ``Simulator(40, 50).run_online`` of fig6's paper default
+22. train      — ``make_train_step`` on olmo-1b at full width and depth
+                 (16 layers, d_model 2048, bf16, random weights from seed
+                 0; AdamW lr 3e-4, accum 1; ``TRAIN``) fed by
+                 ``PlacementAwarePipeline`` at B 8, S 1024 for 8 steps, no
+                 checkpoint: parameters, loss and grad norm a step, step ms
+                 after the first, tokens/s, peak memory, the device's idle
+                 share over one more profiled step; exactly 2 x 16 flash
+                 forward launches a step (all on the wgmma instance) and
+                 16 backward calls (``train_launches``), no other model
+                 kernel, no plain version (each is swapped for a function
+                 that raises); finite losses and grad norms; every layer's
+                 wq, wk and wv gradient nonzero.
+23. train-check — (a) olmo-1b at full width and 2 layers in f32 with TF32
+                 off: the train step's gradient (``loss_and_grads``) on the
+                 kernel route against the plain route on the card (loss
+                 within 1e-5 relative, every gradient leaf within 1e-4 of
+                 its largest |value|, no launch on the plain route); ssd_scan,
+                 the latent kernels and decode refuse a gradient
+                 (NotImplementedError); (b) ``python -m
+                 repro_torch.launch.train`` with the reference e2e test's
+                 arguments (``TRAIN_CLI``: reduced olmo-1b, 60 steps, B 8,
+                 S 64, lr 3e-3, a checkpoint every 25, an input host
+                 killed) on the card: exit 0, ``improved``, the failure
+                 event and a ``step_*`` checkpoint.
+24. health     — ``Simulator(40, 50).run_online`` of fig6's paper default
                  (lmbr ``max_moves=120``) under the flags-built
                  ``HealthMonitor`` (``HEALTH_VARIANT``: snapshots every 100
                  queries, window 4, skew SLO 3.0), with a storm (partitions
@@ -308,7 +348,7 @@ Phases, each printed on a line of its own:
                  The storm fires and resolves degraded_rate, and the same
                  storm unmonitored serves the same spans, access load and
                  member; the clean replay fires nothing.
-23. scale      — the cluster-scale pipeline at bench_scale's sizes:
+25. scale      — the cluster-scale pipeline at bench_scale's sizes:
                  ``web_scale_chunks(seed=0)`` (100 000 items, 1 000 000
                  queries) through ``StreamingHypergraphBuilder``, plain and
                  with duplicates merged (host only); the sharded lmbr fits
@@ -354,6 +394,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -372,7 +413,7 @@ PHASES = ("build", "kernels", "fit-stress", "fit-paper", "paper-algos",
           "serve-dense-check", "serve-encdec", "serve-encdec-check",
           "serve-vlm", "serve-vlm-check", "serve-ssm", "serve-ssm-check",
           "serve-moe", "serve-moe-check", "serve-mla", "serve-mla-check",
-          "health", "scale")
+          "train", "train-check", "health", "scale")
 PAPER_NODES = 69429          # ibm10, the largest fig9 circuit
 # paper-algos: the workloads (generator, arguments) and the runs (workload,
 # partitions, capacity, algorithm, extra arguments, avg_span of the JAX
@@ -966,6 +1007,22 @@ def _attention_instance(entry: str):
             int(m.group(3)))
 
 
+def _bwd_instance(entry: str):
+    """(pass, dtype, D) of a flash_attention_bwd kernel's mangled name
+    (flash_bwd_{stats,kv,q}_kernel<T, D, TPR>); None for any other."""
+    m = re.search(r"flash_bwd_(stats|kv|q)_kernelI(13__nv_bfloat16|f)"
+                  r"Li(\d+)E", entry)
+    if not m:
+        return None
+    return (m.group(1), "bf16" if m.group(2) != "f" else "f32",
+            int(m.group(3)))
+
+
+# the backward's instances: three passes, two dtypes, four head dims
+BWD_INSTANCES = tuple((p, dt, d) for p in ("stats", "kv", "q")
+                      for dt in ("f32", "bf16") for d in (32, 64, 80, 128))
+
+
 def _wgmma_instance(entry: str):
     """("flash", "bf16", D) of a tensor-core flash_attention instance's
     mangled name (flash_attention_wgmma_kernel<D>); None for any other."""
@@ -1064,6 +1121,16 @@ def phase_build(_build):
         f"{k} {d} {r} registers={mla[d, k, r]['registers']} "
         f"spills={mla[d, k, r]['spill_stores']}/"
         f"{mla[d, k, r]['spill_loads']}" for d, k, r in MLA_INSTANCES)
+    # flash_attention's backward: every instance built
+    bwd = {_bwd_instance(e["entry"]): e for e in entries
+           if _bwd_instance(e["entry"])}
+    _require(sorted(bwd) == sorted(BWD_INSTANCES),
+             f"build: ptxas reports flash_attention_bwd instances "
+             f"{sorted(bwd)}, want {sorted(BWD_INSTANCES)}")
+    bwd_line = ", ".join(
+        f"{p} {dt} D {d} registers={bwd[p, dt, d]['registers']} "
+        f"spills={bwd[p, dt, d]['spill_stores']}/"
+        f"{bwd[p, dt, d]['spill_loads']}" for p, dt, d in BWD_INSTANCES)
     tc_line = ", ".join(
         f"D {n} registers={tc[k]['registers']} spills="
         f"{tc[k]['spill_stores']}/{tc[k]['spill_loads']} "
@@ -1077,7 +1144,9 @@ def phase_build(_build):
           f"spill_loads={dec[0]['spill_loads']}; dense path instances "
           f"(spill stores/loads bytes): {dense_line}; ssd_scan instances "
           f"(spill stores/loads bytes): {ssd_line}; mla_attention "
-          f"instances (spill stores/loads bytes): {mla_line}", flush=True)
+          f"instances (spill stores/loads bytes): {mla_line}; "
+          f"flash_attention_bwd instances (spill stores/loads bytes): "
+          f"{bwd_line}", flush=True)
     for e in entries:
         print(f"  {e['source']} {e['entry'][:60]} registers={e['registers']} "
               f"spill_stores={e['spill_stores']} "
@@ -2096,6 +2165,159 @@ def _latent_rows(torch, dev, dtype, peak):
     return flash, decode
 
 
+# flash_attention_bwd on the card: (label, B, S, T, H, K, D, causal, window,
+# dtypes).  olmo-1b's training shape (the train phase's attention), glm4-9b's
+# heads (G 16), D 64 and D 80 under a window of 1024, S = T 1000 (a
+# multiple of neither the 64-row blocks nor the 32-row tiles), non-causal S
+# 760 over T 1000, the --reduced olmo-1b that train-check's CLI run trains
+# (D 32, G 4, f32), and bf16 at D 32 under a window of 40: every (dtype,
+# D) instance of the build runs in some row
+FLASH_BWD = (
+    ("olmo-1b", 8, 1024, 1024, 16, 16, 128, True, None, ("bf16", "f32")),
+    ("glm4-9b", 2, 1024, 1024, 32, 2, 128, True, None, ("bf16",)),
+    ("D64.window", 2, 2048, 2048, 8, 2, 64, True, 1024, ("bf16",)),
+    ("D80.window", 2, 2048, 2048, 8, 2, 80, True, 1024, ("bf16", "f32")),
+    ("ragged", 2, 1000, 1000, 8, 2, 128, True, None, ("bf16", "f32")),
+    ("noncausal", 2, 760, 1000, 16, 16, 64, False, None, ("bf16", "f32")),
+    ("reduced", 8, 64, 64, 4, 1, 32, True, None, ("f32",)),
+    ("D32", 2, 777, 777, 4, 4, 32, True, 40, ("bf16",)),
+)
+# The backward's tolerance: f32 within 2e-4 of each tensor's largest
+# |value|; bf16, whose dq / dk / dv are rounded once from fp32 sums taken
+# in another order than the plain version's, each element within 2^-6 of
+# itself plus 2^-8 of the tensor's largest |value|
+BWD_TOL32 = 2e-4
+BWD_TOL_BF16 = (2.0 ** -6, 2.0 ** -8)
+# the rows at training shapes, whose times add the profiler's device ms
+# (the edge rows time by CUDA events only)
+FLASH_BWD_PROFILED = ("olmo-1b", "glm4-9b", "D64.window", "D80.window")
+# the wrong variants the check must reject
+BWD_WRONG = {"no_causal": "the backward without the causal mask",
+             "causal": "a causal mask where none belongs",
+             "first_head": "dk / dv of the first query head of each group "
+                           "only"}
+
+
+def _bwd_err(torch, got, want, dtype) -> float:
+    """The largest |got - want| over its allowance, over dq, dk and dv
+    (at most 1 passes)."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g, w = g.double(), w.double()
+        big = float(w.abs().max())
+        if dtype == torch.bfloat16:
+            allow = BWD_TOL_BF16[0] * w.abs() + BWD_TOL_BF16[1] * big
+        else:
+            allow = torch.full_like(w, BWD_TOL32 * big)
+        worst = max(worst, float(((g - w).abs()
+                                  / allow.clamp_min(1e-30)).max()))
+    return worst
+
+
+def _flash_bwd_rows(torch, dev):
+    """flash_attention_bwd (three launches: lse and delta, dk / dv, dq)
+    against flash_attention_bwd_plain at ``FLASH_BWD``, on the kernel
+    forward's output and a standard-normal output gradient: within the
+    tolerance, and rejecting the wrong variants (``BWD_WRONG``; the first
+    head's dk / dv only where G > 1).  Each row times the kernel (host and
+    profiler device ms per call), the plain version and SDPA's backward
+    (autograd through ``scaled_dot_product_attention`` at the same inputs,
+    ``is_causal`` where that is the mask, else the mask), beside the
+    bound: five products of 2 D flops per visible (query, key) pair and
+    head, at the dtype's peak, against q, k, v, o, do, dq, dk and dv moved
+    once; the rows of ``FLASH_BWD_PROFILED`` also by profiler device time,
+    in all and per pass."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(34)
+    rows = []
+    for label, B, S, T, H, K, D, causal, window, tags in FLASH_BWD:
+        G = H // K
+        for tag in tags:
+            dtype = torch.bfloat16 if tag == "bf16" else torch.float32
+            peak = BF16_OPS_PER_S if tag == "bf16" else FP32_OPS_PER_S
+            esz = torch.finfo(dtype).bits // 8
+
+            def randn(*shape):
+                return torch.randn(shape, generator=gen,
+                                   device=dev).to(dtype)
+
+            q, k, v, do = (randn(B, S, H, D), randn(B, T, K, D),
+                           randn(B, T, K, D), randn(B, S, H, D))
+            o = flash_attention(q, k, v, causal=causal, window=window)
+            kw = dict(causal=causal, window=window)
+            got = flash_attention_bwd(q, k, v, o, do, **kw)
+            want = flash_attention_bwd_plain(q, k, v, o, do, **kw)
+            torch.cuda.synchronize()
+            name = (f"flash_attention_bwd {label} {tag} B={B} S={S} T={T} "
+                    f"H={H} K={K} D={D} causal={causal} window={window}")
+            err = _bwd_err(torch, got, want, dtype)
+            _require(err <= 1.0, f"{name}: max error {err:.3g} of the "
+                     "tolerance")
+            check = dict(max_abs_err=_max_abs(got, want), tol_ratio=err)
+            del got
+            wrongs = {("no_causal" if causal else "causal"):
+                      flash_attention_bwd_plain(q, k, v, o, do,
+                                                causal=not causal,
+                                                window=window)}
+            if G > 1:
+                first = flash_attention_bwd_plain(
+                    q[:, :, ::G].contiguous(), k, v,
+                    o[:, :, ::G].contiguous(), do[:, :, ::G].contiguous(),
+                    **kw)
+                wrongs["first_head"] = (want[0],) + tuple(first[1:])
+            for wname, wrong in wrongs.items():
+                werr = _bwd_err(torch, wrong, want, dtype)
+                _require(werr > 1.0, f"{name}: the check cannot see "
+                         f"{BWD_WRONG[wname]} ({werr:.3g})")
+                check[f"{wname}_ratio"] = werr
+            del wrongs, want
+            mask, pairs = _flash_pairs(torch, dev, S, T, causal, window)
+            nbytes = (4 * B * S * H * D + 4 * B * T * K * D) * esz
+            bound, by = _bound_ms(nbytes, 10.0 * D * pairs * B * H, peak)
+
+            def kern():
+                return flash_attention_bwd(q, k, v, o, do, **kw)
+
+            qT, kT, vT = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                          for t in (q, k, v))
+            doT = do.transpose(1, 2).contiguous()
+            sdpa_kw = ({"is_causal": True} if causal and window is None
+                       and S == T else {"attn_mask": mask})
+            outT = F.scaled_dot_product_attention(qT, kT, vT,
+                                                  enable_gqa=True, **sdpa_kw)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(outT, (qT, kT, vT), doT,
+                                           retain_graph=True)
+
+            profiled = label in FLASH_BWD_PROFILED
+            passes = _device_times(torch, kern, 3) if profiled else {}
+            pass_ms = {p: sum(v for k, v in passes.items()
+                              if f"flash_bwd_{p}_kernel" in k)
+                       for p in ("stats", "kv", "q")}
+            rows.append(dict(
+                shape=f"{label}.B{B}.S{S}" + (f".T{T}" if T != S else "")
+                + f".H{H}.K{K}.D{D}.{tag}.w{window}"
+                + ("" if causal else ".noncausal"),
+                kernel_instance=f"{tag}.D{D}", **check,
+                ms=_cuda_ms(torch, kern, 3),
+                device_ms=sum(passes.values()) if passes else None,
+                device_ms_by_pass=pass_ms if passes else None,
+                plain_ms=_cuda_ms(torch, lambda: flash_attention_bwd_plain(
+                    q, k, v, o, do, **kw), 2),
+                library_ms=_cuda_ms(torch, sdpa_bwd, 3),
+                library_device_ms=(_device_ms(torch, sdpa_bwd, 3)
+                                   if profiled else None),
+                bound_ms=bound, bound_by=by))
+            del q, k, v, o, do, qT, kT, vT, doT, outT, mask
+            torch.cuda.empty_cache()
+    return rows
+
+
 def phase_model_kernels(np, torch, dev):
     """flash_attention, decode_attention, ssd_scan and the latent (MLA)
     kernels against their plain versions at the serving paths' shapes, in
@@ -2242,6 +2464,8 @@ def phase_model_kernels(np, torch, dev):
             rows["ssd_scan"].append(_ssd_serving_row(torch, randn, dtype,
                                                      label, nh, n))
         rows["ssd_scan"] += _ssd_domain_rows(torch, dev, dtype)
+    # flash_attention's backward, olmo-1b's training shape in bf16 first
+    rows["flash_attention_bwd"] = _flash_bwd_rows(torch, dev)
 
     out = {}
     for name, shapes in rows.items():
@@ -3181,9 +3405,305 @@ def phase_serve_mla_check(np, torch, kernels, dev):
     torch.cuda.empty_cache()
 
 
+# train: olmo-1b at full width and depth (16 layers, bf16) through
+# make_train_step, fed by PlacementAwarePipeline, AdamW at lr 3e-4, accum
+# 1, no checkpoint (a full-width one is ~12 GB of npz).  A remat step runs
+# every block's forward twice: 2 L forward launches (all on the wgmma
+# instance) and L backward calls a step.
+TRAIN = dict(arch="olmo-1b", batch=8, seq=1024, steps=8, lr=3e-4,
+             num_shards=64, num_hosts=8)
+# train-check: (a) olmo-1b at full width and 2 layers in f32, one
+# gradient on the kernel route against the plain route; (b) the train
+# CLI at the reference e2e test's arguments (reduced olmo-1b, f32, D 32)
+TRAIN_CHECK = dict(layers=2, batch=4, seq=1024)
+TRAIN_CLI = ("--arch", "olmo-1b", "--reduced", "--steps", "60", "--batch",
+             "8", "--seq", "64", "--lr", "3e-3", "--ckpt-every", "25",
+             "--inject-failures")
+
+
+def train_launches(cfg, steps: int) -> dict:
+    """flash_attention's forward launches and backward calls in ``steps``
+    remat train steps of ``cfg`` (one attention a layer)."""
+    return dict(forward=2 * cfg.num_layers * steps,
+                backward=cfg.num_layers * steps)
+
+
+def _no_plain(mod, names):
+    """Swap each ``mod.<name>`` for a function that raises; returns the
+    originals, to restore with ``setattr``."""
+    saved = {n: getattr(mod, n) for n in names}
+
+    def refuse(*_, **__):
+        raise AssertionError("a plain version ran on the card's main path")
+
+    for n in names:
+        setattr(mod, n, refuse)
+    return saved
+
+
+def phase_train(np, torch, kernels, dev):
+    """``make_train_step`` on olmo-1b at full width and depth (``TRAIN``):
+    bf16, random weights from seed 0, batches of the placement-aware
+    pipeline.  Finite losses and grad norms; exactly ``train_launches``
+    flash launches (every forward on the wgmma instance) and no other
+    model kernel; the plain versions swapped for functions that raise.
+    Then one step under torch.profiler (device idle share) and, on the
+    last batch, every layer's wq / wk / wv gradient nonzero."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import PlacementAwarePipeline
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN["arch"])
+    B, S, n = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nparams = sum(t.numel() for t in _leaves(params))
+    opt = adamw(TRAIN["lr"])
+    step, _ = make_train_step(cfg, optimizer=opt)
+    opt_state = opt.init(params)
+    pipe = PlacementAwarePipeline(
+        num_shards=TRAIN["num_shards"], num_hosts=TRAIN["num_hosts"],
+        vocab_size=cfg.vocab_size, batch_size=B, seq_len=S, device=dev)
+
+    def device_batch():
+        b = pipe.next_batch()
+        return {k: torch.from_numpy(b[k]).to(dev)
+                for k in ("tokens", "targets")}
+
+    saved = _no_plain(flash_ops, ("flash_attention_plain",
+                                  "flash_attention_bwd_plain"))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts(kernels)
+        losses, gnorms, walls = [], [], []
+        for _ in range(n):
+            batch = device_batch()
+            t0 = time.perf_counter()
+            params, opt_state, m = step(params, opt_state, batch)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            walls.append(time.perf_counter() - t0)
+        launches = _counts(kernels)
+        backward = kernels["flash_attention"].backward_launches
+        instances = dict(kernels["flash_attention"].instance_launches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        want = train_launches(cfg, n)
+        _require_launches("train", launches, {
+            "flash_attention": want["forward"], "decode_attention": 0,
+            "ssd_scan": 0, "flash_attention_latent": 0,
+            "decode_attention_latent": 0})
+        _require(backward == want["backward"],
+                 f"train: {backward} backward calls, want {want['backward']}")
+        _require(instances == {"wgmma": want["forward"], "fma": 0},
+                 f"train: flash_attention instances {instances}, want every "
+                 "forward on the tensor-core (wgmma) instance")
+        _require(all(math.isfinite(x) for x in losses + gnorms),
+                 f"train: non-finite losses {losses} or grad norms {gnorms}")
+        # one more step under the profiler: the device's busy and idle share
+        batch = device_batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            params, opt_state, m = step(params, opt_state, batch)
+            torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in rows) / 1e6
+        groups = (("flash_bwd", ("flash_bwd",)),
+                  ("flash_fwd", ("flash_attention",)),
+                  ("gemm", ("gemm", "gemv", "nvjet", "xmma", "cutlass")))
+        by_group = {g: 0.0 for g, _ in groups} | {"other": 0.0}
+        for e in rows:
+            g = next((g for g, keys in groups
+                      if any(k in e.key.lower() for k in keys)), "other")
+            by_group[g] += e.self_device_time_total / 1e6
+        # every layer's attention projections get a gradient
+        _, _, grads = loss_and_grads(cfg, params, batch)
+        zero = [(i, w) for i, g in enumerate(grads["blocks"])
+                for w in ("wq", "wk", "wv")
+                if not bool(g["attn"][w].abs().amax() > 0)]
+        _require(not zero, f"train: zero gradients at (layer, weight) {zero}")
+        del grads
+    finally:
+        for name, fn in saved.items():
+            setattr(flash_ops, name, fn)
+    steady = walls[1:]
+    step_ms = 1e3 * sum(steady) / len(steady)
+    print(f"train: {TRAIN['arch']} layers={cfg.num_layers} "
+          f"d_model={cfg.d_model} params={nparams} bf16 init_s={init_s:.2f} "
+          f"adamw lr={TRAIN['lr']} accum=1 batch={B} seq={S} steps={n} "
+          f"losses={[round(x, 4) for x in losses]} "
+          f"grad_norms={[round(x, 4) for x in gnorms]} "
+          f"first_step_ms={1e3 * walls[0]:.1f} step_ms={step_ms:.1f} "
+          f"tokens_per_s={B * S / (step_ms / 1e3):.1f} "
+          f"peak_mem_gb={peak_gb:.3f} "
+          f"profiled_step_s={prof_wall:.3f} device_busy_s={busy:.4f} "
+          f"device_idle_share={1 - busy / prof_wall:.4f} "
+          f"device_idle_share_of_step_ms={1 - busy / (step_ms / 1e3):.4f} "
+          f"device_s_by_group={ {g: round(v, 4) for g, v in by_group.items()} } "
+          f"flash_per_step={launches['flash_attention'] // n} "
+          f"backward_per_step={backward // n} "
+          f"flash_attention_instances={instances} "
+          f"wq_wk_wv_grads=nonzero phase_s={time.perf_counter() - t_phase:.1f}",
+          flush=True)
+    del params, opt_state
+    torch.cuda.empty_cache()
+    return dict(launches={**launches, "flash_attention_bwd": backward},
+                backward=backward)
+
+
+def _refusals(torch, dev):
+    """Each model kernel without a backward raises NotImplementedError on
+    CUDA inputs that require grad."""
+    from repro_torch.kernels.decode_attention.ops import (
+        decode_attention, decode_attention_latent)
+    from repro_torch.kernels.flash_attention.ops import flash_attention_latent
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan
+
+    def t(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    i32 = torch.int32
+    calls = {
+        "ssd_scan": lambda x: ssd_scan(x, t(1, 16, 2), t(2), t(1, 16, 16),
+                                       t(1, 16, 16), chunk=16),
+        "flash_attention_latent": lambda x: flash_attention_latent(
+            x, t(1, 4, 2, 64), t(1, 4, 512), t(1, 4, 64), scale=0.1),
+        "decode_attention": lambda x: decode_attention(
+            x, t(1, 8, 1, 32), t(1, 8, 1, 32), t(1, 8, dtype=i32),
+            t(1, dtype=i32)),
+        "decode_attention_latent": lambda x: decode_attention_latent(
+            x, t(1, 2, 64), t(1, 8, 512), t(1, 8, 64), t(1, 8, dtype=i32),
+            t(1, dtype=i32), scale=0.1),
+    }
+    first = {"ssd_scan": (1, 16, 2, 16), "flash_attention_latent":
+             (1, 4, 2, 512), "decode_attention": (1, 2, 32),
+             "decode_attention_latent": (1, 2, 512)}
+    for name, call in calls.items():
+        x = t(*first[name]).requires_grad_(True)
+        try:
+            call(x)
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"train-check: {name} did not refuse a "
+                             "gradient on the card")
+    return sorted(calls)
+
+
+def phase_train_check(np, torch, kernels, dev):
+    """(a) olmo-1b at full width and ``TRAIN_CHECK["layers"]`` layers in
+    f32 (TF32 off): ``loss_and_grads``, the train step's gradient, on the
+    kernel route (flash forward on the fma instance and the backward
+    kernel) against the plain route (``flash_attention_plain`` under
+    autograd) on the same batch: loss within 1e-5 relative, every gradient
+    leaf within 1e-4 of its largest |value|, no launch on the plain route;
+    then the kernels without a backward refuse a gradient.  (b) ``python
+    -m repro_torch.launch.train`` with ``TRAIN_CLI`` on the card: exit 0,
+    ``improved``, ``event@0: input_host_dead:0`` and a ``step_*``
+    checkpoint."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import attention, init_params
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                              num_layers=TRAIN_CHECK["layers"],
+                              dtype="float32")
+    params = init_params(cfg, seed=1, device=dev)
+    rng = np.random.default_rng(11)
+    B, S = TRAIN_CHECK["batch"], TRAIN_CHECK["seq"]
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 1))).to(
+        dev)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "targets": toks[:, 1:].contiguous()}
+    _zero_counts(kernels)
+    loss, _, grads = loss_and_grads(cfg, params, batch)
+    launches = _counts(kernels)
+    backward = kernels["flash_attention"].backward_launches
+    instances = dict(kernels["flash_attention"].instance_launches)
+    L = cfg.num_layers
+    _require(launches["flash_attention"] == 2 * L and backward == L
+             and instances == {"wgmma": 0, "fma": 2 * L},
+             f"train-check: kernel route launches {launches}, backward "
+             f"{backward}, instances {instances}")
+    _zero_counts(kernels)
+    saved = attention.flash_attention
+    try:
+        attention.flash_attention = flash_attention_plain
+        plain_loss, _, plain_grads = loss_and_grads(cfg, params, batch)
+    finally:
+        attention.flash_attention = saved
+    _require(all(v == 0 for v in _counts(kernels).values())
+             and kernels["flash_attention"].backward_launches == 0,
+             "train-check: the plain route launched a kernel")
+    loss_rel = abs(float(loss) - float(plain_loss)) / abs(float(plain_loss))
+    _require(loss_rel <= 1e-5, f"train-check: loss {float(loss)} against "
+             f"{float(plain_loss)} ({loss_rel:.3g} relative)")
+    worst, worst_at = 0.0, None
+    for (path, g), pg in zip(tree_flatten_with_path(grads),
+                             tree_leaves(plain_grads)):
+        big = float(pg.abs().max())
+        ratio = float((g - pg).abs().max()) / max(big, 1e-30)
+        if ratio > worst:
+            worst, worst_at = ratio, path
+    _require(worst <= 1e-4, f"train-check: gradient {worst_at} off by "
+             f"{worst:.3g} of its largest |value|")
+    del params, grads, plain_grads
+    torch.cuda.empty_cache()
+    refused = _refusals(torch, dev)
+    t_cli = time.perf_counter()
+    ckpt = tempfile.mkdtemp(prefix="train_check_")
+    try:
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI,
+             "--ckpt-dir", ckpt], env=env, capture_output=True, text=True,
+            timeout=300)
+        saved_steps = sorted(d for d in os.listdir(ckpt)
+                             if d.startswith("step_"))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out = proc.stdout
+    _require(proc.returncode == 0 and "(improved)" in out
+             and "event@0: input_host_dead:0" in out and saved_steps,
+             f"train-check: the train CLI (rc {proc.returncode}, "
+             f"checkpoints {saved_steps}):\n{out}\n{proc.stderr[-2000:]}")
+    print(f"train-check: {TRAIN['arch']} full width, layers={L} f32 "
+          f"tf32=off batch={B} seq={S} loss={float(loss):.6f} "
+          f"loss_rel_diff={loss_rel:.3e} (tol 1e-5) "
+          f"grad_max_rel_diff={worst:.3e} at {worst_at} (tol 1e-4) "
+          f"launches={launches} backward={backward} "
+          f"flash_attention_instances={instances} refused={refused}; "
+          f"cli {' '.join(TRAIN_CLI)}: "
+          + " | ".join(line.strip() for line in out.splitlines())
+          + f" checkpoints={saved_steps} cli_s={time.perf_counter() - t_cli:.1f}"
+          f" phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+
+
 def _zero_counts(kernels):
     for fn in kernels.values():
         fn.launches = 0
+        if hasattr(fn, "backward_launches"):
+            fn.backward_launches = 0
         for inst in getattr(fn, "instance_launches", {}):
             fn.instance_launches[inst] = 0
         getattr(fn, "class_launches", {}).clear()
@@ -4476,6 +4996,12 @@ def main(argv=None) -> int:
             phase_serve_profile(np, torch, dev, MLA_ARCH, MLA_LAYERS)
     if "serve-mla-check" in phases:
         phase_serve_mla_check(np, torch, kernels, dev)
+    if "train" in phases:
+        trained = phase_train(np, torch, kernels, dev)
+        launches["flash_attention_bwd"] = trained["backward"]
+        path_launches["train"] = trained["launches"]
+    if "train-check" in phases:
+        phase_train_check(np, torch, kernels, dev)
     if "health" in phases:
         health_runs = phase_health(np, torch, fit_kernels, health_inputs(np))
         path_launches["health"] = {
@@ -4503,6 +5029,11 @@ def main(argv=None) -> int:
                           "src/repro/kernels/lockstep_peel/kernel.py:89"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/kernel.py:94"),
+        # the gradient of the same kernel; the reference differentiates
+        # chunked_attention in jnp (its train_loss)
+        "flash_attention_bwd": (
+            "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/flash_attention/kernel.py:94"),
         "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                              "src/repro/kernels/decode_attention/kernel.py:77"),
         "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
@@ -4542,6 +5073,14 @@ def main(argv=None) -> int:
                                   else decode_instances))
         if name == "ssd_scan":
             report[-1].update(chunk_launches_by_path=ssd_chunks)
+        if name == "flash_attention_bwd":
+            # launches: backward calls on the train path, three kernel
+            # launches each (lse and delta, dk / dv, dq)
+            report[-1].update(computes="jax.vjp of src/repro/models/"
+                              "attention.py:27 chunked_attention, as "
+                              "train_loss differentiates it "
+                              "(src/repro/models/model.py:323)",
+                              launches_per_call=3)
         if name in latent:
             report[-1].update(computes="src/repro/models/attention.py:27 "
                               "chunked_attention, as mla_attention calls it "

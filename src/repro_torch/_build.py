@@ -24,8 +24,8 @@ from pathlib import Path
 __all__ = ["build", "lib", "check", "BUILD_INFO"]
 
 SOURCES = ("span_gain.cu", "cover_rounds.cu", "lockstep_peel.cu",
-           "flash_attention.cu", "decode_attention.cu", "ssd_scan.cu",
-           "mla_attention.cu")
+           "flash_attention.cu", "flash_attention_bwd.cu",
+           "decode_attention.cu", "ssd_scan.cu", "mla_attention.cu")
 HEADERS = ("wgmma.cuh",)   # included by the sources: part of the hash
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -53,6 +53,7 @@ _SIGNATURES = {
     "lockstep_peel_scratch_words": ([_I, _I], _LL),
     "flash_attention_launch": ([_P] * 4 + [_I] * 10 + [_P], _I),
     "flash_attention_wgmma_blocks_per_sm": ([_I], _I),
+    "flash_attention_bwd_launch": ([_P] * 10 + [_I] * 10 + [_P], _I),
     "decode_attention_launch": ([_P] * 8 + [_I] * 9 + [_P], _I),
     "decode_attention_blocks_per_sm": ([_I], _I),
     "decode_attention_head_groups": ([_I], _I),

@@ -15,8 +15,8 @@ import dataclasses
 from typing import Literal
 
 __all__ = [
-    "MoEConfig", "MLAConfig", "SSMConfig", "ModelConfig", "register",
-    "get_config", "list_configs", "reduce_config",
+    "MoEConfig", "MLAConfig", "SSMConfig", "ModelConfig", "ShapeConfig",
+    "SHAPE_GRID", "register", "get_config", "list_configs", "reduce_config",
 ]
 
 
@@ -83,6 +83,14 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
+    def is_subquadratic(self) -> bool:
+        """Can this arch decode at 500k context without a dense KV cache?"""
+        if self.attention == "none":
+            return True
+        if self.attention == "hybrid":
+            return True  # SSM state + (mostly) windowed attention
+        return self.sliding_window is not None
+
     def param_count(self) -> int:
         """Analytic parameter count (embeddings + blocks), the reference's
         formula."""
@@ -145,6 +153,22 @@ class ModelConfig:
 
 
 _REGISTRY: dict[str, ModelConfig] = {}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPE_GRID = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
 
 
 def register(cfg: ModelConfig) -> ModelConfig:

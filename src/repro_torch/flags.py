@@ -69,6 +69,15 @@ MoE (``repro_torch.models.moe``):
 
 * ``moe_cf`` (``cf<x>``): the capacity factor of ``apply_moe`` when the
   caller passes none; ``None`` (the default) leaves the config's.
+
+Training (``repro_torch.launch.steps``):
+
+* ``accum_steps`` (``accum<n>``, default 1): microbatches of a train step,
+  whose gradients are summed in the parameter dtype.
+
+The reference's other training knobs are not here yet: ``mla_decomp`` (the
+decompressed MLA prefill) waits for ROADMAP Queue 1 item 9.8, ``sp`` and
+``sp_attn`` (sequence parallelism) for the mesh, item 9.6.
 """
 
 from __future__ import annotations
@@ -109,6 +118,7 @@ _DEFAULTS = dict(
     scale_workers=1,
     scale_boundary_repair=256,
     moe_cf=None,
+    accum_steps=1,
 )
 
 FLAGS = dict(_DEFAULTS)
@@ -119,11 +129,13 @@ PEEL_BACKENDS = ("vector", "reference", "auto", "device")
 
 
 def set_variant(spec: str):
-    """'peeldevice+spanrounddevice+spanth1000' -> flag settings."""
+    """'peeldevice+spanrounddevice+accum2' -> flag settings."""
     reset()
     for part in filter(None, spec.split("+")):
         if part == "baseline":
             continue
+        elif part.startswith("accum"):
+            FLAGS["accum_steps"] = int(part[len("accum"):])
         elif part.startswith("cf"):
             FLAGS["moe_cf"] = float(part[2:])
         elif part.startswith("spanth"):

@@ -15,13 +15,17 @@ and the model stack's (the serving paths):
 
 A wrapper runs the plain version for CPU tensors and launches the kernel
 for CUDA tensors (or raises); it never falls back from one to the other.
+On CUDA tensors flash_attention is differentiable (its backward is a
+kernel too); the other model kernels have no backward yet and raise
+rather than return a result cut from the autograd graph
+(``refuse_grad``).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["check_same_device", "launch_args"]
+__all__ = ["check_same_device", "launch_args", "refuse_grad"]
 
 
 def check_same_device(*tensors: torch.Tensor) -> torch.device:
@@ -40,3 +44,14 @@ def launch_args(dev: torch.device) -> tuple[int, int]:
     """(device index, current stream handle) for a C launch entry point."""
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     return index, torch.cuda.current_stream(index).cuda_stream
+
+
+def refuse_grad(kernel: str, item: str, *tensors: torch.Tensor) -> None:
+    """Raise NotImplementedError when autograd would need a gradient of
+    ``kernel``, which has no backward on the card: grad mode is on and an
+    input requires grad.  ``item`` says what brings the backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel} has no backward on the card ({item}); run it under "
+            "torch.no_grad(), or on CPU tensors, whose plain version "
+            "autograd differentiates")

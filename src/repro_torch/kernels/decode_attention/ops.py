@@ -45,7 +45,7 @@ import functools
 import torch
 
 from ... import _build
-from .. import check_same_device, launch_args
+from .. import check_same_device, launch_args, refuse_grad
 from ..flash_attention.ops import _check_latent, _check_latent_widths
 
 __all__ = ["decode_attention", "decode_attention_plain", "head_groups",
@@ -154,6 +154,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window must be positive, got {window}")
     if dev.type == "cpu":
         return decode_attention_plain(q, k, v, kv_pos, q_pos, window=window)
+    refuse_grad("decode_attention", "decode serves only: training (ROADMAP "
+                "Queue 1 item 9.5) runs cache-free forwards, and no item "
+                "brings a decode backward", q, k, v)
     g = h // kh
     if d % 8 or d > 128 or g > MAX_GROUP:
         raise ValueError(f"the CUDA kernel takes head_dim a multiple of 8 up "
@@ -232,6 +235,10 @@ def decode_attention_latent(q_lat: torch.Tensor, q_rope: torch.Tensor,
     if dev.type == "cpu":
         return decode_attention_latent_plain(q_lat, q_rope, c_kv, k_rope,
                                              kv_pos, q_pos, scale=scale)
+    refuse_grad("decode_attention_latent", "decode serves only: training "
+                "(ROADMAP Queue 1 item 9.5) runs cache-free forwards, and "
+                "no item brings a decode backward", q_lat, q_rope, c_kv,
+                k_rope)
     _check_latent_widths(q_lat, q_rope)
     out = torch.empty_like(q_lat)
     if out.numel() == 0:

@@ -1,4 +1,5 @@
 """flash_attention kernel package (see ops.py)."""
 
-from .ops import (flash_attention, flash_attention_latent,  # noqa: F401
+from .ops import (flash_attention, flash_attention_bwd,  # noqa: F401
+                  flash_attention_bwd_plain, flash_attention_latent,
                   flash_attention_latent_plain, flash_attention_plain)

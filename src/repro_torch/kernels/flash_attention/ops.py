@@ -17,7 +17,25 @@ q's dtype.
   ``flash_attention.instance_launches`` splits them by the kernel's two
   instances: ``"wgmma"`` (bf16 with head_dim 64, 80 or 128, both
   products on the tensor cores) and ``"fma"`` (f32, and bf16 with
-  head_dim 32, on the CUDA cores).
+  head_dim 32, on the CUDA cores).  On CUDA tensors the call is a
+  ``torch.autograd.Function``: its forward launches the kernel and saves
+  q, k, v and the output (under ``torch.utils.checkpoint`` those of the
+  recomputed forward), its backward runs ``flash_attention_bwd`` on the
+  incoming gradient made contiguous.  On CPU tensors autograd
+  differentiates the plain version as it is.
+
+The backward: given q, k, v, the output o and its gradient do, dq (B, S,
+H, D), dk and dv (B, T, K, D) in q's dtype, fp32 inside: the values of
+autograd through ``flash_attention_plain`` (``delta = rowsum(do * o)``,
+so with a bf16 output the stored o is what it reads).
+
+* ``flash_attention_bwd_plain`` — its closed form in PyTorch ops, one
+  batch row at a time.
+* ``flash_attention_bwd`` — the wrapper: plain version for CPU tensors,
+  the CUDA kernels (``csrc/flash_attention_bwd.cu``: lse and delta, then
+  dk / dv, then dq) for CUDA tensors, with fp32 workspaces for lse and
+  delta from ``torch.empty``.  ``flash_attention.backward_launches``
+  counts its calls (three kernel launches each).
 
 The latent form, for multi-head latent attention's absorbed prefill: query
 rows ``[q_lat ; q_rope]`` (B, S, H, R + Dr), one key head shared by every
@@ -46,9 +64,10 @@ from __future__ import annotations
 import torch
 
 from ... import _build
-from .. import check_same_device, launch_args
+from .. import check_same_device, launch_args, refuse_grad
 
 __all__ = ["flash_attention", "flash_attention_plain", "instance",
+           "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_latent", "flash_attention_latent_plain",
            "latent_instance", "LATENT_WIDTHS", "NEG_INF"]
 
@@ -111,10 +130,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d not in _HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes head_dim in {_HEAD_DIMS}, "
                          f"got {d}")
+    return _FlashAttention.apply(q, k, v, causal, window)
+
+
+def _launch(q, k, v, causal, window) -> torch.Tensor:
+    """The forward kernel on CUDA tensors that ``flash_attention`` has
+    checked."""
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    index, stream = launch_args(dev)
+    index, stream = launch_args(q.device)
     err = _build.lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, s, t, h, kh, d, int(causal), window or 0, _DTYPES[q.dtype],
@@ -126,6 +153,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
+class _FlashAttention(torch.autograd.Function):
+    """The CUDA route of ``flash_attention``: the forward kernel, and
+    ``flash_attention_bwd`` for the gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out = _launch(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
 def instance(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel instance that a launch on these inputs runs (the dispatch
     of ``flash_attention_launch``)."""
@@ -135,6 +181,80 @@ def instance(dtype: torch.dtype, head_dim: int) -> str:
 
 flash_attention.launches = 0
 flash_attention.instance_launches = {"wgmma": 0, "fma": 0}
+flash_attention.backward_launches = 0
+
+
+# --------------------------------------------------------------- backward
+def flash_attention_bwd_plain(q, k, v, o, do, *, causal: bool = True,
+                              window=None):
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = d ** -0.5
+    mask = _mask(s, t, causal, window, q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    for i in range(b):
+        qf = q[i].float().transpose(0, 1)                          # (H, S, D)
+        kf = k[i].float().transpose(0, 1).repeat_interleave(g, 0)  # (H, T, D)
+        vf = v[i].float().transpose(0, 1).repeat_interleave(g, 0)
+        of, dof = (x[i].float().transpose(0, 1) for x in (o, do))
+        sc = torch.matmul(qf, kf.transpose(1, 2)) * scale
+        sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+        m = sc.amax(dim=-1, keepdim=True).clamp_min(-1e4)
+        e = torch.exp(sc - m)
+        p = e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        dp = torch.matmul(dof, vf.transpose(1, 2))
+        ds = p * (dp - (dof * of).sum(dim=-1, keepdim=True))
+        dq[i] = (torch.matmul(ds, kf) * scale).transpose(0, 1).to(q.dtype)
+        dkh = torch.matmul(ds.transpose(1, 2), qf) * scale         # (H, T, D)
+        dvh = torch.matmul(p.transpose(1, 2), dof)
+        dk[i] = dkh.view(kh, g, t, d).sum(1).transpose(0, 1).to(k.dtype)
+        dv[i] = dvh.view(kh, g, t, d).sum(1).transpose(0, 1).to(v.dtype)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window=None):
+    """(dq, dk, dv) of ``flash_attention(q, k, v, causal, window) = o`` at
+    the output gradient ``do`` (B, S, H, D); all five contiguous, of one
+    dtype."""
+    dev = check_same_device(q, k, v, o, do)
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or o.shape != q.shape or do.shape != q.shape:
+        raise ValueError("q, o and do must be (B, S, H, D) and k, v "
+                         "(B, T, K, D)")
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or kh == 0 or h % kh:
+        raise ValueError(f"q {tuple(q.shape)} does not match k "
+                         f"{tuple(k.shape)} (H must be a multiple of K)")
+    if q.dtype not in _DTYPES or any(x.dtype != q.dtype
+                                     for x in (k, v, o, do)):
+        raise TypeError("flash_attention_bwd takes f32 or bf16 inputs of "
+                        "one dtype")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be positive, got {window}")
+    if dev.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                         window=window)
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes head_dim in {_HEAD_DIMS}, "
+                         f"got {d}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
+    delta = torch.empty_like(lse)
+    index, stream = launch_args(dev)
+    err = _build.lib().flash_attention_bwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), b, s, t, h, kh, d, int(causal), window or 0,
+        _DTYPES[q.dtype], index, stream)
+    _build.check(err, "flash_attention_bwd")
+    flash_attention.backward_launches += 1
+    return dq, dk, dv
 
 
 # ---------------------------------------------------------------- latent
@@ -195,6 +315,8 @@ def flash_attention_latent(q_lat: torch.Tensor, q_rope: torch.Tensor,
     if dev.type == "cpu":
         return flash_attention_latent_plain(q_lat, q_rope, c_kv, k_rope,
                                             scale=scale)
+    refuse_grad("flash_attention_latent", "ROADMAP Queue 1 item 9.8 brings "
+                "it, with mla_decomp", q_lat, q_rope, c_kv, k_rope)
     _check_latent_widths(q_lat, q_rope)
     out = torch.empty_like(q_lat)
     if out.numel() == 0:

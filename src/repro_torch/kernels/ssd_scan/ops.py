@@ -40,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from ... import _build
-from .. import check_same_device, launch_args
+from .. import check_same_device, launch_args, refuse_grad
 
 __all__ = ["kernel_takes", "run_chunk", "ssd_scan", "ssd_scan_plain"]
 
@@ -139,6 +139,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise ValueError(f"chunk must be positive, got {chunk}")
     if dev.type == "cpu":
         return ssd_scan_plain(x, dt, a, bmat, cmat, chunk=chunk, h0=h0)
+    refuse_grad("ssd_scan", "ROADMAP Queue 1 item 9.7 brings it", x, dt, a,
+                bmat, cmat, h0)
     if not kernel_takes(p, n, chunk):
         raise ValueError(
             f"the CUDA kernel takes head_dim in {_HEAD_DIMS}, chunk <= "

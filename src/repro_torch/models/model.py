@@ -1,4 +1,4 @@
-"""Full model assembly: init, forward, prefill, decode.
+"""Full model assembly: init, forward, train loss, prefill, decode.
 
 The reference (``models/model.py``) stores parameters layer-stacked and
 scans over them; the port keeps a Python list of per-layer dicts and loops
@@ -28,11 +28,23 @@ from them at every call, as the reference does.
 Cache layout: {"layers": [block cache per layer], "encoder": None, or
 (enc_hidden, enc_pos) for an encoder-decoder: prefill runs the encoder
 once and decode reuses its states}.
+
+Training: ``train_loss`` is the reference's (``models/model.py``
+``train_loss``): the masked-mean cross entropy of the cache-free forward
+with remat, plus ``0.01 lb_loss + 1e-4 z_loss`` summed over an MoE
+model's layers and, with an ``mtp`` group, ``0.3`` times the
+multi-token-prediction loss (one dense block predicts token t + 2 from the
+final-normed hidden state at t and the embedding of token t + 1).
+``remat=True`` runs each decoder block under ``torch.utils.checkpoint``
+(non-reentrant), the counterpart of the reference's per-layer
+``jax.checkpoint``: the block's activations are recomputed in the
+backward, which changes no number.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import device as device_mod
 from . import blocks
@@ -40,7 +52,7 @@ from .layers import (apply_norm, dense_init, embed_lookup, init_embed,
                      init_norm, unembed)
 
 __all__ = ["init_params", "forward", "prefill", "decode_step", "init_cache",
-           "layer_windows"]
+           "layer_windows", "softmax_xent", "train_loss"]
 
 
 def _torch_dtype(cfg) -> torch.dtype:
@@ -166,10 +178,11 @@ def _cross_kv_from(cfg, layer_params, enc_states):
 
 
 def _hidden(cfg, params, tokens, positions, cache, moe_dispatch,
-            frontend_embeds=None):
+            frontend_embeds=None, remat=False):
     """Final-normed hidden states (B, S, d), the updated cache and the MoE
     aux terms summed over the layers (0-d device tensors; empty without
-    MoE layers)."""
+    MoE layers).  ``remat`` (cache-free only) checkpoints each decoder
+    block."""
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32,
@@ -192,9 +205,15 @@ def _hidden(cfg, params, tokens, positions, cache, moe_dispatch,
         lc = cache["layers"][i] if cache is not None else None
         cross_kv = (_cross_kv_from(cfg, lp, enc_states)
                     if enc_states is not None and "cross" in lp else None)
-        x, nc, a = blocks.apply_block(lp, cfg, x, positions, window=w,
-                                      cache=lc, cross_kv=cross_kv,
-                                      moe_dispatch=moe_dispatch)
+        if remat and cache is None:
+            x, nc, a = checkpoint(
+                blocks.apply_block, lp, cfg, x, positions, window=w,
+                cross_kv=cross_kv, moe_dispatch=moe_dispatch,
+                use_reentrant=False)
+        else:
+            x, nc, a = blocks.apply_block(lp, cfg, x, positions, window=w,
+                                          cache=lc, cross_kv=cross_kv,
+                                          moe_dispatch=moe_dispatch)
         new_layers.append(nc)
         for key, v in a.items():
             aux[key] = aux[key] + v if key in aux else v
@@ -209,15 +228,63 @@ def _head(params):
 
 
 def forward(cfg, params, tokens, *, positions=None, frontend_embeds=None,
-            cache=None, moe_dispatch=None, return_aux=False):
+            cache=None, moe_dispatch=None, return_aux=False, remat=False):
     """Returns (logits fp32 (B, S, V), new_cache), and the summed MoE aux
     terms third with ``return_aux``.  ``frontend_embeds`` (B, F, d): a
     VLM's patches or an encoder-decoder's frames (which it needs unless
-    ``cache`` holds the encoder states)."""
+    ``cache`` holds the encoder states).  ``remat`` checkpoints each
+    decoder block of a cache-free forward."""
     h, new_cache, aux = _hidden(cfg, params, tokens, positions, cache,
-                                moe_dispatch, frontend_embeds)
+                                moe_dispatch, frontend_embeds, remat)
     logits = unembed(_head(params), h)
     return (logits, new_cache, aux) if return_aux else (logits, new_cache)
+
+
+def softmax_xent(logits, targets, mask=None):
+    """Mean cross entropy of fp32 logits (B, S, V) at int targets (B, S);
+    with a mask (B, S), the mean over the masked positions (at least one).
+    The reference picks the target's logit by a one-hot product; a gather
+    picks the same value."""
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, targets[..., None].long())[..., 0]
+    nll = lse - picked
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()
+
+
+def train_loss(cfg, params, batch, *, moe_dispatch=None):
+    """(loss, metrics) of ``batch``: tokens (B, S), targets (B, S),
+    optional frontend (B, F, d) and mask (B, S).  Metrics are 0-d tensors:
+    ``xent``, ``lb_loss`` / ``z_loss`` for an MoE model, ``mtp_loss`` with
+    an ``mtp`` group, and ``loss``."""
+    h, _, aux = _hidden(cfg, params, batch["tokens"], None, None,
+                        moe_dispatch, batch.get("frontend"), remat=True)
+    head = _head(params)
+    loss = softmax_xent(unembed(head, h), batch["targets"],
+                        batch.get("mask"))
+    metrics = {"xent": loss}
+    if cfg.moe:
+        zero = torch.zeros((), dtype=torch.float32, device=h.device)
+        lb, z = aux.get("lb_loss", zero), aux.get("z_loss", zero)
+        loss = loss + 0.01 * lb + 1e-4 * z
+        metrics.update(lb_loss=lb, z_loss=z)
+    if cfg.mtp_depth and "mtp" in params:
+        mtp = params["mtp"]
+        emb_next = embed_lookup(params["embed"], batch["targets"])
+        mtp_in = torch.cat([h, emb_next.to(h.dtype)], dim=-1) @ mtp["proj"]
+        b, s = mtp_in.shape[:2]
+        pos = torch.arange(s, dtype=torch.int32,
+                           device=mtp_in.device).expand(b, s)
+        mh, _, _ = blocks.apply_block(mtp["block"], cfg, mtp_in, pos)
+        mh = apply_norm(cfg.norm, mtp["norm"], mh)
+        mtp_loss = softmax_xent(unembed(head, mh[:, :-1]),
+                                batch["targets"][:, 1:])
+        loss = loss + 0.3 * mtp_loss
+        metrics["mtp_loss"] = mtp_loss
+    metrics["loss"] = loss
+    return loss, metrics
 
 
 def prefill(cfg, params, batch, *, max_len=None, moe_dispatch=None,

@@ -759,10 +759,11 @@ def test_phase_order_puts_the_moe_phases_before_health():
     phases = chip_smoke.PHASES
     assert phases.index("serve-ssm-check") + 1 == phases.index("serve-moe")
     assert phases.index("serve-moe") + 1 == phases.index("serve-moe-check")
-    # then the MLA phases, then health
+    # then the MLA phases, then the training ones, then health
     i = phases.index("serve-moe-check")
-    assert phases[i:i + 4] == ("serve-moe-check", "serve-mla",
-                               "serve-mla-check", "health")
+    assert phases[i:i + 6] == ("serve-moe-check", "serve-mla",
+                               "serve-mla-check", "train", "train-check",
+                               "health")
     assert phases[-2:] == ("health", "scale")
 
 
@@ -1135,3 +1136,137 @@ def test_frontend_bounds():
     T = chip_smoke.SERVE["prefill_len"] + chip_smoke.SERVE["decode_len"]
     assert 2 * 8 * T * K * D * 2 / hbm * 1e3 == pytest.approx(0.0207,
                                                               abs=1e-4)
+
+
+# ------------------------------------------------------ the training slice
+def test_phase_order_puts_the_training_phases_after_serving():
+    phases = chip_smoke.PHASES
+    i = phases.index("serve-mla-check")
+    assert phases[i + 1:] == ("train", "train-check", "health", "scale")
+
+
+def test_train_phase_is_olmo_at_full_width_and_depth():
+    import dataclasses
+
+    from repro.configs import get_config as ref_get_config
+    from repro_torch.configs import get_config
+
+    train = chip_smoke.TRAIN
+    # the reference's trainer test trains olmo-1b (tests/test_e2e_train.py)
+    assert train["arch"] == "olmo-1b"
+    assert "olmo-1b" in (ROOT / "tests" / "test_e2e_train.py").read_text()
+    cfg = get_config(train["arch"])
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        ref_get_config(train["arch"]))
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, cfg.dtype) == (16, 2048, 16, 16, 128,
+                                                  "bfloat16")
+    assert (train["batch"], train["seq"], train["steps"], train["lr"]) == (
+        8, 1024, 8, 3e-4)
+    # a remat step runs each block's forward twice and its backward once
+    assert chip_smoke.train_launches(cfg, 1) == dict(forward=32, backward=16)
+    assert chip_smoke.train_launches(cfg, train["steps"]) == dict(
+        forward=256, backward=128)
+    check = chip_smoke.TRAIN_CHECK
+    assert check == dict(layers=2, batch=4, seq=1024)
+
+
+def test_train_cli_runs_the_reference_e2e_arguments():
+    text = (ROOT / "tests" / "test_e2e_train.py").read_text()
+    args = re.findall(r'"(--[a-z-]+)"(?:, "([^"-][^"]*)")?', text.split(
+        "def test_serve_driver")[0])
+    want = []
+    for flag, value in args:
+        if flag != "--ckpt-dir":
+            want += [flag] + ([value] if value else [])
+    assert list(chip_smoke.TRAIN_CLI) == want
+    assert "--device" not in chip_smoke.TRAIN_CLI   # the card, by default
+
+
+def test_flash_backward_rows_sit_at_the_configs_shapes():
+    from repro.configs import get_config as ref_get_config
+    from repro.configs import reduce_config as ref_reduce_config
+
+    rows = {r[0]: r[1:] for r in chip_smoke.FLASH_BWD}
+    olmo, glm4 = ref_get_config("olmo-1b"), ref_get_config("glm4-9b")
+    train = chip_smoke.TRAIN
+    assert rows["olmo-1b"] == (train["batch"], train["seq"], train["seq"],
+                               olmo.num_heads, olmo.num_kv_heads,
+                               olmo.resolved_head_dim, True, None,
+                               ("bf16", "f32"))
+    assert rows["glm4-9b"][3:6] == (glm4.num_heads, glm4.num_kv_heads,
+                                    glm4.resolved_head_dim) == (32, 2, 128)
+    for label, d in (("D64.window", 64), ("D80.window", 80)):
+        b, s, t, h, k, dd, causal, window, _ = rows[label]
+        assert dd == d and causal and window == 1024 < s == t
+    assert rows["ragged"][1] == rows["ragged"][2] == 1000
+    _, _, frames, _, n_prefill = \
+        chip_smoke.FRONTEND_CHECKS["serve-encdec-check"]
+    assert rows["noncausal"][1:3] == (n_prefill, frames) == (760, 1000)
+    assert rows["noncausal"][6] is False
+    red = ref_reduce_config(olmo, dtype="float32")
+    cli = chip_smoke.TRAIN_CLI
+    batch, seq = (int(cli[cli.index(f) + 1]) for f in ("--batch", "--seq"))
+    assert rows["reduced"] == (batch, seq, seq, red.num_heads,
+                               red.num_kv_heads, red.resolved_head_dim,
+                               True, None, ("f32",))
+    assert red.num_heads // red.num_kv_heads == 4
+    # every (dtype, D) instance of the backward runs in some row
+    ran = {(dt, r[6]) for r in chip_smoke.FLASH_BWD for dt in r[9]}
+    assert {(dt, d) for _, dt, d in chip_smoke.BWD_INSTANCES} == ran
+
+
+def test_flash_backward_bound_at_olmos_shape():
+    import torch
+
+    B, S, T, H, K, D = chip_smoke.FLASH_BWD[0][1:7]
+    mask, pairs = chip_smoke._flash_pairs(torch, "cpu", S, T, True, None)
+    assert pairs == S * (S + 1) / 2
+    nbytes = (4 * B * S * H * D + 4 * B * T * K * D) * 2
+    assert nbytes == pytest.approx(268e6, rel=2e-3)
+    ms, by = chip_smoke._bound_ms(nbytes, 10.0 * D * pairs * B * H,
+                                  chip_smoke.BF16_OPS_PER_S)
+    # five products of 2 B H S T D / 2 flops: ~85.9 GFLOP at 989 TFLOP/s
+    assert 10.0 * D * pairs * B * H == pytest.approx(85.9e9, rel=2e-3)
+    assert by == "operations" and ms == pytest.approx(0.0869, abs=1e-4)
+    assert nbytes / chip_smoke.HBM_BYTES_PER_S * 1e3 == pytest.approx(
+        0.080, abs=1e-3)
+
+
+def test_backward_tolerances_and_build_instances():
+    import torch
+
+    assert chip_smoke.BWD_TOL32 == 2e-4
+    assert chip_smoke.BWD_TOL_BF16 == (2.0 ** -6, 2.0 ** -8)
+    want = torch.tensor([1.0, -0.5, 0.0])
+    assert chip_smoke._bwd_err(torch, [want], [want], torch.float32) == 0.0
+    off = want + torch.tensor([0.0, 0.0, 2e-4])
+    assert chip_smoke._bwd_err(torch, [off], [want],
+                               torch.float32) == pytest.approx(1.0)
+    # bf16: 2^-6 of the element plus 2^-8 of the largest
+    off = want + torch.tensor([2.0 ** -6 + 2.0 ** -8, 0.0, 0.0])
+    assert chip_smoke._bwd_err(torch, [off], [want],
+                               torch.bfloat16) == pytest.approx(1.0)
+    assert set(chip_smoke.BWD_WRONG) == {"no_causal", "causal", "first_head"}
+    assert len(chip_smoke.BWD_INSTANCES) == 24
+    assert chip_smoke._bwd_instance(
+        "_ZN12_GLOBAL__N_119flash_bwd_kv_kernelI13__nv_bfloat16Li80ELi4EEEv"
+        "PKT_") == ("kv", "bf16", 80)
+    assert chip_smoke._bwd_instance(
+        "_ZN12_GLOBAL__N_122flash_bwd_stats_kernelIfLi32ELi1EEEvPKT_") == (
+        "stats", "f32", 32)
+    assert chip_smoke._attention_instance(
+        "_ZN12_GLOBAL__N_118flash_bwd_q_kernelIfLi32ELi1EEEv") is None
+
+
+def test_the_backward_source_is_built():
+    from repro_torch import _build
+
+    assert "flash_attention_bwd.cu" in _build.SOURCES
+    args, res = _build._SIGNATURES["flash_attention_bwd_launch"]
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    sig = re.search(r'extern "C" int flash_attention_bwd_launch\(([^)]*)\)',
+                    src).group(1)
+    params = [p.strip() for p in sig.split(",")]
+    assert len(params) == len(args) == 21
+    assert [("*" in p) for p in params] == [a is _build._P for a in args]

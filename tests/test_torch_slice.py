@@ -148,6 +148,14 @@ def test_port_imports_neither_jax_nor_the_reference():
         "logits, _ = forward(cfg, init_params(cfg, device='cpu'),\n"
         "                    torch.zeros((1, 40), dtype=torch.long))\n"
         "assert logits.shape == (1, 40, cfg.vocab_size)\n"
+        "import repro_torch.launch.train, repro_torch.checkpoint\n"
+        "import repro_torch.data, repro_torch.optim, repro_torch.runtime\n"
+        "from repro_torch.launch.steps import loss_and_grads\n"
+        "cfg = reduce_config(get_config('olmo-1b'), dtype='float32')\n"
+        "z = torch.zeros((1, 8), dtype=torch.long)\n"
+        "loss, _, _ = loss_and_grads(cfg, init_params(cfg, device='cpu'),\n"
+        "                            {'tokens': z, 'targets': z})\n"
+        "assert bool(torch.isfinite(loss))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith(('jax.', 'jaxlib'))\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"

@@ -28,9 +28,13 @@ Phases, each printed on a line of its own:
                  instances (``MLA_INSTANCES``: the bf16 prefill and decode
                  on the tensor-core kernel, the f32 prefill and decode on
                  the CUDA cores) and requires no spill in the tensor-core
-                 ones; and of flash_attention's backward (three passes, f32
-                 and bf16, D 32, 64, 80 and 128: ``BWD_INSTANCES``, each of
-                 which the build must make).
+                 ones; and of flash_attention's backward
+                 (``BWD_INSTANCES``, each of which the build must make: the
+                 delta pass in f32 and bf16, and the dk / dv and dq passes
+                 of ``BWD_DISPATCH``, on the tensor cores for bf16 at D 64,
+                 80 and 128, with their blocks per SM and shared memory,
+                 no spill allowed; on the CUDA cores for f32 at D 32, 64,
+                 80 and 128 and bf16 at D 32).
 2. kernels     — hold each kernel against its plain PyTorch version on the
                  card and time kernel, plain version, library call (where
                  one PyTorch call computes the same function) and the
@@ -124,8 +128,13 @@ Phases, each printed on a line of its own:
                  takes D 576 / Dv 512 and record what the others say.  Every
                  flash and every decode instance the build made must run
                  in some row, and the wrapper's head groups must be the
-                 source's.  flash_attention's backward (dq, dk, dv from q,
-                 k, v, the kernel forward's output and a standard-normal
+                 source's.  Every flash row also runs the launch that
+                 stores lse (``flash_attention_lse``, as training's
+                 forward): its output must equal the serving launch's and
+                 its lse the plain version's within ``LSE_TOL``, and the
+                 check must reject the lse of the other causality.
+                 flash_attention's backward (dq, dk, dv from q, k, v, the
+                 kernel forward's output and lse, and a standard-normal
                  output gradient) against flash_attention_bwd_plain at
                  ``FLASH_BWD``: olmo-1b's training shape (B 8, S = T 1024,
                  H = K 16, D 128) in bf16 and f32, glm4-9b's heads (H 32,
@@ -137,7 +146,10 @@ Phases, each printed on a line of its own:
                  of the largest; each check must reject the backward
                  without the causal mask (with it, in the non-causal row)
                  and, where G > 1, dk / dv of the first query head of each
-                 group only.  Its rows time the kernel, the plain version
+                 group only; each call must run the instance of
+                 ``BWD_DISPATCH`` (bf16 at D 64, 80, 128 ``wgmma``, the
+                 rest ``fma``).  Its rows time the kernel (the training
+                 shapes also per pass: delta, kv, q), the plain version
                  and SDPA's backward (``library_ms``) beside the bound.
 3. fit-stress  — ``Simulator(64, 50).run(lmbr_stress_workload(seed=0), lmbr,
                  seed=0, max_moves=1200)`` on the card with the dense peel
@@ -318,7 +330,9 @@ Phases, each printed on a line of its own:
                  after the first, tokens/s, peak memory, the device's idle
                  share over one more profiled step; exactly 2 x 16 flash
                  forward launches a step (all on the wgmma instance) and
-                 16 backward calls (``train_launches``), no other model
+                 16 backward calls (``train_launches``), all on the wgmma
+                 instance, each reading the lse that its forward stored;
+                 no serving phase stores lse; no other model
                  kernel, no plain version (each is swapped for a function
                  that raises); finite losses and grad norms; every layer's
                  wq, wk and wv gradient nonzero.
@@ -326,7 +340,8 @@ Phases, each printed on a line of its own:
                  off: the train step's gradient (``loss_and_grads``) on the
                  kernel route against the plain route on the card (loss
                  within 1e-5 relative, every gradient leaf within 1e-4 of
-                 its largest |value|, no launch on the plain route); ssd_scan,
+                 its largest |value|, every forward and backward call on
+                 the fma instance, no launch on the plain route); ssd_scan,
                  the latent kernels and decode refuse a gradient
                  (NotImplementedError); (b) ``python -m
                  repro_torch.launch.train`` with the reference e2e test's
@@ -1007,20 +1022,41 @@ def _attention_instance(entry: str):
             int(m.group(3)))
 
 
+# the tensor-core flash instances: D 64 (hymba-1.5b), 128 (glm4-9b, olmo-1b,
+# nemotron-4-15b) and 80 (h2o-danube-1.8b); none may spill
+WGMMA_HEAD_DIMS = (64, 128, 80)
+
+
 def _bwd_instance(entry: str):
-    """(pass, dtype, D) of a flash_attention_bwd kernel's mangled name
-    (flash_bwd_{stats,kv,q}_kernel<T, D, TPR>); None for any other."""
-    m = re.search(r"flash_bwd_(stats|kv|q)_kernelI(13__nv_bfloat16|f)"
-                  r"Li(\d+)E", entry)
+    """(pass, dtype, D, instance) of a flash_attention_bwd kernel's mangled
+    name: ("delta", dtype, None, None) for flash_bwd_delta_kernel<T>, (kv
+    or q, dtype, D, "fma") for the CUDA-core flash_bwd_{kv,q}_kernel<T, D,
+    TPR>, (kv or q, "bf16", D, "wgmma") for the tensor-core
+    flash_bwd_{kv,q}_wgmma_kernel<D>; None for any other."""
+    if m := re.search(r"flash_bwd_delta_kernelI(13__nv_bfloat16|f)E",
+                      entry):
+        return ("delta", "bf16" if m.group(1) != "f" else "f32", None,
+                None)
+    if m := re.search(r"flash_bwd_(kv|q)_wgmma_kernelILi(\d+)E", entry):
+        return (m.group(1), "bf16", int(m.group(2)), "wgmma")
+    m = re.search(r"flash_bwd_(kv|q)_kernelI(13__nv_bfloat16|f)Li(\d+)E",
+                  entry)
     if not m:
         return None
     return (m.group(1), "bf16" if m.group(2) != "f" else "f32",
-            int(m.group(3)))
+            int(m.group(3)), "fma")
 
 
-# the backward's instances: three passes, two dtypes, four head dims
-BWD_INSTANCES = tuple((p, dt, d) for p in ("stats", "kv", "q")
-                      for dt in ("f32", "bf16") for d in (32, 64, 80, 128))
+# the backward's dispatch: (dtype, D) -> the instance of its dk / dv and
+# dq passes, as the forward's (bf16 at D 64, 80 and 128 on the tensor
+# cores); the delta pass has one instance per dtype
+BWD_DISPATCH = {(dt, d): ("wgmma" if dt == "bf16" and d in WGMMA_HEAD_DIMS
+                          else "fma")
+                for dt in ("f32", "bf16") for d in (32, 64, 80, 128)}
+BWD_INSTANCES = (
+    tuple(("delta", dt, None, None) for dt in ("f32", "bf16"))
+    + tuple((p, dt, d, inst) for (dt, d), inst in BWD_DISPATCH.items()
+            for p in ("kv", "q")))
 
 
 def _wgmma_instance(entry: str):
@@ -1030,9 +1066,6 @@ def _wgmma_instance(entry: str):
     return ("flash", "bf16", int(m.group(1))) if m else None
 
 
-# the tensor-core flash instances: D 64 (hymba-1.5b), 128 (glm4-9b, olmo-1b,
-# nemotron-4-15b) and 80 (h2o-danube-1.8b); none may spill
-WGMMA_HEAD_DIMS = (64, 128, 80)
 # the CUDA-core instances of the dense configs: flash in f32 at D 128 and
 # 80 (serve-dense-check), and the decode blocks of 8 (glm4's G 16 in two
 # groups), 6, 4 and 1 query heads
@@ -1124,13 +1157,24 @@ def phase_build(_build):
     # flash_attention's backward: every instance built
     bwd = {_bwd_instance(e["entry"]): e for e in entries
            if _bwd_instance(e["entry"])}
-    _require(sorted(bwd) == sorted(BWD_INSTANCES),
+    _require(set(bwd) == set(BWD_INSTANCES),
              f"build: ptxas reports flash_attention_bwd instances "
-             f"{sorted(bwd)}, want {sorted(BWD_INSTANCES)}")
+             f"{sorted(bwd, key=str)}, want {BWD_INSTANCES}")
+    # the tensor-core passes' blocks per SM and dynamic shared memory
+    lib = _build.lib()
+    bwd_blocks = {(p, d): (
+        lib.flash_attention_bwd_wgmma_blocks_per_sm(d, p == "q"),
+        lib.flash_attention_bwd_wgmma_smem_bytes(d, p == "q"))
+        for p, _, d, inst in BWD_INSTANCES if inst == "wgmma"}
     bwd_line = ", ".join(
-        f"{p} {dt} D {d} registers={bwd[p, dt, d]['registers']} "
-        f"spills={bwd[p, dt, d]['spill_stores']}/"
-        f"{bwd[p, dt, d]['spill_loads']}" for p, dt, d in BWD_INSTANCES)
+        f"{p} {dt}{'' if d is None else f' D {d}'}"
+        f"{'' if inst is None else f' {inst}'} "
+        f"registers={bwd[p, dt, d, inst]['registers']} "
+        f"spills={bwd[p, dt, d, inst]['spill_stores']}/"
+        f"{bwd[p, dt, d, inst]['spill_loads']}"
+        + (f" blocks_per_sm={bwd_blocks[p, d][0]} "
+           f"smem_bytes={bwd_blocks[p, d][1]}" if inst == "wgmma" else "")
+        for p, dt, d, inst in BWD_INSTANCES)
     tc_line = ", ".join(
         f"D {n} registers={tc[k]['registers']} spills="
         f"{tc[k]['spill_stores']}/{tc[k]['spill_loads']} "
@@ -1152,12 +1196,16 @@ def phase_build(_build):
               f"spill_stores={e['spill_stores']} "
               f"spill_loads={e['spill_loads']}")
     for inst, e in [*tc.items(), *((i, att[i]) for i in DENSE_NO_SPILL),
-                    *((i, mla[i]) for i in MLA_NO_SPILL)]:
+                    *((i, mla[i]) for i in MLA_NO_SPILL),
+                    *((i, e) for i, e in bwd.items() if i[3] == "wgmma")]:
         _require(e["spill_stores"] == 0 and e["spill_loads"] == 0,
                  f"build: the instance {inst} spills "
                  f"({e['spill_stores']} / {e['spill_loads']} bytes)")
     for d, n in blocks.items():
         _require(n >= 1, f"build: the D {d} tensor-core flash instance "
+                 f"fits no block on an SM ({n})")
+    for (p, d), (n, _) in bwd_blocks.items():
+        _require(n >= 1, f"build: the D {d} tensor-core backward {p} pass "
                  f"fits no block on an SM ({n})")
     # the instances the kernels phase must run: the tensor-core flash ones
     # under the same (kernel, dtype, D) keys as the CUDA-core ones
@@ -1437,6 +1485,30 @@ def _attention_check(torch, label, dtype, got, want, plain32, unmasked,
     return out
 
 
+# The forward's lse against its plain version: each element within
+# LSE_TOL[1] + LSE_TOL[0] |want| (fp32 both; the kernel sums the scores and
+# the exponentials in another order), and the check must reject the lse of
+# the other causality
+LSE_TOL = (1e-5, 1e-4)
+
+
+def _lse_err(torch, got, want) -> float:
+    """The largest |got - want| over its allowance (at most 1 passes)."""
+    w = want.double()
+    allow = LSE_TOL[1] + LSE_TOL[0] * w.abs()
+    return float(((got.double() - w).abs() / allow).max())
+
+
+def _lse_check(torch, label, got, want, wrong) -> dict:
+    err = _lse_err(torch, got, want)
+    _require(err <= 1.0, f"{label}: lse off by {err:.3g} of its tolerance")
+    werr = _lse_err(torch, wrong, want)
+    _require(werr > 1.0, f"{label}: the lse check cannot see the lse of "
+             f"the other causality ({werr:.3g})")
+    return dict(lse_max_abs_err=float((got - want).abs().max()),
+                lse_tol_ratio=err, lse_wrong_ratio=werr)
+
+
 def _flash_pairs(torch, dev, S, T, causal, window):
     """(visible (query, key) mask or None when every pair is visible, the
     number of visible pairs) of one (batch, head)."""
@@ -1457,12 +1529,15 @@ def _flash_rows(torch, randn, dev, dtype, peak, B, S, H, K, D,
     """flash_attention at (B, S, T (default S), H, K, D) in the global and
     window-1024 layers (or ``windows``), causal or not: the check against
     the plain version (a non-causal row must also reject the causal
-    variant) and the times, kernel and SDPA (with no mask where every pair
-    is visible) each also as profiler device time per call."""
+    variant); the launch that stores lse (``flash_attention_lse``) must
+    give the same output and its lse must pass ``_lse_check``; and the
+    times, kernel and SDPA (with no mask where every pair is visible) each
+    also as profiler device time per call."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_plain, instance)
+        flash_attention, flash_attention_lse, flash_attention_lse_plain,
+        flash_attention_plain, instance)
 
     T = S if T is None else T
     esz = torch.finfo(dtype).bits // 8
@@ -1473,23 +1548,30 @@ def _flash_rows(torch, randn, dev, dtype, peak, B, S, H, K, D,
     wants, rows = {}, []
     for window in windows:
         got = flash_attention(q, k, v, causal=causal, window=window)
-        wants[window] = want = flash_attention_plain(
-            q, k, v, causal=causal, window=window)
+        # the launch that stores lse, as training's forward runs it
+        lse_out, lse = flash_attention_lse(q, k, v, causal=causal,
+                                           window=window)
+        want, want_lse = flash_attention_lse_plain(q, k, v, causal=causal,
+                                                   window=window)
+        wants[window] = want
+        other, wrong_lse = flash_attention_lse_plain(
+            q, k, v, causal=not causal, window=window)
         plain32 = (flash_attention_plain(q.float(), k.float(), v.float(),
                                          causal=causal, window=window)
                    if dtype == torch.bfloat16 else None)
         if causal:
             wrong, name = (wants[None] if window else None), "no_window"
         else:
-            wrong = flash_attention_plain(q, k, v, causal=True,
-                                          window=window)
-            name = "causal"
+            wrong, name = other, "causal"
         torch.cuda.synchronize()
-        check = _attention_check(
-            torch, f"flash_attention {label}{tag} S={S} T={T} D={D} "
-            f"causal={causal} window={window}", dtype, got, want, plain32,
-            wrong, name)
-        del got, plain32, wrong
+        row = (f"flash_attention {label}{tag} S={S} T={T} D={D} "
+               f"causal={causal} window={window}")
+        check = _attention_check(torch, row, dtype, got, want, plain32,
+                                 wrong, name)
+        _require(torch.equal(lse_out, got),
+                 f"{row}: the launch that stores lse gave another output")
+        check.update(_lse_check(torch, row, lse, want_lse, wrong_lse))
+        del got, plain32, wrong, other, lse_out, lse, want_lse, wrong_lse
         mask, pairs = _flash_pairs(torch, dev, S, T, causal, window)
         nbytes = (2 * B * S * H * D + 2 * B * T * K * D) * esz
         bound, by = _bound_ms(nbytes, 4.0 * D * pairs * B * H, peak)
@@ -2215,22 +2297,25 @@ def _bwd_err(torch, got, want, dtype) -> float:
 
 
 def _flash_bwd_rows(torch, dev):
-    """flash_attention_bwd (three launches: lse and delta, dk / dv, dq)
-    against flash_attention_bwd_plain at ``FLASH_BWD``, on the kernel
-    forward's output and a standard-normal output gradient: within the
+    """flash_attention_bwd (three launches: delta, dk / dv, dq) against
+    flash_attention_bwd_plain at ``FLASH_BWD``, on the output and lse of
+    the kernel forward (``flash_attention_lse``; its lse must pass
+    ``_lse_check``) and a standard-normal output gradient: within the
     tolerance, and rejecting the wrong variants (``BWD_WRONG``; the first
-    head's dk / dv only where G > 1).  Each row times the kernel (host and
-    profiler device ms per call), the plain version and SDPA's backward
-    (autograd through ``scaled_dot_product_attention`` at the same inputs,
-    ``is_causal`` where that is the mask, else the mask), beside the
-    bound: five products of 2 D flops per visible (query, key) pair and
-    head, at the dtype's peak, against q, k, v, o, do, dq, dk and dv moved
-    once; the rows of ``FLASH_BWD_PROFILED`` also by profiler device time,
-    in all and per pass."""
+    head's dk / dv only where G > 1); each call must run its dtype and
+    head dim's instance (``BWD_DISPATCH``).  Each row times the kernel
+    (host and profiler device ms per call), the plain version and SDPA's
+    backward (autograd through ``scaled_dot_product_attention`` at the
+    same inputs, ``is_causal`` where that is the mask, else the mask),
+    beside the bound: five products of 2 D flops per visible (query, key)
+    pair and head, at the dtype's peak, against q, k, v, o, do, dq, dk and
+    dv moved once; the rows of ``FLASH_BWD_PROFILED`` also by profiler
+    device time, in all and per pass (delta, kv, q)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_lse, flash_attention_lse_plain)
 
     gen = torch.Generator(device=dev).manual_seed(34)
     rows = []
@@ -2247,17 +2332,28 @@ def _flash_bwd_rows(torch, dev):
 
             q, k, v, do = (randn(B, S, H, D), randn(B, T, K, D),
                            randn(B, T, K, D), randn(B, S, H, D))
-            o = flash_attention(q, k, v, causal=causal, window=window)
             kw = dict(causal=causal, window=window)
-            got = flash_attention_bwd(q, k, v, o, do, **kw)
-            want = flash_attention_bwd_plain(q, k, v, o, do, **kw)
-            torch.cuda.synchronize()
+            o, lse = flash_attention_lse(q, k, v, **kw)
             name = (f"flash_attention_bwd {label} {tag} B={B} S={S} T={T} "
                     f"H={H} K={K} D={D} causal={causal} window={window}")
+            lse_check = _lse_check(
+                torch, name, lse, flash_attention_lse_plain(q, k, v, **kw)[1],
+                flash_attention_lse_plain(q, k, v, causal=not causal,
+                                          window=window)[1])
+            inst = BWD_DISPATCH[tag, D]
+            before = dict(flash_attention.backward_instance_launches)
+            got = flash_attention_bwd(q, k, v, o, do, lse, **kw)
+            ran = {i: n - before[i] for i, n in
+                   flash_attention.backward_instance_launches.items()}
+            _require(ran == {"wgmma": 0, "fma": 0} | {inst: 1},
+                     f"{name}: backward instances {ran}, want one {inst}")
+            want = flash_attention_bwd_plain(q, k, v, o, do, **kw)
+            torch.cuda.synchronize()
             err = _bwd_err(torch, got, want, dtype)
             _require(err <= 1.0, f"{name}: max error {err:.3g} of the "
                      "tolerance")
-            check = dict(max_abs_err=_max_abs(got, want), tol_ratio=err)
+            check = dict(max_abs_err=_max_abs(got, want), tol_ratio=err,
+                         **lse_check)
             del got
             wrongs = {("no_causal" if causal else "causal"):
                       flash_attention_bwd_plain(q, k, v, o, do,
@@ -2280,7 +2376,7 @@ def _flash_bwd_rows(torch, dev):
             bound, by = _bound_ms(nbytes, 10.0 * D * pairs * B * H, peak)
 
             def kern():
-                return flash_attention_bwd(q, k, v, o, do, **kw)
+                return flash_attention_bwd(q, k, v, o, do, lse, **kw)
 
             qT, kT, vT = (t.transpose(1, 2).contiguous().requires_grad_(True)
                           for t in (q, k, v))
@@ -2297,13 +2393,13 @@ def _flash_bwd_rows(torch, dev):
             profiled = label in FLASH_BWD_PROFILED
             passes = _device_times(torch, kern, 3) if profiled else {}
             pass_ms = {p: sum(v for k, v in passes.items()
-                              if f"flash_bwd_{p}_kernel" in k)
-                       for p in ("stats", "kv", "q")}
+                              if f"flash_bwd_{p}_" in k)
+                       for p in ("delta", "kv", "q")}
             rows.append(dict(
                 shape=f"{label}.B{B}.S{S}" + (f".T{T}" if T != S else "")
                 + f".H{H}.K{K}.D{D}.{tag}.w{window}"
                 + ("" if causal else ".noncausal"),
-                kernel_instance=f"{tag}.D{D}", **check,
+                kernel_instance=f"{tag}.D{D}", instance=inst, **check,
                 ms=_cuda_ms(torch, kern, 3),
                 device_ms=sum(passes.values()) if passes else None,
                 device_ms_by_pass=pass_ms if passes else None,
@@ -2313,7 +2409,7 @@ def _flash_bwd_rows(torch, dev):
                 library_device_ms=(_device_ms(torch, sdpa_bwd, 3)
                                    if profiled else None),
                 bound_ms=bound, bound_by=by))
-            del q, k, v, o, do, qT, kT, vT, doT, outT, mask
+            del q, k, v, o, lse, do, qT, kT, vT, doT, outT, mask
             torch.cuda.empty_cache()
     return rows
 
@@ -2515,6 +2611,8 @@ def _measured_serve(torch, kernels, label, cfg, params, requests,
     res = serve(cfg, params, requests=requests, batch=SERVE["batch"],
                 prefill_len=SERVE["prefill_len"], decode_len=decode_len)
     res["launches"] = _counts(kernels)
+    _require(kernels["flash_attention"].lse_launches == 0,
+             f"{label}: a serving flash launch stored lse")
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     res["prefill_tok_per_s"] = res["prefill_tokens"] / res["prefill_s"]
     res["decode_ms_per_step"] = (res["decode_s"] * 1e3
@@ -2702,6 +2800,8 @@ def _hold_routes(torch, kernels, label, cfg, params, tokens, n_prefill,
     _zero_counts(kernels)
     kern = _route_run(torch, cfg, params, tokens, n_prefill, frontend)
     launches = _counts(kernels)
+    _require(kernels["flash_attention"].lse_launches == 0,
+             f"{label}: a serving flash launch stored lse")
     chunks = dict(kernels["ssd_scan"].chunk_launches)
     instances = {name: dict(fn.instance_launches)
                  for name, fn in kernels.items()
@@ -3480,6 +3580,7 @@ def phase_train(np, torch, kernels, dev):
                 for k in ("tokens", "targets")}
 
     saved = _no_plain(flash_ops, ("flash_attention_plain",
+                                  "flash_attention_lse_plain",
                                   "flash_attention_bwd_plain"))
     try:
         torch.cuda.reset_peak_memory_stats()
@@ -3495,6 +3596,9 @@ def phase_train(np, torch, kernels, dev):
         launches = _counts(kernels)
         backward = kernels["flash_attention"].backward_launches
         instances = dict(kernels["flash_attention"].instance_launches)
+        bwd_instances = dict(
+            kernels["flash_attention"].backward_instance_launches)
+        lse_launches = kernels["flash_attention"].lse_launches
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         want = train_launches(cfg, n)
         _require_launches("train", launches, {
@@ -3506,6 +3610,13 @@ def phase_train(np, torch, kernels, dev):
         _require(instances == {"wgmma": want["forward"], "fma": 0},
                  f"train: flash_attention instances {instances}, want every "
                  "forward on the tensor-core (wgmma) instance")
+        _require(bwd_instances == {"wgmma": want["backward"], "fma": 0},
+                 f"train: backward instances {bwd_instances}, want every "
+                 "backward call on the tensor-core (wgmma) instance")
+        # every backward reads the lse of its recomputed forward
+        _require(want["backward"] <= lse_launches <= want["forward"],
+                 f"train: {lse_launches} forward launches stored lse, want "
+                 f"{want['backward']} to {want['forward']}")
         _require(all(math.isfinite(x) for x in losses + gnorms),
                  f"train: non-finite losses {losses} or grad norms {gnorms}")
         # one more step under the profiler: the device's busy and idle share
@@ -3554,13 +3665,15 @@ def phase_train(np, torch, kernels, dev):
           f"device_s_by_group={ {g: round(v, 4) for g, v in by_group.items()} } "
           f"flash_per_step={launches['flash_attention'] // n} "
           f"backward_per_step={backward // n} "
+          f"lse_launches_per_step={lse_launches / n:g} "
           f"flash_attention_instances={instances} "
+          f"backward_instances={bwd_instances} "
           f"wq_wk_wv_grads=nonzero phase_s={time.perf_counter() - t_phase:.1f}",
           flush=True)
     del params, opt_state
     torch.cuda.empty_cache()
     return dict(launches={**launches, "flash_attention_bwd": backward},
-                backward=backward)
+                backward=backward, backward_instances=bwd_instances)
 
 
 def _refusals(torch, dev):
@@ -3640,11 +3753,14 @@ def phase_train_check(np, torch, kernels, dev):
     launches = _counts(kernels)
     backward = kernels["flash_attention"].backward_launches
     instances = dict(kernels["flash_attention"].instance_launches)
+    bwd_instances = dict(kernels["flash_attention"].backward_instance_launches)
     L = cfg.num_layers
     _require(launches["flash_attention"] == 2 * L and backward == L
-             and instances == {"wgmma": 0, "fma": 2 * L},
+             and instances == {"wgmma": 0, "fma": 2 * L}
+             and bwd_instances == {"wgmma": 0, "fma": L},
              f"train-check: kernel route launches {launches}, backward "
-             f"{backward}, instances {instances}")
+             f"{backward}, instances {instances}, backward instances "
+             f"{bwd_instances}")
     _zero_counts(kernels)
     saved = attention.flash_attention
     try:
@@ -3692,7 +3808,8 @@ def phase_train_check(np, torch, kernels, dev):
           f"loss_rel_diff={loss_rel:.3e} (tol 1e-5) "
           f"grad_max_rel_diff={worst:.3e} at {worst_at} (tol 1e-4) "
           f"launches={launches} backward={backward} "
-          f"flash_attention_instances={instances} refused={refused}; "
+          f"flash_attention_instances={instances} "
+          f"backward_instances={bwd_instances} refused={refused}; "
           f"cli {' '.join(TRAIN_CLI)}: "
           + " | ".join(line.strip() for line in out.splitlines())
           + f" checkpoints={saved_steps} cli_s={time.perf_counter() - t_cli:.1f}"
@@ -3702,10 +3819,12 @@ def phase_train_check(np, torch, kernels, dev):
 def _zero_counts(kernels):
     for fn in kernels.values():
         fn.launches = 0
-        if hasattr(fn, "backward_launches"):
-            fn.backward_launches = 0
-        for inst in getattr(fn, "instance_launches", {}):
-            fn.instance_launches[inst] = 0
+        for count in ("backward_launches", "lse_launches"):
+            if hasattr(fn, count):
+                setattr(fn, count, 0)
+        for by in ("instance_launches", "backward_instance_launches"):
+            for inst in getattr(fn, by, {}):
+                getattr(fn, by)[inst] = 0
         getattr(fn, "class_launches", {}).clear()
         getattr(fn, "chunk_launches", {}).clear()
 
@@ -4861,6 +4980,7 @@ def main(argv=None) -> int:
     path_launches = {}   # phase -> kernel -> launches on that path
     ssd_chunks = {}      # phase -> ssd_scan launches by the chunk run
     flash_instances = latent_instances = decode_instances = None
+    bwd_instances = None
     ssd_built = att_built = None
     if "build" in phases:
         ssd_built, att_built = phase_build(_build)
@@ -4999,6 +5119,7 @@ def main(argv=None) -> int:
     if "train" in phases:
         trained = phase_train(np, torch, kernels, dev)
         launches["flash_attention_bwd"] = trained["backward"]
+        bwd_instances = trained["backward_instances"]
         path_launches["train"] = trained["launches"]
     if "train-check" in phases:
         phase_train_check(np, torch, kernels, dev)
@@ -5075,12 +5196,17 @@ def main(argv=None) -> int:
             report[-1].update(chunk_launches_by_path=ssd_chunks)
         if name == "flash_attention_bwd":
             # launches: backward calls on the train path, three kernel
-            # launches each (lse and delta, dk / dv, dq)
+            # launches each (delta, dk / dv, dq); ms is the bf16 (wgmma)
+            # instance's, which train runs
             report[-1].update(computes="jax.vjp of src/repro/models/"
                               "attention.py:27 chunked_attention, as "
                               "train_loss differentiates it "
                               "(src/repro/models/model.py:323)",
-                              launches_per_call=3)
+                              launches_per_call=3,
+                              instance=row.get("instance"),
+                              instance_launches=bwd_instances,
+                              device_ms_by_pass=row.get(
+                                  "device_ms_by_pass"))
         if name in latent:
             report[-1].update(computes="src/repro/models/attention.py:27 "
                               "chunked_attention, as mla_attention calls it "

@@ -51,9 +51,11 @@ _SIGNATURES = {
                               _P], _I),
     "lockstep_peel_uses_shared_memory": ([_I, _I], _I),
     "lockstep_peel_scratch_words": ([_I, _I], _LL),
-    "flash_attention_launch": ([_P] * 4 + [_I] * 10 + [_P], _I),
+    "flash_attention_launch": ([_P] * 5 + [_I] * 10 + [_P], _I),
     "flash_attention_wgmma_blocks_per_sm": ([_I], _I),
     "flash_attention_bwd_launch": ([_P] * 10 + [_I] * 10 + [_P], _I),
+    "flash_attention_bwd_wgmma_blocks_per_sm": ([_I, _I], _I),
+    "flash_attention_bwd_wgmma_smem_bytes": ([_I, _I], _I),
     "decode_attention_launch": ([_P] * 8 + [_I] * 9 + [_P], _I),
     "decode_attention_blocks_per_sm": ([_I], _I),
     "decode_attention_head_groups": ([_I], _I),

@@ -13,7 +13,11 @@
 // p == 0.  Inputs and output are in the model layout, q (B, S, H, D) and
 // k / v (B, T, K, D), read in place (no transposes): one query row is D
 // contiguous elements, so is one key row.  fp32 math, output rounded to
-// nearest in the storage type.  Two instances:
+// nearest in the storage type.  When the caller passes an fp32 (B, H, S)
+// buffer lse (training: flash_attention_bwd reads it), each row also
+// stores lse[b, h, i] = max(m, -1e4) + log(max(l, 1e-30)), m the clamped
+// row max and l the sum of exp(s - m); a null lse (serving) stores
+// nothing and leaves every other instruction as it was.  Two instances:
 //
 // * bf16 with D = 64 (every launch of the hymba serving path), 80
 //   (h2o-danube-1.8b) or 128 (glm4-9b, olmo-1b, nemotron-4-15b):
@@ -107,8 +111,8 @@ template <typename T, int D, int TPR>
 __global__ void __launch_bounds__(kRows * TPR)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ out,
-                           int S, int Tk, int H, int K, int causal, int window,
-                           float scale) {
+                           float* __restrict__ lse, int S, int Tk, int H,
+                           int K, int causal, int window, float scale) {
   static_assert(D % (4 * TPR) == 0, "a thread holds whole 16-byte pieces");
   constexpr int DT = D / TPR;     // dims of a row that one thread holds
   constexpr int NP = DT / 4;      // its 16-byte pieces
@@ -220,6 +224,10 @@ __global__ void __launch_bounds__(kRows * TPR)
     const float inv = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int c = 0; c < DT; ++c) store_f(orow + dim(c), acc[c] / inv);
+    // the TPR threads of a row hold the same m and l
+    if (lse != nullptr && part == 0)
+      lse[((long long)b * H + h) * S + i] =
+          fmaxf(m, -1e4f) + logf(fmaxf(l, 1e-30f));
   }
 }
 
@@ -227,12 +235,12 @@ __global__ void __launch_bounds__(kRows * TPR)
 // would not fit one thread's registers beside the scores
 template <typename T, int D, int TPR = (D > 64 ? 2 : 1)>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int Tk, int H, int K, int causal, int window,
-                   cudaStream_t stream) {
+                   float* lse, int B, int S, int Tk, int H, int K, int causal,
+                   int window, cudaStream_t stream) {
   dim3 grid((S + kRows - 1) / kRows, H, B);
   flash_attention_kernel<T, D, TPR><<<grid, kRows * TPR, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, S, Tk, H, K, causal,
-      window, 1.0f / sqrtf((float)D));
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, S, Tk, H, K,
+      causal, window, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
@@ -276,8 +284,9 @@ __global__ void __launch_bounds__(kTcThreads, TcShape<D>::MIN_BLOCKS)
     flash_attention_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                                  const __nv_bfloat16* __restrict__ k,
                                  const __nv_bfloat16* __restrict__ v,
-                                 __nv_bfloat16* __restrict__ out, int S,
-                                 int Tk, int H, int K, int causal, int window,
+                                 __nv_bfloat16* __restrict__ out,
+                                 float* __restrict__ lse, int S, int Tk,
+                                 int H, int K, int causal, int window,
                                  float scale) {
   constexpr int NSUB = TcShape<D>::NSUB;
   constexpr int PIECES = TcShape<D>::PIECES;
@@ -490,6 +499,12 @@ __global__ void __launch_bounds__(kTcThreads, TcShape<D>::MIN_BLOCKS)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = fmaxf(l0, 1e-30f);
   const float inv1 = fmaxf(l1, 1e-30f);
+  // a row's m and l are the same in the four threads of its quad
+  if (lse != nullptr && (lane & 3) == 0) {
+    float* lrow = lse + ((long long)b * H + h) * S;
+    if (row0 < S) lrow[row0] = fmaxf(m0, -1e4f) + logf(inv0);
+    if (row1 < S) lrow[row1] = fmaxf(m1, -1e4f) + logf(inv1);
+  }
   __nv_bfloat16* ob = out + (long long)b * S * q_stride + h * D + col;
 #pragma unroll
   for (int u = 0; u < NSUB; ++u) {
@@ -522,8 +537,8 @@ cudaError_t set_wgmma_attributes() {
 
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* out, int B, int S, int Tk, int H, int K,
-                         int causal, int window, cudaStream_t stream) {
+                         void* out, float* lse, int B, int S, int Tk, int H,
+                         int K, int causal, int window, cudaStream_t stream) {
   // 16-byte copies and 4-byte stores (a row of D 80 is 160 bytes)
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
     return cudaErrorMisalignedAddress;
@@ -533,8 +548,8 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
   flash_attention_wgmma_kernel<D>
       <<<grid, kTcThreads, TcShape<D>::SMEM, stream>>>(
           (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-          (const __nv_bfloat16*)v, (__nv_bfloat16*)out, S, Tk, H, K, causal,
-          window, 1.0f / sqrtf((float)D));
+          (const __nv_bfloat16*)v, (__nv_bfloat16*)out, lse, S, Tk, H, K,
+          causal, window, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
@@ -555,39 +570,41 @@ int wgmma_blocks_per_sm() {
 // wrapper checks); anything else returns cudaErrorInvalidValue.  bf16 with
 // D 64, 80 or 128 runs the tensor-core instance, which needs 16-byte
 // aligned pointers; f32, and bf16 with D 32, run the CUDA-core instance.
+// lse: null, or an fp32 (B, H, S) buffer that receives each row's lse.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int S,
-                                      int Tk, int H, int K, int D, int causal,
-                                      int window, int dtype, int device,
-                                      void* stream) {
+                                      const void* v, void* out, void* lse_p,
+                                      int B, int S, int Tk, int H, int K,
+                                      int D, int causal, int window,
+                                      int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (K <= 0 || H % K || B <= 0 || S <= 0 || Tk < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  float* lse = (float*)lse_p;
   if (dtype == 0 && D == 32)
-    return (int)launch<float, 32>(q, k, v, out, B, S, Tk, H, K, causal,
+    return (int)launch<float, 32>(q, k, v, out, lse, B, S, Tk, H, K, causal,
                                   window, st);
   if (dtype == 0 && D == 64)
-    return (int)launch<float, 64>(q, k, v, out, B, S, Tk, H, K, causal,
+    return (int)launch<float, 64>(q, k, v, out, lse, B, S, Tk, H, K, causal,
                                   window, st);
   if (dtype == 0 && D == 80)
-    return (int)launch<float, 80>(q, k, v, out, B, S, Tk, H, K, causal,
+    return (int)launch<float, 80>(q, k, v, out, lse, B, S, Tk, H, K, causal,
                                   window, st);
   if (dtype == 0 && D == 128)
-    return (int)launch<float, 128>(q, k, v, out, B, S, Tk, H, K, causal,
+    return (int)launch<float, 128>(q, k, v, out, lse, B, S, Tk, H, K, causal,
                                    window, st);
   if (dtype == 1 && D == 32)
-    return (int)launch<__nv_bfloat16, 32>(q, k, v, out, B, S, Tk, H, K,
+    return (int)launch<__nv_bfloat16, 32>(q, k, v, out, lse, B, S, Tk, H, K,
                                           causal, window, st);
   if (dtype == 1 && D == 64)
-    return (int)launch_wgmma<64>(q, k, v, out, B, S, Tk, H, K, causal,
+    return (int)launch_wgmma<64>(q, k, v, out, lse, B, S, Tk, H, K, causal,
                                  window, st);
   if (dtype == 1 && D == 80)
-    return (int)launch_wgmma<80>(q, k, v, out, B, S, Tk, H, K, causal,
+    return (int)launch_wgmma<80>(q, k, v, out, lse, B, S, Tk, H, K, causal,
                                  window, st);
   if (dtype == 1 && D == 128)
-    return (int)launch_wgmma<128>(q, k, v, out, B, S, Tk, H, K, causal,
+    return (int)launch_wgmma<128>(q, k, v, out, lse, B, S, Tk, H, K, causal,
                                   window, st);
   return (int)cudaErrorInvalidValue;
 }

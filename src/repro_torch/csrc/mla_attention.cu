@@ -542,13 +542,6 @@ __device__ __forceinline__ int ring_slot(int n, int j) {
   return (kPieces * n + j) % kSlots;
 }
 
-// 4 bytes, zero-filled when !valid (the source address is then not read)
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
 // Accumulator fragments (fp32), for thread lt of a warpgroup, warp
 // w = lt / 32, lane l: d[4 j + 2 half + c] holds row 16 w + l / 4 + 8 half,
 // column 8 j + 2 (l % 4) + c.  grid: prefill B x row tiles, one

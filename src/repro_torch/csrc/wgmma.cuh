@@ -1,6 +1,7 @@
 // wgmma.cuh: the pieces of Hopper's warpgroup matrix multiply and of the
 // cp.async staging that the tensor-core attention kernels share
-// (flash_attention.cu's flash_attention_wgmma_kernel, mla_attention.cu's
+// (flash_attention.cu's flash_attention_wgmma_kernel, flash_attention_bwd.cu's
+// flash_bwd_kv_wgmma_kernel and flash_bwd_q_wgmma_kernel, mla_attention.cu's
 // mla_attention_wgmma_kernel).  Tiles in shared memory are 64 rows of 128
 // bytes (64 bf16) in the 128-byte swizzle, from a 1024-aligned base.
 #pragma once
@@ -24,6 +25,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0));
+}
+// 4 bytes, zero-filled when !valid (the source address is then not read)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

@@ -2,4 +2,5 @@
 
 from .ops import (flash_attention, flash_attention_bwd,  # noqa: F401
                   flash_attention_bwd_plain, flash_attention_latent,
-                  flash_attention_latent_plain, flash_attention_plain)
+                  flash_attention_latent_plain, flash_attention_lse,
+                  flash_attention_lse_plain, flash_attention_plain)

@@ -9,33 +9,56 @@ clamped at -1e4 (so a fully masked row gives zeros, never exp(0)) and the
 divisor at 1e-30, as the reference kernel does.  Output (B, S, H, D) in
 q's dtype.
 
+The forward's lse, fp32 (B, H, S): ``lse[b, h, i] = max(m, -1e4) +
+log(max(l, 1e-30))`` with m the row's clamped max and l the sum of
+``exp(s - m)`` (-1e4 + log(1e-30) on a row that sees no key), what the
+backward needs to form the softmax weights again.
+
 * ``flash_attention_plain`` — the plain PyTorch version: the same masked,
-  clamped softmax, one batch row at a time.
+  clamped softmax, one batch row at a time; ``flash_attention_lse_plain``
+  returns (output, lse).
 * ``flash_attention`` — the wrapper: plain version for CPU tensors, the
   CUDA kernel (``csrc/flash_attention.cu``) for CUDA tensors.
   ``flash_attention.launches`` counts kernel launches, and
   ``flash_attention.instance_launches`` splits them by the kernel's two
   instances: ``"wgmma"`` (bf16 with head_dim 64, 80 or 128, both
   products on the tensor cores) and ``"fma"`` (f32, and bf16 with
-  head_dim 32, on the CUDA cores).  On CUDA tensors the call is a
-  ``torch.autograd.Function``: its forward launches the kernel and saves
-  q, k, v and the output (under ``torch.utils.checkpoint`` those of the
-  recomputed forward), its backward runs ``flash_attention_bwd`` on the
-  incoming gradient made contiguous.  On CPU tensors autograd
-  differentiates the plain version as it is.
+  head_dim 32, on the CUDA cores); ``flash_attention.lse_launches``
+  counts the launches that stored lse.  On CUDA tensors the call is a
+  ``torch.autograd.Function``: when grad mode is on and an input needs a
+  gradient, its forward gives the kernel an lse buffer from
+  ``torch.empty`` and saves q, k, v, the output and lse (under
+  ``torch.utils.checkpoint`` those of the recomputed forward); otherwise
+  (serving) the kernel stores no lse.  Its backward runs
+  ``flash_attention_bwd`` on the incoming gradient made contiguous.  On
+  CPU tensors autograd differentiates the plain version as it is.
+* ``flash_attention_lse`` — (output, lse) of one forward launch that
+  stores lse, no gradient; plain version for CPU tensors.
 
-The backward: given q, k, v, the output o and its gradient do, dq (B, S,
-H, D), dk and dv (B, T, K, D) in q's dtype, fp32 inside: the values of
-autograd through ``flash_attention_plain`` (``delta = rowsum(do * o)``,
-so with a bf16 output the stored o is what it reads).
+The backward: given q, k, v, the output o, its gradient do and the
+forward's lse, dq (B, S, H, D), dk and dv (B, T, K, D) in q's dtype, fp32
+inside: the values of autograd through ``flash_attention_plain``
+(``delta = rowsum(do * o)``, so with a bf16 output the stored o is what
+it reads).
 
 * ``flash_attention_bwd_plain`` — its closed form in PyTorch ops, one
-  batch row at a time.
-* ``flash_attention_bwd`` — the wrapper: plain version for CPU tensors,
-  the CUDA kernels (``csrc/flash_attention_bwd.cu``: lse and delta, then
-  dk / dv, then dq) for CUDA tensors, with fp32 workspaces for lse and
-  delta from ``torch.empty``.  ``flash_attention.backward_launches``
-  counts its calls (three kernel launches each).
+  batch row at a time; it forms the softmax from the scores itself.
+* ``flash_attention_bwd`` — the wrapper: plain version for CPU tensors
+  (lse, when given, is checked and not needed), the CUDA kernels
+  (``csrc/flash_attention_bwd.cu``: delta, then dk / dv, then dq) for
+  CUDA tensors, which read lse and raise without it; delta's fp32
+  workspace comes from ``torch.empty``.  bf16 at head_dim 64, 80 and 128
+  runs dk / dv and dq on the tensor cores (``"wgmma"``: a warpgroup per
+  64 keys or 64 query rows, every product on ``wgmma``, P and dS rounded
+  once to bf16), f32 and bf16 at head_dim 32 on the CUDA cores
+  (``"fma"``); the instance is ``instance(dtype, head_dim)``, as the
+  forward's.  ``flash_attention.backward_launches`` counts its calls
+  (three kernel launches each), and
+  ``flash_attention.backward_instance_launches`` the same calls by
+  instance.  What bounds it: at olmo-1b's training shape the five
+  products' operations (0.087 ms at the bf16 peak); the ``wgmma``
+  passes do seven products, S and dP twice, so that every key and query
+  row has one owner and no atomics.
 
 The latent form, for multi-head latent attention's absorbed prefill: query
 rows ``[q_lat ; q_rope]`` (B, S, H, R + Dr), one key head shared by every
@@ -67,6 +90,7 @@ from ... import _build
 from .. import check_same_device, launch_args, refuse_grad
 
 __all__ = ["flash_attention", "flash_attention_plain", "instance",
+           "flash_attention_lse", "flash_attention_lse_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_latent", "flash_attention_latent_plain",
            "latent_instance", "LATENT_WIDTHS", "NEG_INF"]
@@ -89,12 +113,14 @@ def _mask(s: int, t: int, causal: bool, window, device) -> torch.Tensor:
     return mask
 
 
-def flash_attention_plain(q, k, v, *, causal: bool = True, window=None):
+def _plain(q, k, v, causal, window, with_lse: bool):
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     g = h // kh
     mask = _mask(s, t, causal, window, q.device)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     for i in range(b):
         qf = q[i].float().transpose(0, 1)                         # (H, S, D)
         kf = k[i].float().transpose(0, 1).repeat_interleave(g, 0)  # (H, T, D)
@@ -103,15 +129,23 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, window=None):
         sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
         m = sc.amax(dim=-1, keepdim=True).clamp_min(-1e4)
         p = torch.exp(sc - m)
-        o = torch.matmul(p, vf) / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-        out[i] = o.transpose(0, 1).to(q.dtype)
-    return out
+        l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        out[i] = (torch.matmul(p, vf) / l).transpose(0, 1).to(q.dtype)
+        if with_lse:
+            lse[i] = (m + torch.log(l))[..., 0]
+    return out, lse
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window=None) -> torch.Tensor:
-    """Attention of q (B, S, H, D) over k / v (B, T, K, D), positions
-    0..S-1 and 0..T-1; f32 or bf16, one dtype for all three."""
+def flash_attention_plain(q, k, v, *, causal: bool = True, window=None):
+    return _plain(q, k, v, causal, window, False)[0]
+
+
+def flash_attention_lse_plain(q, k, v, *, causal: bool = True, window=None):
+    return _plain(q, k, v, causal, window, True)
+
+
+def _check_forward(q, k, v, window) -> torch.device:
+    """The forward's checks of q, k, v and window; returns their device."""
     dev = check_same_device(q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError("q must be (B, S, H, D) and k, v (B, T, K, D)")
@@ -125,17 +159,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         "dtype")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
-    if dev.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    if d not in _HEAD_DIMS:
+    if dev.type != "cpu" and d not in _HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes head_dim in {_HEAD_DIMS}, "
                          f"got {d}")
-    return _FlashAttention.apply(q, k, v, causal, window)
+    return dev
 
 
-def _launch(q, k, v, causal, window) -> torch.Tensor:
-    """The forward kernel on CUDA tensors that ``flash_attention`` has
-    checked."""
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window=None) -> torch.Tensor:
+    """Attention of q (B, S, H, D) over k / v (B, T, K, D), positions
+    0..S-1 and 0..T-1; f32 or bf16, one dtype for all three."""
+    if _check_forward(q, k, v, window).type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    # Function.forward runs with grad mode off, and its needs_input_grad
+    # does not say whether grad mode was on: decide here
+    keep_lse = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q, k, v))
+    return _FlashAttention.apply(q, k, v, causal, window, keep_lse)
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window=None):
+    """(output, lse (B, H, S) fp32) of ``flash_attention``'s forward; no
+    gradient flows through it."""
+    if _check_forward(q, k, v, window).type == "cpu":
+        return flash_attention_lse_plain(q, k, v, causal=causal,
+                                         window=window)
+    lse = _lse_buffer(q)
+    return _launch(q, k, v, causal, window, lse), lse
+
+
+def _lse_buffer(q) -> torch.Tensor:
+    b, s, h, _ = q.shape
+    return torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+
+
+def _launch(q, k, v, causal, window, lse=None) -> torch.Tensor:
+    """The forward kernel on CUDA tensors that ``_check_forward`` has
+    checked; it stores each row's lse into ``lse`` when one is given."""
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -144,12 +205,15 @@ def _launch(q, k, v, causal, window) -> torch.Tensor:
     index, stream = launch_args(q.device)
     err = _build.lib().flash_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         b, s, t, h, kh, d, int(causal), window or 0, _DTYPES[q.dtype],
         index, stream,
     )
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
     flash_attention.instance_launches[instance(q.dtype, d)] += 1
+    if lse is not None:
+        flash_attention.lse_launches += 1
     return out
 
 
@@ -158,18 +222,19 @@ class _FlashAttention(torch.autograd.Function):
     ``flash_attention_bwd`` for the gradient."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out = _launch(q, k, v, causal, window)
-        ctx.save_for_backward(q, k, v, out)
+    def forward(ctx, q, k, v, causal, window, keep_lse):
+        lse = _lse_buffer(q) if keep_lse else None
+        out = _launch(q, k, v, causal, window, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.window = causal, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(),
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout.contiguous(), lse,
                                          causal=ctx.causal, window=ctx.window)
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def instance(dtype: torch.dtype, head_dim: int) -> str:
@@ -181,7 +246,9 @@ def instance(dtype: torch.dtype, head_dim: int) -> str:
 
 flash_attention.launches = 0
 flash_attention.instance_launches = {"wgmma": 0, "fma": 0}
+flash_attention.lse_launches = 0
 flash_attention.backward_launches = 0
+flash_attention.backward_instance_launches = {"wgmma": 0, "fma": 0}
 
 
 # --------------------------------------------------------------- backward
@@ -214,12 +281,15 @@ def flash_attention_bwd_plain(q, k, v, o, do, *, causal: bool = True,
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, do: torch.Tensor, *,
+                        o: torch.Tensor, do: torch.Tensor,
+                        lse: torch.Tensor | None = None, *,
                         causal: bool = True, window=None):
     """(dq, dk, dv) of ``flash_attention(q, k, v, causal, window) = o`` at
     the output gradient ``do`` (B, S, H, D); all five contiguous, of one
-    dtype."""
-    dev = check_same_device(q, k, v, o, do)
+    dtype.  ``lse`` is the forward's (``flash_attention_lse``), fp32 (B, H,
+    S); the CUDA kernels need it."""
+    dev = check_same_device(q, k, v, o, do,
+                            *(() if lse is None else (lse,)))
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
             or o.shape != q.shape or do.shape != q.shape:
         raise ValueError("q, o and do must be (B, S, H, D) and k, v "
@@ -235,16 +305,25 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         "one dtype")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive, got {window}")
+    if lse is not None and (lse.shape != (b, h, s)
+                            or lse.dtype != torch.float32
+                            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous float32 (B, H, S) = "
+                         f"{(b, h, s)} tensor, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
     if dev.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
                                          window=window)
     if d not in _HEAD_DIMS:
         raise ValueError(f"the CUDA kernel takes head_dim in {_HEAD_DIMS}, "
                          f"got {d}")
+    if lse is None:
+        raise ValueError("flash_attention_bwd on CUDA tensors reads the "
+                         "forward's lse (flash_attention_lse); it does not "
+                         "recompute it")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=dev)
     delta = torch.empty_like(lse)
     index, stream = launch_args(dev)
     err = _build.lib().flash_attention_bwd_launch(
@@ -254,6 +333,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _DTYPES[q.dtype], index, stream)
     _build.check(err, "flash_attention_bwd")
     flash_attention.backward_launches += 1
+    flash_attention.backward_instance_launches[instance(q.dtype, d)] += 1
     return dq, dk, dv
 
 

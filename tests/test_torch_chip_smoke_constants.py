@@ -1211,9 +1211,15 @@ def test_flash_backward_rows_sit_at_the_configs_shapes():
                                red.num_kv_heads, red.resolved_head_dim,
                                True, None, ("f32",))
     assert red.num_heads // red.num_kv_heads == 4
-    # every (dtype, D) instance of the backward runs in some row
+    # every (dtype, D) instance of the backward's dispatch runs in some row,
+    # so every kernel the build makes runs
     ran = {(dt, r[6]) for r in chip_smoke.FLASH_BWD for dt in r[9]}
-    assert {(dt, d) for _, dt, d in chip_smoke.BWD_INSTANCES} == ran
+    assert set(chip_smoke.BWD_DISPATCH) == ran
+    assert {(dt, d) for p, dt, d, _ in chip_smoke.BWD_INSTANCES
+            if p != "delta"} == ran
+    assert {inst for r in chip_smoke.FLASH_BWD for dt in r[9]
+            for inst in [chip_smoke.BWD_DISPATCH[dt, r[6]]]} == {"wgmma",
+                                                                "fma"}
 
 
 def test_flash_backward_bound_at_olmos_shape():
@@ -1248,15 +1254,98 @@ def test_backward_tolerances_and_build_instances():
     assert chip_smoke._bwd_err(torch, [off], [want],
                                torch.bfloat16) == pytest.approx(1.0)
     assert set(chip_smoke.BWD_WRONG) == {"no_causal", "causal", "first_head"}
-    assert len(chip_smoke.BWD_INSTANCES) == 24
+    # the delta pass in two dtypes, then dk / dv and dq of the eight
+    # (dtype, D) of the dispatch: 2 + 2 x 8
+    assert len(chip_smoke.BWD_INSTANCES) == 18
+    assert len(set(chip_smoke.BWD_INSTANCES)) == 18
     assert chip_smoke._bwd_instance(
-        "_ZN12_GLOBAL__N_119flash_bwd_kv_kernelI13__nv_bfloat16Li80ELi4EEEv"
-        "PKT_") == ("kv", "bf16", 80)
+        "_ZN12_GLOBAL__N_119flash_bwd_kv_kernelI13__nv_bfloat16Li32ELi1EEEv"
+        "PKT_") == ("kv", "bf16", 32, "fma")
     assert chip_smoke._bwd_instance(
-        "_ZN12_GLOBAL__N_122flash_bwd_stats_kernelIfLi32ELi1EEEvPKT_") == (
-        "stats", "f32", 32)
+        "_ZN12_GLOBAL__N_118flash_bwd_q_kernelIfLi128ELi4EEEvPKT_") == (
+        "q", "f32", 128, "fma")
+    assert chip_smoke._bwd_instance(
+        "_ZN12_GLOBAL__N_122flash_bwd_delta_kernelIfEEvPKT_S3_Pfxiiiii") == (
+        "delta", "f32", None, None)
+    assert chip_smoke._bwd_instance(
+        "_ZN12_GLOBAL__N_122flash_bwd_delta_kernelI13__nv_bfloat16EEvPKT_"
+        ) == ("delta", "bf16", None, None)
     assert chip_smoke._attention_instance(
         "_ZN12_GLOBAL__N_118flash_bwd_q_kernelIfLi32ELi1EEEv") is None
+    # the stats pass that recomputed lse is gone with its instances
+    assert chip_smoke._bwd_instance(
+        "_ZN12_GLOBAL__N_122flash_bwd_stats_kernelIfLi32ELi1EEEvPKT_") is None
+
+
+def test_build_names_the_tensor_core_backward():
+    # bf16 at the tensor-core flash head dims runs both passes on wgmma,
+    # and the build must report each with no spill; the rest run the
+    # CUDA-core passes
+    wgmma = [(p, dt, d) for p, dt, d, inst in chip_smoke.BWD_INSTANCES
+             if inst == "wgmma"]
+    assert sorted(wgmma) == sorted(
+        (p, "bf16", d) for p in ("kv", "q") for d in (64, 80, 128))
+    assert sorted(d for (dt, d), inst in chip_smoke.BWD_DISPATCH.items()
+                  if inst == "wgmma") == sorted(chip_smoke.WGMMA_HEAD_DIMS)
+    assert all(dt == "bf16" for (dt, _), inst in
+               chip_smoke.BWD_DISPATCH.items() if inst == "wgmma")
+    assert chip_smoke._bwd_instance(
+        "_ZN12_GLOBAL__N_125flash_bwd_kv_wgmma_kernelILi128EEEvPK13"
+        "__nv_bfloat16S3_S3_S3_PKfS5_PS1_S6_iiiiiiif") == (
+        "kv", "bf16", 128, "wgmma")
+    assert chip_smoke._bwd_instance(
+        "_ZN12_GLOBAL__N_124flash_bwd_q_wgmma_kernelILi80EEEvPK13"
+        "__nv_bfloat16") == ("q", "bf16", 80, "wgmma")
+    assert chip_smoke._wgmma_instance(
+        "_ZN12_GLOBAL__N_124flash_bwd_q_wgmma_kernelILi80EEEv") is None
+
+
+def test_backward_dispatch_matches_the_source():
+    from repro_torch import _build
+    from repro_torch.kernels.flash_attention.ops import instance
+
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    body = src[src.index("cudaError_t dispatch("):]
+    body = body[:body.index("}  // namespace")]
+    routes = dict(((int(dt), int(d)), (route, int(n)))
+                  for dt, d, route, n in re.findall(
+                      r"dtype == (\d) && D == (\d+)\)\s*return "
+                      r"launch_bwd_(fma|wgmma)<(?:__nv_bfloat16, |float, )?"
+                      r"(\d+)>", body))
+    tags = {0: "f32", 1: "bf16"}
+    assert {(tags[dt], d): route for (dt, d), (route, _) in routes.items()
+            } == chip_smoke.BWD_DISPATCH
+    assert all(d == n for (_, d), (_, n) in routes.items())
+    import torch
+    for (dt, d), inst in chip_smoke.BWD_DISPATCH.items():
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        assert instance(dtype, d) == inst
+    # the forward takes an lse pointer after out; the backward reads one
+    args, _ = _build._SIGNATURES["flash_attention_launch"]
+    fwd = (_build.CSRC / "flash_attention.cu").read_text()
+    sig = re.search(r'extern "C" int flash_attention_launch\(([^)]*)\)',
+                    fwd).group(1)
+    params = [p.strip() for p in sig.split(",")]
+    assert len(params) == len(args) == 16
+    assert [("*" in p) for p in params] == [a is _build._P for a in args]
+    assert params[4] == "void* lse_p"
+    bwd = re.search(r'extern "C" int flash_attention_bwd_launch\(([^)]*)\)',
+                    src).group(1)
+    assert "const void* lse" in bwd
+
+
+def test_lse_tolerance():
+    import torch
+
+    assert chip_smoke.LSE_TOL == (1e-5, 1e-4)
+    want = torch.tensor([2.5, -10069.0776, 0.0])
+    assert chip_smoke._lse_err(torch, want, want) == 0.0
+    off = want + torch.tensor([0.0, 0.0, 1e-4])
+    assert chip_smoke._lse_err(torch, off, want) == pytest.approx(1.0,
+                                                                  rel=1e-3)
+    off = want + torch.tensor([1e-4 + 2.5e-5, 0.0, 0.0])
+    assert chip_smoke._lse_err(torch, off, want) == pytest.approx(1.0,
+                                                                  rel=1e-3)
 
 
 def test_the_backward_source_is_built():

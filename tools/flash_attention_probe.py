@@ -57,12 +57,15 @@ SHAPES = (  # label, H, K, D, window
 B, S = 8, 2048
 
 
-def start_build(name: str, src: str, tmp: str):
+def start_build(name: str, src: str, tmp: str, include=None):
+    """nvcc on ``src``; ``include``, a directory searched for wgmma.cuh
+    before this tree's (another tree's header may differ)."""
     stem = name.replace("/", "-")
     cu, so = Path(tmp) / f"{stem}.cu", Path(tmp) / f"{stem}.so"
     cu.write_text(src)
+    first = ["-I", str(include)] if include is not None else []
     proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
-                             "-I", str(_build.CSRC),
+                             *first, "-I", str(_build.CSRC),
                              str(cu), "-o", str(so)], stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     return so, proc
@@ -122,9 +125,11 @@ def main(argv: list[str]) -> int:
           f"call, 10 calls", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         sources = {name: patched(name) for name in args.variants}
+        includes = {}
         for path in args.other:
             sources[f"{path.parent.name}/{path.stem}"] = path.read_text()
-        procs = {name: start_build(name, src, tmp)
+            includes[f"{path.parent.name}/{path.stem}"] = path.parent
+        procs = {name: start_build(name, src, tmp, includes.get(name))
                  for name, src in sources.items()}
         libs = {}
         for name, (so, proc) in procs.items():
@@ -134,10 +139,12 @@ def main(argv: list[str]) -> int:
             print(f"{name} ptxas: " + "; ".join(ptxas_lines(out + err)),
                   flush=True)
             fn = ctypes.CDLL(str(so)).flash_attention_launch
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [
-                ctypes.c_void_p]
+            # sources since the forward stores lse take its buffer after out
+            takes_lse = "void* lse_p" in sources[name]
+            fn.argtypes = [ctypes.c_void_p] * (5 if takes_lse else 4) + [
+                ctypes.c_int] * 10 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
-            libs[name] = fn
+            libs[name] = (fn, takes_lse)
 
         gen = torch.Generator(device=dev).manual_seed(27)
         for label, H, K, D, window in SHAPES:
@@ -148,18 +155,19 @@ def main(argv: list[str]) -> int:
             out = torch.empty_like(q)
             times = {name: [] for name in libs}
 
-            def call(fn):
+            def call(lib):
+                fn, takes_lse = lib
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         out.data_ptr(), B, S, S, H, K, D, 1, window or 0, 1,
-                         dev.index or 0,
+                         out.data_ptr(), *([None] if takes_lse else []),
+                         B, S, S, H, K, D, 1, window or 0, 1, dev.index or 0,
                          torch.cuda.current_stream().cuda_stream)
                 if err:
                     raise RuntimeError(f"CUDA error {err}")
 
             for name in [*libs, *reversed(libs)]:
-                fn = libs[name]
+                lib = libs[name]
                 out.zero_()
-                call(fn)
+                call(lib)
                 torch.cuda.synchronize()
                 close = bool(torch.allclose(out.float(), want.float(),
                                             rtol=2.0 ** -7, atol=1e-5))
@@ -170,7 +178,7 @@ def main(argv: list[str]) -> int:
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
                     for _ in range(10):
-                        call(fn)
+                        call(lib)
                     torch.cuda.synchronize()
                 times[name].append(sum(
                     e.self_device_time_total for e in prof.key_averages()

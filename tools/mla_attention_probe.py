@@ -243,15 +243,20 @@ def time_variants(names: list[str], others: list[Path]) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         sources = {name: _variant_source(name)
                    for name in ["base", *(n for n in names if n != "base")]}
+        # another source includes the wgmma.cuh beside it, where there is
+        # one (another tree's header may differ from this one's)
+        includes = {}
         for path in others:
             sources[f"{path.parent.name}/{path.stem}"] = path.read_text()
+            includes[f"{path.parent.name}/{path.stem}"] = path.parent
         procs = {}
         for name, src in sources.items():
             stem = name.replace("/", "-")
             cu, so = Path(tmp) / f"{stem}.cu", Path(tmp) / f"{stem}.so"
             cu.write_text(src)
+            first = ["-I", str(includes[name])] if name in includes else []
             procs[name] = so, subprocess.Popen(
-                [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I",
+                [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", *first, "-I",
                  str(_build.CSRC), str(cu), "-o", str(so)],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         libs = {}

@@ -288,7 +288,10 @@ def test_runner_avoids_a_straggler():
 
 # ------------------------------------------------------------ the train CLI
 def test_train_cli_improves_on_cpu(tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one intra-op thread: under a parallel test run each torch process
+    # would otherwise take a thread per core, and the copies together run
+    # the CLI many times slower than one alone
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch",
          "olmo-1b", "--reduced", "--device", "cpu", "--steps", "60",

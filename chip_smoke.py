@@ -4,14 +4,15 @@ the hymba-1.5b serving path, the dense-GQA serving path (glm4-9b,
 olmo-1b, h2o-danube-1.8b, nemotron-4-15b), the encoder-decoder and VLM
 serving paths (seamless-m4t-medium, internvl2-2b), the pure-SSM serving
 path (mamba2-2.7b), the MoE serving path (qwen3-moe-30b-a3b), the MLA
-serving path (deepseek-v3-671b) and the training path (olmo-1b).
+serving path (deepseek-v3-671b) and the training paths (olmo-1b, and
+mamba2-2.7b with hymba-1.5b's SSM checked beside it).
 
     python3 chip_smoke.py                      # every phase, as CI runs it
     python3 chip_smoke.py --phases build,kernels
 
 Phases, each printed on a line of its own:
 
-1. build       — compile the eight CUDA sources from ``src/repro_torch/csrc``
+1. build       — compile the nine CUDA sources from ``src/repro_torch/csrc``
                  (with the header ``wgmma.cuh`` they share);
                  the line gives the registers, spills and blocks per SM of
                  the tensor-core (wgmma) instances of flash_attention (bf16
@@ -34,7 +35,11 @@ Phases, each printed on a line of its own:
                  of ``BWD_DISPATCH``, on the tensor cores for bf16 at D 64,
                  80 and 128, with their blocks per SM and shared memory,
                  no spill allowed; on the CUDA cores for f32 at D 32, 64,
-                 80 and 128 and bf16 at D 32).
+                 80 and 128 and bf16 at D 32); and of ssd_scan's backward
+                 (``SSD_BWD_INSTANCES``, each of which the build must make:
+                 the state and gradient passes for f32 and bf16 x at P 16,
+                 32 and 64, the chain and reduce passes), with the
+                 gradient pass's shared memory at P 64, N 128.
 2. kernels     — hold each kernel against its plain PyTorch version on the
                  card and time kernel, plain version, library call (where
                  one PyTorch call computes the same function) and the
@@ -151,6 +156,21 @@ Phases, each printed on a line of its own:
                  rest ``fma``).  Its rows time the kernel (the training
                  shapes also per pass: delta, kv, q), the plain version
                  and SDPA's backward (``library_ms``) beside the bound.
+                 ssd_scan's backward (dx, ddt, da, dB, dC, dh0 from the
+                 forward kernel's y, a standard-normal dy and a nonzero h0
+                 and dh_last) against ssd_scan_bwd_plain at ``SSD_BWD``:
+                 mamba2-2.7b's training shape (B 8, S 1024, H 80, P 64, N
+                 128, chunk 256) and hymba-1.5b's (H 50, N 16), a ragged S
+                 at P 32, N 12, chunk 100, and P 16 at N 72 with no
+                 dh_last, x in bf16 and f32 (every instance the build
+                 makes); every f32 output within 1e-4 of its largest
+                 |value|, a bf16 dx each element within 2^-7 of itself
+                 plus 1e-4 of the largest; each check must reject the
+                 backward with h0 dropped and, where given, with dh_last
+                 dropped.  Its rows time the kernel (the training shapes
+                 also per pass: state, chain, grad, reduce) and the plain
+                 version beside the bound (fp32 operations at the fp32
+                 peak; no PyTorch call computes it).
 3. fit-stress  — ``Simulator(64, 50).run(lmbr_stress_workload(seed=0), lmbr,
                  seed=0, max_moves=1200)`` on the card with the dense peel
                  and the span_gain kernel pinned; the summary and member
@@ -341,15 +361,37 @@ Phases, each printed on a line of its own:
                  kernel route against the plain route on the card (loss
                  within 1e-5 relative, every gradient leaf within 1e-4 of
                  its largest |value|, every forward and backward call on
-                 the fma instance, no launch on the plain route); ssd_scan,
-                 the latent kernels and decode refuse a gradient
+                 the fma instance, no launch on the plain route); the
+                 latent kernels and decode refuse a gradient
                  (NotImplementedError); (b) ``python -m
                  repro_torch.launch.train`` with the reference e2e test's
                  arguments (``TRAIN_CLI``: reduced olmo-1b, 60 steps, B 8,
                  S 64, lr 3e-3, a checkpoint every 25, an input host
                  killed) on the card: exit 0, ``improved``, the failure
                  event and a ``step_*`` checkpoint.
-24. health     — ``Simulator(40, 50).run_online`` of fig6's paper default
+24. train-ssm  — ``make_train_step`` on mamba2-2.7b at full width and
+                 depth (64 layers, 80 SSM heads of 64, state 128, chunk
+                 256, d_model 2560; bf16, random weights from seed 0;
+                 AdamW lr 3e-4, accum 1) fed by ``PlacementAwarePipeline``
+                 at ``TRAIN``'s B 8, S 1024 for 8 steps: loss and grad norm
+                 a step, step ms after the first, tokens/s, peak memory,
+                 the device's idle share and device s by group (``ssd_bwd``,
+                 ``ssd_fwd``, GEMMs, the rest) over one more profiled step;
+                 exactly 2 x 64 ssd_scan forward launches and 64 backward
+                 calls a step (``train_launches``), no other model kernel,
+                 no plain version (each swapped for a function that
+                 raises); finite losses and grad norms; every layer's w_in,
+                 w_out, a_log and dt_bias gradient nonzero.
+25. train-ssm-check — mamba2-2.7b and hymba-1.5b at full width and 2
+                 layers in f32 with TF32 off (``TRAIN_SSM_CHECK``: B 4, S
+                 1024): ``loss_and_grads`` on the kernel route (ssd_scan's
+                 forward and backward kernels, hymba's attention on
+                 flash's) against the plain route (``ssd_scan_plain`` and
+                 ``flash_attention_plain`` under autograd): loss within
+                 1e-5 relative, every gradient leaf within 1e-4 of its
+                 largest |value|, 2 L forward launches and L backward calls
+                 of each kernel on the kernel route, none on the plain.
+26. health     — ``Simulator(40, 50).run_online`` of fig6's paper default
                  (lmbr ``max_moves=120``) under the flags-built
                  ``HealthMonitor`` (``HEALTH_VARIANT``: snapshots every 100
                  queries, window 4, skew SLO 3.0), with a storm (partitions
@@ -363,7 +405,7 @@ Phases, each printed on a line of its own:
                  The storm fires and resolves degraded_rate, and the same
                  storm unmonitored serves the same spans, access load and
                  member; the clean replay fires nothing.
-25. scale      — the cluster-scale pipeline at bench_scale's sizes:
+27. scale      — the cluster-scale pipeline at bench_scale's sizes:
                  ``web_scale_chunks(seed=0)`` (100 000 items, 1 000 000
                  queries) through ``StreamingHypergraphBuilder``, plain and
                  with duplicates merged (host only); the sharded lmbr fits
@@ -372,9 +414,11 @@ Phases, each printed on a line of its own:
                  210, 4 shards), serial, with their avg_span on the span
                  engine; ``PlacementService.fit_sharded`` of web-mid with
                  a profile and the durability pass.  Each run is held
-                 against its CPU twin (run after the card runs) and the JAX
-                 package's values (``SCALE_HELD``), with launches as the
-                 twin's dispatch and the peel's launches printed by
+                 against its CPU twin (run after the card runs; none for
+                 fit-quick, ``SCALE_NO_TWIN``) and the JAX package's values
+                 (``SCALE_HELD``), with launches as the twin's dispatch
+                 (fit-quick: every kernel it needs launched) and the
+                 peel's launches printed by
                  (K, U) class; then fit-quick (on
                  min(8, cores), at least 2, workers) and web-mid (on 2)
                  once more with their shards on spawned card workers, each
@@ -428,7 +472,8 @@ PHASES = ("build", "kernels", "fit-stress", "fit-paper", "paper-algos",
           "serve-dense-check", "serve-encdec", "serve-encdec-check",
           "serve-vlm", "serve-vlm-check", "serve-ssm", "serve-ssm-check",
           "serve-moe", "serve-moe-check", "serve-mla", "serve-mla-check",
-          "train", "train-check", "health", "scale")
+          "train", "train-check", "train-ssm", "train-ssm-check", "health",
+          "scale")
 PAPER_NODES = 69429          # ibm10, the largest fig9 circuit
 # paper-algos: the workloads (generator, arguments) and the runs (workload,
 # partitions, capacity, algorithm, extra arguments, avg_span of the JAX
@@ -771,6 +816,10 @@ SCALE_FITS = {
                 dict(num_shards=4, max_moves=150, boundary_repair=128)),
 }
 SCALE_POOLED = {"fit-quick": None, "web-mid": 2}
+# runs held against SCALE_HELD without a CPU twin: fit-quick's twin took
+# ~150 s of host time, and SCALE_HELD already pins its member bit for bit;
+# web-mid's twin checks the same dispatch at a smaller size
+SCALE_NO_TWIN = ("fit-quick",)
 SCALE_STATS = ("shards", "components", "boundary_edges", "boundary_cost",
                "shard_moves", "repair_moves")
 SCALE_SECONDS = ("shard_seconds", "fit_seconds", "merge_seconds",
@@ -1009,6 +1058,27 @@ def _ssd_instance(entry: str):
             int(p.group(1)))
 
 
+def _ssd_bwd_instance(entry: str):
+    """(pass, x dtype, P) of an ssd_scan backward kernel's mangled name;
+    the chain and reduce passes have neither dtype nor P."""
+    m = re.search(r"ssd_bwd_(state|chain|grad|reduce)_kernel", entry)
+    if not m:
+        return None
+    if m.group(1) in ("chain", "reduce"):
+        return (m.group(1), None, None)
+    p = re.search(r"Li(\d+)E", entry)
+    return (m.group(1), "bf16" if "__nv_bfloat16" in entry else "f32",
+            int(p.group(1)))
+
+
+# the backward's instances the build must make: the state and gradient
+# passes for each x dtype and P, one chain and one reduce pass
+SSD_BWD_INSTANCES = (
+    tuple((p, dt, hd) for p in ("state", "grad") for dt in ("f32", "bf16")
+          for hd in (16, 32, 64))
+    + (("chain", None, None), ("reduce", None, None)))
+
+
 def _attention_instance(entry: str):
     """(kernel, dtype, D or G) of a CUDA-core flash_attention or a
     decode_attention instance's mangled name: ("flash", "bf16", 128) for
@@ -1154,6 +1224,22 @@ def phase_build(_build):
         f"{k} {d} {r} registers={mla[d, k, r]['registers']} "
         f"spills={mla[d, k, r]['spill_stores']}/"
         f"{mla[d, k, r]['spill_loads']}" for d, k, r in MLA_INSTANCES)
+    # ssd_scan's backward: every instance built, and the gradient pass's
+    # shared memory at mamba2's widths
+    ssd_bwd = {_ssd_bwd_instance(e["entry"]): e for e in entries
+               if _ssd_bwd_instance(e["entry"])}
+    _require(set(ssd_bwd) == set(SSD_BWD_INSTANCES),
+             f"build: ptxas reports ssd_scan_bwd instances "
+             f"{sorted(ssd_bwd, key=str)}, want {SSD_BWD_INSTANCES}")
+    ssd_bwd_line = ", ".join(
+        f"{k[0]}{'' if k[1] is None else f' {k[1]} P {k[2]}'} "
+        f"registers={ssd_bwd[k]['registers']} spills="
+        f"{ssd_bwd[k]['spill_stores']}/{ssd_bwd[k]['spill_loads']}"
+        for k in SSD_BWD_INSTANCES)
+    ssd_bwd_smem = _build.lib().ssd_scan_bwd_grad_smem_bytes(64, 128)
+    _require(ssd_bwd_smem <= 232448, f"build: the ssd_scan_bwd gradient "
+             f"pass needs {ssd_bwd_smem} bytes of shared memory at P 64, "
+             "N 128")
     # flash_attention's backward: every instance built
     bwd = {_bwd_instance(e["entry"]): e for e in entries
            if _bwd_instance(e["entry"])}
@@ -1190,7 +1276,9 @@ def phase_build(_build):
           f"(spill stores/loads bytes): {ssd_line}; mla_attention "
           f"instances (spill stores/loads bytes): {mla_line}; "
           f"flash_attention_bwd instances (spill stores/loads bytes): "
-          f"{bwd_line}", flush=True)
+          f"{bwd_line}; ssd_scan_bwd instances (spill stores/loads "
+          f"bytes): {ssd_bwd_line}, grad smem_bytes={ssd_bwd_smem} at P 64 "
+          f"N 128", flush=True)
     for e in entries:
         print(f"  {e['source']} {e['entry'][:60]} registers={e['registers']} "
               f"spill_stores={e['spill_stores']} "
@@ -1209,7 +1297,7 @@ def phase_build(_build):
                  f"fits no block on an SM ({n})")
     # the instances the kernels phase must run: the tensor-core flash ones
     # under the same (kernel, dtype, D) keys as the CUDA-core ones
-    return set(ssd), set(att) | set(tc)
+    return set(ssd), set(ssd_bwd), set(att) | set(tc)
 
 
 def phase_kernels(np, torch, dev):
@@ -2045,6 +2133,157 @@ def _ssd_domain_rows(torch, dev, dtype):
     return rows
 
 
+# ssd_scan's backward: label, B, S, H, P, N, chunk, x dtypes, dh_last given.
+# mamba2-2.7b's and hymba-1.5b's training shapes (the TRAIN batch, their
+# SSM widths), then a ragged S with P 32 at an odd N and chunk, and P 16
+# at N 72 with no dh_last, so that every (x dtype, P) instance runs
+SSD_BWD = (
+    ("mamba2-2.7b", 8, 1024, 80, 64, 128, 256, ("bf16", "f32"), True),
+    ("hymba-1.5b", 8, 1024, 50, 64, 16, 256, ("bf16", "f32"), True),
+    ("ragged.P32", 2, 1000, 8, 32, 12, 100, ("bf16", "f32"), True),
+    ("P16.N72", 2, 777, 4, 16, 72, 256, ("bf16", "f32"), False),
+)
+# the rows at training shapes, whose times add the profiler's device ms
+SSD_BWD_PROFILED = ("mamba2-2.7b", "hymba-1.5b")
+# The backward's tolerance: every f32 output (ddt, da, dB, dC, dh0, and
+# dx for f32 x) within 1e-4 of its largest |value|; dx for bf16 x, rounded
+# once from fp32 sums taken in another order and at another chunk, each
+# element within 2^-7 of itself (one bf16 ulp) plus 1e-4 of the largest
+SSD_BWD_TOL32 = 1e-4
+SSD_BWD_TOL_BF16 = (2.0 ** -7, 1e-4)
+# the wrong variants the check must reject
+SSD_BWD_WRONG = {"no_h0": "the backward with h0 dropped",
+                 "no_dh_last": "the backward with dh_last dropped"}
+
+
+def _ssd_bwd_err(torch, got, want) -> float:
+    """The largest |got - want| over its allowance, over dx, ddt, da, dB,
+    dC and dh0 (at most 1 passes)."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        bf16 = g.dtype == torch.bfloat16
+        g, w = g.double(), w.double()
+        big = float(w.abs().max()) if w.numel() else 0.0
+        if bf16:
+            allow = SSD_BWD_TOL_BF16[0] * w.abs() + SSD_BWD_TOL_BF16[1] * big
+        else:
+            allow = torch.full_like(w, SSD_BWD_TOL32 * big)
+        if w.numel():
+            worst = max(worst, float(((g - w).abs()
+                                      / allow.clamp_min(1e-30)).max()))
+    return worst
+
+
+def _ssd_bwd_work(B, S, NH, P, N, Lb) -> float:
+    """fp32 operations of ssd_scan's backward at its chunk ``Lb`` (every
+    product on the CUDA cores): per chunk of one head the state pass's two
+    (P x N) sums over the chunk, the gradient pass's gated C B^T and dy
+    x^T (lower triangle), dxh, dC and dB (each a triangle over the chunk
+    and a rank-P or rank-N product), 2 flops a multiply-add; the chains'
+    two multiply-adds per state element and chunk."""
+    nch = B * NH * -(-S // Lb)
+    tri = Lb * (Lb + 1) / 2
+    per_chunk = (2 * Lb * P * N                 # the two chunk states
+                 + tri * (N + P)                # gated C B^T, dy x^T
+                 + tri * P + Lb * N * P         # dxh
+                 + 2 * (tri * N + Lb * P * N))  # dC, dB
+    return 2.0 * nch * per_chunk + 4.0 * nch * P * N
+
+
+def _ssd_bwd_rows(torch, dev):
+    """ssd_scan_bwd (four launches: state, chain, grad, reduce) against
+    ssd_scan_bwd_plain at ``SSD_BWD``, from a nonzero h0, on the y of the
+    forward kernel and standard-normal dy (and dh_last, 0.1 of it): within
+    the tolerance, and rejecting the wrong variants (``SSD_BWD_WRONG``).
+    Each row times the kernel (host and, at the training shapes, profiler
+    device ms in all and per pass), the plain version and the bound: the
+    fp32 operations at the fp32 peak against x, dy, y, dt, B, C, h0,
+    dh_last and the outputs moved once."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan.ops import (
+        BWD_CHUNK, ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(37)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    rows = []
+    for label, B, S, H, P, N, L, tags, with_dh in SSD_BWD:
+        for tag in tags:
+            dtype = torch.bfloat16 if tag == "bf16" else torch.float32
+            esz = torch.finfo(dtype).bits // 8
+            x = randn(B, S, H, P).to(dtype)
+            dt = F.softplus(randn(B, S, H) - 2.0)
+            a = -torch.exp(randn(H, scale=0.3))
+            bm, cm = randn(B, S, N, scale=0.3), randn(B, S, N, scale=0.3)
+            h0 = randn(B, H, P, N, scale=0.1)
+            dy = randn(B, S, H, P)
+            dh = randn(B, H, P, N, scale=0.1) if with_dh else None
+            y, _ = ssd_scan(x, dt, a, bm, cm, chunk=L, h0=h0)
+            name = (f"ssd_scan_bwd {label} {tag} B={B} S={S} H={H} P={P} "
+                    f"N={N} chunk={L} dh_last={with_dh}")
+            before = ssd_scan.backward_launches
+            got = ssd_scan_bwd(x, dt, a, bm, cm, dy, chunk=L, h0=h0,
+                               dh_last=dh, y=y)
+            _require(ssd_scan.backward_launches == before + 1,
+                     f"{name}: the backward did not launch once")
+            want = ssd_scan_bwd_plain(x, dt, a, bm, cm, dy, chunk=L, h0=h0,
+                                      dh_last=dh)
+            torch.cuda.synchronize()
+            _require(got[0].dtype == dtype, f"{name}: dx in {got[0].dtype}")
+            err = _ssd_bwd_err(torch, got, want)
+            _require(err <= 1.0, f"{name}: max error {err:.3g} of the "
+                     "tolerance")
+            check = dict(max_abs_err=_max_abs(got, want), tol_ratio=err,
+                         max_abs_err_by_output={
+                             k: _max_abs([g], [w]) for k, g, w in zip(
+                                 ("dx", "ddt", "da", "dB", "dC", "dh0"),
+                                 got, want)})
+            del got
+            wrongs = {"no_h0": ssd_scan_bwd_plain(
+                x, dt, a, bm, cm, dy, chunk=L, dh_last=dh)}
+            if with_dh:
+                wrongs["no_dh_last"] = ssd_scan_bwd_plain(
+                    x, dt, a, bm, cm, dy, chunk=L, h0=h0)
+            for wname, wrong in wrongs.items():
+                werr = _ssd_bwd_err(torch, wrong, want)
+                _require(werr > 1.0, f"{name}: the check cannot see "
+                         f"{SSD_BWD_WRONG[wname]} ({werr:.3g})")
+                check[f"{wname}_ratio"] = werr
+            del wrongs, want
+            nbytes = (B * S * H * P * (2 * esz + 8) + 2 * B * S * H * 4
+                      + H * 8 + 4 * B * S * N * 4
+                      + (3 if with_dh else 2) * B * H * P * N * 4)
+            bound, by = _bound_ms(nbytes, _ssd_bwd_work(B, S, H, P, N,
+                                                        BWD_CHUNK))
+
+            def kern():
+                return ssd_scan_bwd(x, dt, a, bm, cm, dy, chunk=L, h0=h0,
+                                    dh_last=dh, y=y)
+
+            profiled = label in SSD_BWD_PROFILED
+            passes = _device_times(torch, kern, 3) if profiled else {}
+            rows.append(dict(
+                shape=f"{label}.B{B}.S{S}.H{H}.P{P}.N{N}.L{L}.{tag}"
+                + ("" if with_dh else ".no_dh_last"),
+                instance=f"{tag}.P{P}", run_chunk=BWD_CHUNK, **check,
+                ms=_cuda_ms(torch, kern, 3),
+                device_ms=sum(passes.values()) if passes else None,
+                device_ms_by_pass={p: sum(v for k, v in passes.items()
+                                          if f"ssd_bwd_{p}_kernel" in k)
+                                   for p in ("state", "chain", "grad",
+                                             "reduce")} if passes else None,
+                plain_ms=_cuda_ms(torch, lambda: ssd_scan_bwd_plain(
+                    x, dt, a, bm, cm, dy, chunk=L, h0=h0, dh_last=dh), 2),
+                library_ms=None, library_device_ms=None,
+                bound_ms=bound, bound_by=by))
+            del x, dt, a, bm, cm, h0, dy, dh, y
+            torch.cuda.empty_cache()
+    return rows
+
+
 # the latent (MLA) kernels at deepseek-v3's widths (H 128, R 512, Dr 64,
 # scale 192^-0.5): prefill (label, B, S = T, H) at serve's (B 8, S 2048),
 # at serve-mla-check's prefill S 1528 (B 2), a multiple of no tile, and at
@@ -2562,6 +2801,8 @@ def phase_model_kernels(np, torch, dev):
         rows["ssd_scan"] += _ssd_domain_rows(torch, dev, dtype)
     # flash_attention's backward, olmo-1b's training shape in bf16 first
     rows["flash_attention_bwd"] = _flash_bwd_rows(torch, dev)
+    # ssd_scan's backward, mamba2-2.7b's training shape in bf16 first
+    rows["ssd_scan_bwd"] = _ssd_bwd_rows(torch, dev)
 
     out = {}
     for name, shapes in rows.items():
@@ -3541,6 +3782,106 @@ def _no_plain(mod, names):
     return saved
 
 
+def _train_setup(torch, arch, dev):
+    """``arch`` as published, bf16, random weights from seed 0, AdamW at
+    ``TRAIN``'s lr through ``make_train_step``, batches of the
+    placement-aware pipeline at ``TRAIN``'s batch and sequence: a dict of
+    cfg, params, opt_state, step, next_batch, init_s and nparams."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import PlacementAwarePipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    opt = adamw(TRAIN["lr"])
+    step, _ = make_train_step(cfg, optimizer=opt)
+    pipe = PlacementAwarePipeline(
+        num_shards=TRAIN["num_shards"], num_hosts=TRAIN["num_hosts"],
+        vocab_size=cfg.vocab_size, batch_size=TRAIN["batch"],
+        seq_len=TRAIN["seq"], device=dev)
+
+    def next_batch():
+        b = pipe.next_batch()
+        return {k: torch.from_numpy(b[k]).to(dev)
+                for k in ("tokens", "targets")}
+
+    return dict(cfg=cfg, params=params, opt_state=opt.init(params),
+                step=step, next_batch=next_batch, init_s=init_s,
+                nparams=sum(t.numel() for t in _leaves(params)))
+
+
+def _train_steps(torch, kernels, run, n):
+    """``n`` steps of ``run`` (``_train_setup``) from zeroed launch counts
+    and a reset peak: (losses, grad norms, step walls s, peak GB)."""
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(kernels)
+    losses, gnorms, walls = [], [], []
+    for _ in range(n):
+        batch = run["next_batch"]()
+        t0 = time.perf_counter()
+        run["params"], run["opt_state"], m = run["step"](
+            run["params"], run["opt_state"], batch)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        walls.append(time.perf_counter() - t0)
+    return losses, gnorms, walls, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _profiled_step(torch, run, kernel_groups):
+    """One more step of ``run`` under torch.profiler: (its batch, wall s,
+    device busy s, device s by group), the groups ``kernel_groups``
+    (name, key substrings) first, then GEMMs and the rest."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = run["next_batch"]()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run["params"], run["opt_state"], _ = run["step"](
+            run["params"], run["opt_state"], batch)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in rows) / 1e6
+    groups = (*kernel_groups,
+              ("gemm", ("gemm", "gemv", "nvjet", "xmma", "cutlass")))
+    by_group = {g: 0.0 for g, _ in groups} | {"other": 0.0}
+    for e in rows:
+        g = next((g for g, keys in groups
+                  if any(k in e.key.lower() for k in keys)), "other")
+        by_group[g] += e.self_device_time_total / 1e6
+    return batch, wall, busy, by_group
+
+
+def _train_line(run, losses, gnorms, walls, peak_gb, prof_wall, busy,
+                by_group) -> str:
+    """The step, memory and device figures shared by the train lines."""
+    steady = walls[1:]
+    step_ms = 1e3 * sum(steady) / len(steady)
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    return (f"params={run['nparams']} bf16 init_s={run['init_s']:.2f} "
+            f"adamw lr={TRAIN['lr']} accum=1 batch={TRAIN['batch']} "
+            f"seq={TRAIN['seq']} steps={len(walls)} "
+            f"losses={[round(x, 4) for x in losses]} "
+            f"grad_norms={[round(x, 4) for x in gnorms]} "
+            f"first_step_ms={1e3 * walls[0]:.1f} step_ms={step_ms:.1f} "
+            f"tokens_per_s={tokens / (step_ms / 1e3):.1f} "
+            f"peak_mem_gb={peak_gb:.3f} "
+            f"profiled_step_s={prof_wall:.3f} device_busy_s={busy:.4f} "
+            f"device_idle_share={1 - busy / prof_wall:.4f} "
+            f"device_idle_share_of_step_ms={1 - busy / (step_ms / 1e3):.4f} "
+            f"device_s_by_group="
+            f"{ {g: round(v, 4) for g, v in by_group.items()} }")
+
+
 def phase_train(np, torch, kernels, dev):
     """``make_train_step`` on olmo-1b at full width and depth (``TRAIN``):
     bf16, random weights from seed 0, batches of the placement-aware
@@ -3549,62 +3890,31 @@ def phase_train(np, torch, kernels, dev):
     model kernel; the plain versions swapped for functions that raise.
     Then one step under torch.profiler (device idle share) and, on the
     last batch, every layer's wq / wk / wv gradient nonzero."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.configs import get_config
-    from repro_torch.data import PlacementAwarePipeline
     from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.launch.steps import loss_and_grads, make_train_step
-    from repro_torch.models import init_params
-    from repro_torch.optim import adamw
+    from repro_torch.launch.steps import loss_and_grads
 
     t_phase = time.perf_counter()
-    cfg = get_config(TRAIN["arch"])
-    B, S, n = TRAIN["batch"], TRAIN["seq"], TRAIN["steps"]
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    nparams = sum(t.numel() for t in _leaves(params))
-    opt = adamw(TRAIN["lr"])
-    step, _ = make_train_step(cfg, optimizer=opt)
-    opt_state = opt.init(params)
-    pipe = PlacementAwarePipeline(
-        num_shards=TRAIN["num_shards"], num_hosts=TRAIN["num_hosts"],
-        vocab_size=cfg.vocab_size, batch_size=B, seq_len=S, device=dev)
-
-    def device_batch():
-        b = pipe.next_batch()
-        return {k: torch.from_numpy(b[k]).to(dev)
-                for k in ("tokens", "targets")}
-
+    run = _train_setup(torch, TRAIN["arch"], dev)
+    cfg, n = run["cfg"], TRAIN["steps"]
     saved = _no_plain(flash_ops, ("flash_attention_plain",
                                   "flash_attention_lse_plain",
                                   "flash_attention_bwd_plain"))
     try:
-        torch.cuda.reset_peak_memory_stats()
-        _zero_counts(kernels)
-        losses, gnorms, walls = [], [], []
-        for _ in range(n):
-            batch = device_batch()
-            t0 = time.perf_counter()
-            params, opt_state, m = step(params, opt_state, batch)
-            losses.append(float(m["loss"]))
-            gnorms.append(float(m["grad_norm"]))
-            walls.append(time.perf_counter() - t0)
+        losses, gnorms, walls, peak_gb = _train_steps(torch, kernels, run,
+                                                      n)
         launches = _counts(kernels)
         backward = kernels["flash_attention"].backward_launches
         instances = dict(kernels["flash_attention"].instance_launches)
         bwd_instances = dict(
             kernels["flash_attention"].backward_instance_launches)
         lse_launches = kernels["flash_attention"].lse_launches
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         want = train_launches(cfg, n)
         _require_launches("train", launches, {
             "flash_attention": want["forward"], "decode_attention": 0,
             "ssd_scan": 0, "flash_attention_latent": 0,
             "decode_attention_latent": 0})
+        _require(kernels["ssd_scan"].backward_launches == 0,
+                 "train: ssd_scan's backward launched")
         _require(backward == want["backward"],
                  f"train: {backward} backward calls, want {want['backward']}")
         _require(instances == {"wgmma": want["forward"], "fma": 0},
@@ -3620,27 +3930,11 @@ def phase_train(np, torch, kernels, dev):
         _require(all(math.isfinite(x) for x in losses + gnorms),
                  f"train: non-finite losses {losses} or grad norms {gnorms}")
         # one more step under the profiler: the device's busy and idle share
-        batch = device_batch()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            params, opt_state, m = step(params, opt_state, batch)
-            torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-        rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in rows) / 1e6
-        groups = (("flash_bwd", ("flash_bwd",)),
-                  ("flash_fwd", ("flash_attention",)),
-                  ("gemm", ("gemm", "gemv", "nvjet", "xmma", "cutlass")))
-        by_group = {g: 0.0 for g, _ in groups} | {"other": 0.0}
-        for e in rows:
-            g = next((g for g, keys in groups
-                      if any(k in e.key.lower() for k in keys)), "other")
-            by_group[g] += e.self_device_time_total / 1e6
+        batch, prof_wall, busy, by_group = _profiled_step(
+            torch, run, (("flash_bwd", ("flash_bwd",)),
+                         ("flash_fwd", ("flash_attention",))))
         # every layer's attention projections get a gradient
-        _, _, grads = loss_and_grads(cfg, params, batch)
+        _, _, grads = loss_and_grads(cfg, run["params"], batch)
         zero = [(i, w) for i, g in enumerate(grads["blocks"])
                 for w in ("wq", "wk", "wv")
                 if not bool(g["attn"][w].abs().amax() > 0)]
@@ -3649,31 +3943,186 @@ def phase_train(np, torch, kernels, dev):
     finally:
         for name, fn in saved.items():
             setattr(flash_ops, name, fn)
-    steady = walls[1:]
-    step_ms = 1e3 * sum(steady) / len(steady)
     print(f"train: {TRAIN['arch']} layers={cfg.num_layers} "
-          f"d_model={cfg.d_model} params={nparams} bf16 init_s={init_s:.2f} "
-          f"adamw lr={TRAIN['lr']} accum=1 batch={B} seq={S} steps={n} "
-          f"losses={[round(x, 4) for x in losses]} "
-          f"grad_norms={[round(x, 4) for x in gnorms]} "
-          f"first_step_ms={1e3 * walls[0]:.1f} step_ms={step_ms:.1f} "
-          f"tokens_per_s={B * S / (step_ms / 1e3):.1f} "
-          f"peak_mem_gb={peak_gb:.3f} "
-          f"profiled_step_s={prof_wall:.3f} device_busy_s={busy:.4f} "
-          f"device_idle_share={1 - busy / prof_wall:.4f} "
-          f"device_idle_share_of_step_ms={1 - busy / (step_ms / 1e3):.4f} "
-          f"device_s_by_group={ {g: round(v, 4) for g, v in by_group.items()} } "
-          f"flash_per_step={launches['flash_attention'] // n} "
+          f"d_model={cfg.d_model} "
+          + _train_line(run, losses, gnorms, walls, peak_gb, prof_wall,
+                        busy, by_group)
+          + f" flash_per_step={launches['flash_attention'] // n} "
           f"backward_per_step={backward // n} "
           f"lse_launches_per_step={lse_launches / n:g} "
           f"flash_attention_instances={instances} "
           f"backward_instances={bwd_instances} "
           f"wq_wk_wv_grads=nonzero phase_s={time.perf_counter() - t_phase:.1f}",
           flush=True)
-    del params, opt_state
+    del run
     torch.cuda.empty_cache()
     return dict(launches={**launches, "flash_attention_bwd": backward},
                 backward=backward, backward_instances=bwd_instances)
+
+
+# train-ssm: mamba2-2.7b at full width and depth (64 layers, bf16) through
+# make_train_step at the TRAIN batch, lr and steps; every layer's
+# ssd_scan forward twice a step (remat) and its backward once.
+# train-ssm-check: mamba2-2.7b and hymba-1.5b at full width and
+# TRAIN_SSM_CHECK["layers"] layers in f32, the kernel route against the
+# plain route
+TRAIN_SSM_ARCH = "mamba2-2.7b"
+TRAIN_SSM_CHECK = dict(archs=("mamba2-2.7b", "hymba-1.5b"), layers=2,
+                       batch=4, seq=1024)
+
+
+def phase_train_ssm(np, torch, kernels, dev):
+    """``make_train_step`` on mamba2-2.7b at full width and depth: bf16,
+    random weights from seed 0, batches of the placement-aware pipeline at
+    ``TRAIN``'s batch, sequence, lr and steps.  Finite losses and grad
+    norms; exactly ``train_launches`` ssd_scan forward launches and
+    backward calls and no other model kernel; the plain versions swapped
+    for functions that raise.  Then one step under torch.profiler (device
+    idle share, device s by group) and, on the last batch, every layer's
+    w_in, w_out, a_log and dt_bias gradient nonzero."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.launch.steps import loss_and_grads
+
+    t_phase = time.perf_counter()
+    run = _train_setup(torch, TRAIN_SSM_ARCH, dev)
+    cfg, n = run["cfg"], TRAIN["steps"]
+    ssd = kernels["ssd_scan"]
+    saved = _no_plain(ssd_ops, ("ssd_scan_plain", "ssd_scan_bwd_plain"))
+    try:
+        losses, gnorms, walls, peak_gb = _train_steps(torch, kernels, run,
+                                                      n)
+        launches = _counts(kernels)
+        backward = ssd.backward_launches
+        chunks = dict(ssd.chunk_launches)
+        want = train_launches(cfg, n)
+        _require_launches("train-ssm", launches, {
+            "ssd_scan": want["forward"], "flash_attention": 0,
+            "decode_attention": 0, "flash_attention_latent": 0,
+            "decode_attention_latent": 0})
+        _require(backward == want["backward"],
+                 f"train-ssm: {backward} ssd_scan backward calls, want "
+                 f"{want['backward']}")
+        _require(kernels["flash_attention"].backward_launches == 0,
+                 "train-ssm: flash_attention's backward launched")
+        _require(all(math.isfinite(x) for x in losses + gnorms),
+                 f"train-ssm: non-finite losses {losses} or grad norms "
+                 f"{gnorms}")
+        batch, prof_wall, busy, by_group = _profiled_step(
+            torch, run, (("ssd_bwd", ("ssd_bwd_",)),
+                         ("ssd_fwd", ("ssd_scan_",))))
+        # every layer's SSM weights get a gradient
+        _, _, grads = loss_and_grads(cfg, run["params"], batch)
+        zero = [(i, w) for i, g in enumerate(grads["blocks"])
+                for w in ("w_in", "w_out", "a_log", "dt_bias")
+                if not bool(g["ssm"][w].abs().amax() > 0)]
+        _require(not zero, f"train-ssm: zero gradients at (layer, weight) "
+                 f"{zero}")
+        del grads
+    finally:
+        for name, fn in saved.items():
+            setattr(ssd_ops, name, fn)
+    s_cfg = cfg.ssm
+    print(f"train-ssm: {TRAIN_SSM_ARCH} layers={cfg.num_layers} "
+          f"d_model={cfg.d_model} "
+          f"ssm_heads={cfg.d_model * s_cfg.expand // s_cfg.head_dim} "
+          f"head_dim={s_cfg.head_dim} state={s_cfg.state_dim} "
+          f"chunk={s_cfg.chunk_size} "
+          + _train_line(run, losses, gnorms, walls, peak_gb, prof_wall,
+                        busy, by_group)
+          + f" ssd_scan_per_step={launches['ssd_scan'] // n} "
+          f"backward_per_step={backward // n} "
+          f"ssd_scan_chunk_launches={chunks} "
+          f"w_in_w_out_a_log_dt_bias_grads=nonzero "
+          f"phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    del run
+    torch.cuda.empty_cache()
+    return dict(launches={**launches, "ssd_scan_bwd": backward},
+                backward=backward)
+
+
+def phase_train_ssm_check(np, torch, kernels, dev):
+    """``TRAIN_SSM_CHECK``: mamba2-2.7b and hymba-1.5b at full width and 2
+    layers in f32 (TF32 off), ``loss_and_grads`` on the kernel route
+    (ssd_scan's forward and backward kernels; hymba's attention on flash's
+    fma instances) against the plain route (``ssd_scan_plain`` and
+    ``flash_attention_plain`` under autograd) on the same batch: loss
+    within 1e-5 relative, every gradient leaf within 1e-4 of its largest
+    |value|, exact launches on the kernel route, none on the plain
+    route."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention_plain
+    from repro_torch.kernels.ssd_scan.ops import ssd_scan_plain
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import attention, init_params, ssm
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    B, S = TRAIN_SSM_CHECK["batch"], TRAIN_SSM_CHECK["seq"]
+    parts = []
+    for arch in TRAIN_SSM_CHECK["archs"]:
+        cfg = dataclasses.replace(get_config(arch),
+                                  num_layers=TRAIN_SSM_CHECK["layers"],
+                                  dtype="float32")
+        params = init_params(cfg, seed=1, device=dev)
+        rng = np.random.default_rng(13)
+        toks = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (B, S + 1))).to(dev)
+        batch = {"tokens": toks[:, :-1].contiguous(),
+                 "targets": toks[:, 1:].contiguous()}
+        _zero_counts(kernels)
+        loss, _, grads = loss_and_grads(cfg, params, batch)
+        launches = _counts(kernels)
+        backward = {k: kernels[k].backward_launches
+                    for k in ("ssd_scan", "flash_attention")}
+        L = cfg.num_layers
+        attn = cfg.attention != "none"
+        _require(launches == {**{k: 0 for k in kernels},
+                              "ssd_scan": 2 * L,
+                              "flash_attention": 2 * L if attn else 0}
+                 and backward == {"ssd_scan": L,
+                                  "flash_attention": L if attn else 0},
+                 f"train-ssm-check {arch}: kernel route launches "
+                 f"{launches}, backward {backward}")
+        _zero_counts(kernels)
+        saved = (ssm.ssd_scan, attention.flash_attention)
+        try:
+            ssm.ssd_scan = ssd_scan_plain
+            attention.flash_attention = flash_attention_plain
+            plain_loss, _, plain_grads = loss_and_grads(cfg, params, batch)
+        finally:
+            ssm.ssd_scan, attention.flash_attention = saved
+        _require(all(v == 0 for v in _counts(kernels).values())
+                 and all(kernels[k].backward_launches == 0
+                         for k in ("ssd_scan", "flash_attention")),
+                 f"train-ssm-check {arch}: the plain route launched a "
+                 "kernel")
+        loss_rel = (abs(float(loss) - float(plain_loss))
+                    / abs(float(plain_loss)))
+        _require(loss_rel <= 1e-5, f"train-ssm-check {arch}: loss "
+                 f"{float(loss)} against {float(plain_loss)} "
+                 f"({loss_rel:.3g} relative)")
+        worst, worst_at = 0.0, None
+        for (path, g), pg in zip(tree_flatten_with_path(grads),
+                                 tree_leaves(plain_grads)):
+            big = float(pg.abs().max())
+            ratio = float((g - pg).abs().max()) / max(big, 1e-30)
+            if ratio > worst:
+                worst, worst_at = ratio, path
+        _require(worst <= 1e-4, f"train-ssm-check {arch}: gradient "
+                 f"{worst_at} off by {worst:.3g} of its largest |value|")
+        parts.append(f"{arch} layers={L} loss={float(loss):.6f} "
+                     f"loss_rel_diff={loss_rel:.3e} (tol 1e-5) "
+                     f"grad_max_rel_diff={worst:.3e} at {worst_at} "
+                     f"(tol 1e-4) launches={launches} backward={backward}")
+        del params, grads, plain_grads
+        torch.cuda.empty_cache()
+    print(f"train-ssm-check: full width f32 tf32=off batch={B} seq={S}: "
+          + "; ".join(parts)
+          + f" phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
 
 
 def _refusals(torch, dev):
@@ -3682,15 +4131,12 @@ def _refusals(torch, dev):
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, decode_attention_latent)
     from repro_torch.kernels.flash_attention.ops import flash_attention_latent
-    from repro_torch.kernels.ssd_scan.ops import ssd_scan
 
     def t(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     i32 = torch.int32
     calls = {
-        "ssd_scan": lambda x: ssd_scan(x, t(1, 16, 2), t(2), t(1, 16, 16),
-                                       t(1, 16, 16), chunk=16),
         "flash_attention_latent": lambda x: flash_attention_latent(
             x, t(1, 4, 2, 64), t(1, 4, 512), t(1, 4, 64), scale=0.1),
         "decode_attention": lambda x: decode_attention(
@@ -3700,8 +4146,8 @@ def _refusals(torch, dev):
             x, t(1, 2, 64), t(1, 8, 512), t(1, 8, 64), t(1, 8, dtype=i32),
             t(1, dtype=i32), scale=0.1),
     }
-    first = {"ssd_scan": (1, 16, 2, 16), "flash_attention_latent":
-             (1, 4, 2, 512), "decode_attention": (1, 2, 32),
+    first = {"flash_attention_latent": (1, 4, 2, 512),
+             "decode_attention": (1, 2, 32),
              "decode_attention_latent": (1, 2, 512)}
     for name, call in calls.items():
         x = t(*first[name]).requires_grad_(True)
@@ -4783,6 +5229,8 @@ def scale_twins(np, inp) -> dict:
 
     out = {}
     for name in SCALE_RUNS:
+        if name in SCALE_NO_TWIN:
+            continue
         flags.set_variant(SCALE_VARIANT)
         t0 = time.perf_counter()
         with core.fresh_partition_cache(), _DispatchCount() as dispatch:
@@ -4796,9 +5244,9 @@ def scale_twins(np, inp) -> dict:
 def phase_scale(np, torch, kernels, inp):
     """Every run of ``SCALE_RUNS`` on the card, each inside its own
     partition memo, held against its CPU twin (``scale_twins``, run after
-    the card runs so that these have the host to themselves) and against
-    ``SCALE_HELD``, with launches as the twin's dispatch calls the
-    wrappers.  ``stream`` is host numpy and launches nothing.  Then the
+    the card runs so that these have the host to themselves; none for
+    ``SCALE_NO_TWIN``) and against ``SCALE_HELD``, with launches as the
+    twin's dispatch calls the wrappers.  ``stream`` is host numpy and launches nothing.  Then the
     fits of ``SCALE_POOLED`` once more with their shards on spawned card
     workers: the pool must have run and the member must equal the serial
     run's.  The pooled runs' launches are the parent's (the repair); the
@@ -4825,15 +5273,16 @@ def phase_scale(np, torch, kernels, inp):
     for name, need in SCALE_RUNS.items():
         label = f"scale {name}"
         held, launches = card[name]["held"], card[name]["launches"]
-        twin = twins[name]
-        _require(held == twin["held"],
-                 f"{label}: {held} differs from the CPU run's {twin['held']}")
+        twin = twins.get(name)
+        if twin is not None:
+            _require(held == twin["held"], f"{label}: {held} differs from "
+                     f"the CPU run's {twin['held']}")
+            _require(launches == twin["dispatch"],
+                     f"{label}: launches {launches} differ from the CPU "
+                     f"dispatch's {twin['dispatch']}")
         _require(held == SCALE_HELD[name],
                  f"{label}: {held} is not the reference's "
                  f"{SCALE_HELD[name]}")
-        _require(launches == twin["dispatch"],
-                 f"{label}: launches {launches} differ from the CPU "
-                 f"dispatch's {twin['dispatch']}")
         for kernel in need:
             _require(launches[kernel] > 0,
                      f"{label}: kernel {kernel} never launched")
@@ -4841,15 +5290,17 @@ def phase_scale(np, torch, kernels, inp):
         seconds = {k: stats[k] for k in SCALE_SECONDS if k in stats}
         classes = ", ".join(f"K{k}.U{u}: {c}" for (k, u), c in sorted(
             card[name]["peel_classes"].items(), key=lambda kv: -kv[1]))
+        cpu = ("cpu_twin=not_run" if twin is None else
+               f"cpu_wall_s={twin['wall']:.3f} cpu_match=bitwise")
         print(f"{label}: {json.dumps(held)} wall_s={card[name]['wall']:.3f} "
-              f"cpu_wall_s={twin['wall']:.3f} cpu_match=bitwise "
-              f"reference_match=exact launches={launches} "
-              f"cpu_dispatch={twin['dispatch']}"
+              f"{cpu} reference_match=exact launches={launches} "
+              f"cpu_dispatch={None if twin is None else twin['dispatch']}"
               + (f" stage_s={json.dumps(seconds)}" if seconds else "")
               + (f" peel_launches_by_class={{{classes}}}" if classes
                  else ""), flush=True)
         runs.append(dict(name=name, launches=launches,
-                         wall=card[name]["wall"], cpu_wall=twin["wall"]))
+                         wall=card[name]["wall"],
+                         cpu_wall=None if twin is None else twin["wall"]))
     for name, workers in SCALE_POOLED.items():
         if workers is None:
             workers = max(2, min(8, os.cpu_count() or 1))
@@ -4981,18 +5432,21 @@ def main(argv=None) -> int:
     ssd_chunks = {}      # phase -> ssd_scan launches by the chunk run
     flash_instances = latent_instances = decode_instances = None
     bwd_instances = None
-    ssd_built = att_built = None
+    ssd_built = ssd_bwd_built = att_built = None
     if "build" in phases:
-        ssd_built, att_built = phase_build(_build)
+        ssd_built, ssd_bwd_built, att_built = phase_build(_build)
     if "kernels" in phases:
         rows = phase_kernels(np, torch, dev)
         rows.update(phase_model_kernels(np, torch, dev))
         if ssd_built is not None:
-            # every ssd_scan instance the build made ran in a checked row
-            ran = {r["instance"] for r in rows["ssd_scan"]["shapes"]}
-            missed = sorted(f"{d}.P{p}" for _, d, p in ssd_built
-                            if d is not None and f"{d}.P{p}" not in ran)
-            _require(not missed, f"kernels: no ssd_scan row ran {missed}")
+            # every ssd_scan instance the build made ran in a checked row,
+            # the backward's included
+            for name, built in (("ssd_scan", ssd_built),
+                                ("ssd_scan_bwd", ssd_bwd_built)):
+                ran = {r["instance"] for r in rows[name]["shapes"]}
+                missed = sorted(f"{d}.P{p}" for _, d, p in built
+                                if d is not None and f"{d}.P{p}" not in ran)
+                _require(not missed, f"kernels: no {name} row ran {missed}")
             # ... and every flash and every decode instance
             ran = {(name, r["kernel_instance"]) for name in
                    ("flash_attention", "decode_attention")
@@ -5123,6 +5577,12 @@ def main(argv=None) -> int:
         path_launches["train"] = trained["launches"]
     if "train-check" in phases:
         phase_train_check(np, torch, kernels, dev)
+    if "train-ssm" in phases:
+        trained = phase_train_ssm(np, torch, kernels, dev)
+        launches["ssd_scan_bwd"] = trained["backward"]
+        path_launches["train-ssm"] = trained["launches"]
+    if "train-ssm-check" in phases:
+        phase_train_ssm_check(np, torch, kernels, dev)
     if "health" in phases:
         health_runs = phase_health(np, torch, fit_kernels, health_inputs(np))
         path_launches["health"] = {
@@ -5159,6 +5619,10 @@ def main(argv=None) -> int:
                              "src/repro/kernels/decode_attention/kernel.py:77"),
         "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                      "src/repro/kernels/ssd_scan/kernel.py:71"),
+        # the gradient of the same kernel; the reference differentiates
+        # ssd_chunked in jnp (its train_loss)
+        "ssd_scan_bwd": ("src/repro_torch/csrc/ssd_scan_bwd.cu",
+                         "src/repro/kernels/ssd_scan/kernel.py:71"),
         # the latent forms of the two attention kernels: the reference's
         # MLA runs chunked_attention in jnp at these shapes
         "flash_attention_latent": (
@@ -5205,6 +5669,18 @@ def main(argv=None) -> int:
                               launches_per_call=3,
                               instance=row.get("instance"),
                               instance_launches=bwd_instances,
+                              device_ms_by_pass=row.get(
+                                  "device_ms_by_pass"))
+        if name == "ssd_scan_bwd":
+            # launches: backward calls on the train-ssm path, four kernel
+            # launches each (state, chain, grad, reduce); ms is the bf16
+            # row's at mamba2-2.7b's training shape, which train-ssm runs
+            report[-1].update(computes="jax.vjp of src/repro/models/"
+                              "ssm.py:63 ssd_chunked, as train_loss "
+                              "differentiates it (src/repro/models/"
+                              "model.py:323)",
+                              launches_per_call=4,
+                              instance=row.get("instance"),
                               device_ms_by_pass=row.get(
                                   "device_ms_by_pass"))
         if name in latent:

@@ -15,9 +15,9 @@ and the model stack's (the serving paths):
 
 A wrapper runs the plain version for CPU tensors and launches the kernel
 for CUDA tensors (or raises); it never falls back from one to the other.
-On CUDA tensors flash_attention is differentiable (its backward is a
-kernel too); the other model kernels have no backward yet and raise
-rather than return a result cut from the autograd graph
+On CUDA tensors flash_attention and ssd_scan are differentiable (each
+backward is a kernel too); the other model kernels have no backward yet
+and raise rather than return a result cut from the autograd graph
 (``refuse_grad``).
 """
 

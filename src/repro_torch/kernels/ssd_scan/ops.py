@@ -33,6 +33,44 @@ which the serving prefill needs.
   fits (128 at N 128).  Any chunking of the scan computes the same
   function; only the f32 rounding moves, and the card holds the result
   to the plain version at the requested chunk.
+
+On CUDA tensors the call is a ``torch.autograd.Function`` when grad mode
+is on and an input needs a gradient: its forward launches the three
+passes and saves the inputs and y; its backward runs ``ssd_scan_bwd``,
+with a ``None`` gradient of h_last taken as zeros.  Otherwise (serving)
+the passes launch as they are.  On CPU tensors autograd differentiates
+the plain version as it is.
+
+The backward: given the forward's inputs, the gradient dy (B, S, H, P) of
+y and dh_last (B, H, P, N) of h_last (zeros when None), it returns dx in
+x's dtype and ddt (B, S, H), da (H,), dbmat / dcmat (B, S, N) and dh0
+(B, H, P, N) in f32.  Per chunk, with ``cum`` the in-chunk cumsum of
+a dt, ``h_c`` the state entering chunk c and ``g_{c+1}`` the gradient of
+the state leaving it (``g_C = dh_last``):
+
+    g_c   = exp(cum_L) g_{c+1} + sum_t exp(cum_t) dy_t C_t^T,  dh0 = g_0
+    dxh_u = sum_{t>=u} (C_t.B_u) e^{cum_t-cum_u} dy_t + e^{cum_L-cum_u} g_{c+1} B_u
+    dx_u  = dt_u dxh_u
+    dC_t  = sum_{u<=t} e^{cum_t-cum_u} dt_u (dy_t.x_u) B_u + e^{cum_t} h_c^T dy_t
+    dB_u  = dt_u [sum_{t>=u} e^{cum_t-cum_u} (dy_t.x_u) C_t + e^{cum_L-cum_u} g_{c+1}^T x_u]
+    dcum_t = dy_t.y_t - x_t.dx_t (+ <g_{c+1}, h_{c+1}> at the chunk's last step)
+    ddt_u = x_u.dxh_u + a r_u,  da = sum dt_u r_u,  r = reverse cumsum of dcum
+
+B and C are shared by every head, so dB and dC also sum over heads.
+``dcum`` collects every place cum enters: y's terms give dy.y, the
+terms that leave step u give x_u.dx_u, and the state leaving the chunk
+gives <g, h> at its last step.  The padded tail (dt = 0) gets zero
+gradient and is cut off.
+
+* ``ssd_scan_bwd_plain`` — that closed form in PyTorch ops, one chunk at a
+  time (not autograd through ``ssd_scan_plain``).
+* ``ssd_scan_bwd`` — the wrapper: plain version for CPU tensors (y, when
+  given, is checked and not needed), the CUDA kernels
+  (``csrc/ssd_scan_bwd.cu``: a state pass, a chain pass, a gradient pass
+  and a reduction, run at their own chunk ``BWD_CHUNK``) for CUDA
+  tensors, which read the forward's y and raise without it; their
+  workspace comes from ``torch.empty``.  ``ssd_scan.backward_launches``
+  counts its calls (four kernel launches each).
 """
 
 from __future__ import annotations
@@ -40,9 +78,10 @@ from __future__ import annotations
 import torch
 
 from ... import _build
-from .. import check_same_device, launch_args, refuse_grad
+from .. import check_same_device, launch_args
 
-__all__ = ["kernel_takes", "run_chunk", "ssd_scan", "ssd_scan_plain"]
+__all__ = ["BWD_CHUNK", "kernel_takes", "run_chunk", "ssd_scan",
+           "ssd_scan_bwd", "ssd_scan_bwd_plain", "ssd_scan_plain"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64)
@@ -52,6 +91,10 @@ MAX_STATE = 128
 # stages that chunk's B and C, which with x and the state must fit a
 # block's 227 KB of shared memory (the source's kMaxTile)
 MAX_TILE = 16384
+# the chunk the backward's passes run at (the source's kBwdChunk): its
+# gradient pass holds a chunk's x, dy, B and C, the two states and two
+# L x L products in shared memory, 200 256 bytes at P 64 and N 128
+BWD_CHUNK = 64
 
 
 def _pad(v: int, m: int) -> int:
@@ -115,17 +158,12 @@ def ssd_scan_plain(x, dt, a, bmat, cmat, *, chunk: int, h0=None):
     return y, h
 
 
-def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
-             bmat: torch.Tensor, cmat: torch.Tensor, *, chunk: int,
-             h0: torch.Tensor | None = None):
-    """(y, h_last) of the SSD scan over x (B, S, H, P) from state h0
-    (zeros when None)."""
+def _check(x, dt, a, bmat, cmat, h0, chunk: int) -> torch.device:
+    """Shapes, dtypes and devices of ``ssd_scan``'s inputs (h0 given)."""
     if x.dim() != 4 or bmat.dim() != 3:
         raise ValueError("x must be (B, S, H, P) and bmat (B, S, N)")
     b, s, nh, p = x.shape
     n = bmat.shape[-1]
-    if h0 is None:
-        h0 = torch.zeros((b, nh, p, n), dtype=torch.float32, device=x.device)
     dev = check_same_device(x, dt, a, bmat, cmat, h0)
     if (dt.shape != (b, s, nh) or a.shape != (nh,) or bmat.shape != (b, s, n)
             or cmat.shape != bmat.shape or h0.shape != (b, nh, p, n)):
@@ -137,15 +175,36 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise TypeError("ssd_scan takes f32 dt, a, bmat, cmat and h0")
     if chunk < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
-    if dev.type == "cpu":
-        return ssd_scan_plain(x, dt, a, bmat, cmat, chunk=chunk, h0=h0)
-    refuse_grad("ssd_scan", "ROADMAP Queue 1 item 9.7 brings it", x, dt, a,
-                bmat, cmat, h0)
-    if not kernel_takes(p, n, chunk):
+    if dev.type == "cuda" and not kernel_takes(p, n, chunk):
         raise ValueError(
             f"the CUDA kernel takes head_dim in {_HEAD_DIMS}, chunk <= "
             f"{MAX_CHUNK} and state <= {MAX_STATE}, got P={p}, "
             f"chunk={chunk}, N={n}")
+    return dev
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             bmat: torch.Tensor, cmat: torch.Tensor, *, chunk: int,
+             h0: torch.Tensor | None = None):
+    """(y, h_last) of the SSD scan over x (B, S, H, P) from state h0
+    (zeros when None)."""
+    if h0 is None and x.dim() == 4 and bmat.dim() == 3:
+        b, _, nh, p = x.shape
+        h0 = torch.zeros((b, nh, p, bmat.shape[-1]), dtype=torch.float32,
+                         device=x.device)
+    if _check(x, dt, a, bmat, cmat, h0, chunk).type == "cpu":
+        return ssd_scan_plain(x, dt, a, bmat, cmat, chunk=chunk, h0=h0)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a, bmat, cmat, h0)):
+        return _SSDScan.apply(x, dt, a, bmat, cmat, h0, chunk)
+    return _launch(x, dt, a, bmat, cmat, h0, chunk)
+
+
+def _launch(x, dt, a, bmat, cmat, h0, chunk: int):
+    """The three passes on CUDA tensors that ``_check`` has checked."""
+    b, s, nh, p = x.shape
+    n = bmat.shape[-1]
+    dev = x.device
     y = torch.empty((b, s, nh, p), dtype=torch.float32, device=dev)
     h_last = torch.empty_like(h0)
     if b * nh == 0:
@@ -170,5 +229,158 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     return y, h_last
 
 
+class _SSDScan(torch.autograd.Function):
+    """The CUDA route of ``ssd_scan`` under autograd: the three passes, and
+    ``ssd_scan_bwd`` for the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, bmat, cmat, h0, chunk):
+        y, h_last = _launch(x, dt, a, bmat, cmat, h0, chunk)
+        ctx.save_for_backward(x, dt, a, bmat, cmat, h0, y)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        x, dt, a, bmat, cmat, h0, y = ctx.saved_tensors
+        dy = torch.zeros_like(y) if dy is None else dy.contiguous()
+        grads = ssd_scan_bwd(
+            x, dt, a, bmat, cmat, dy, chunk=ctx.chunk, h0=h0, y=y,
+            dh_last=None if dh_last is None else dh_last.contiguous())
+        return (*grads, None)
+
+
 ssd_scan.launches = 0
 ssd_scan.chunk_launches = {}   # chunk the passes ran at -> launches
+ssd_scan.backward_launches = 0
+
+
+# --------------------------------------------------------------- backward
+def ssd_scan_bwd_plain(x, dt, a, bmat, cmat, dy, *, chunk: int, h0=None,
+                       dh_last=None):
+    b, s, nh, p = x.shape
+    n = bmat.shape[-1]
+    dev = x.device
+    nchunks = max(1, -(-s // chunk))
+    pad = nchunks * chunk - s
+    xf, dyf = x.float(), dy.float()
+    if pad:
+        xf, dyf = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+                   for t in (xf, dyf))
+        dt = torch.nn.functional.pad(dt, (0, 0, 0, pad))
+        bmat = torch.nn.functional.pad(bmat, (0, 0, 0, pad))
+        cmat = torch.nn.functional.pad(cmat, (0, 0, 0, pad))
+    L = chunk
+    xc = xf.reshape(b, nchunks, L, nh, p)
+    dyc = dyf.reshape(b, nchunks, L, nh, p)
+    dtc = dt.reshape(b, nchunks, L, nh)
+    bc = bmat.reshape(b, nchunks, L, n)
+    cc = cmat.reshape(b, nchunks, L, n)
+    tril = torch.ones((L, L), dtype=torch.bool, device=dev).tril()
+    zero = torch.zeros((), device=dev)
+    # the forward sweep: cum and the state entering each chunk, h_last last
+    h = (torch.zeros((b, nh, p, n), dtype=torch.float32, device=dev)
+         if h0 is None else h0)
+    cums, states = [], [h]
+    for c in range(nchunks):
+        cum = torch.cumsum(a[None, None, :] * dtc[:, c], dim=1)   # (B, L, H)
+        tail = torch.exp(cum[:, -1:, :] - cum)
+        h = (torch.exp(cum[:, -1, :])[:, :, None, None] * h
+             + torch.einsum("blhp,bln->bhpn",
+                            xc[:, c] * (dtc[:, c] * tail)[..., None],
+                            bc[:, c]))
+        cums.append(cum)
+        states.append(h)
+    g = (torch.zeros((b, nh, p, n), dtype=torch.float32, device=dev)
+         if dh_last is None else dh_last)
+    dxs, ddts, dbs, dcs = [], [], [], []
+    da = torch.zeros((nh,), dtype=torch.float32, device=dev)
+    for c in reversed(range(nchunks)):
+        xi, dyi, dti, bi, ci = xc[:, c], dyc[:, c], dtc[:, c], bc[:, c], cc[:, c]
+        cum, hc, hn = cums[c], states[c], states[c + 1]
+        # gate[t, u] = exp(cum_t - cum_u) for u <= t           (B, L, L, H)
+        gate = torch.where(tril[None, :, :, None],
+                           torch.exp(cum[:, :, None, :] - cum[:, None, :, :]),
+                           zero)
+        att = torch.einsum("btn,bun->btu", ci, bi)[..., None] * gate
+        mg = torch.einsum("bthp,buhp->btuh", dyi, xi) * gate
+        tail = torch.exp(cum[:, -1:, :] - cum)                  # (B, L, H)
+        ecum = torch.exp(cum)
+        dxh = (torch.einsum("btuh,bthp->buhp", att, dyi)
+               + tail[..., None] * torch.einsum("bhpn,bun->buhp", g, bi))
+        dx = dxh * dti[..., None]
+        dcs.append(torch.einsum("btuh,buh,bun->btn", mg, dti, bi)
+                   + torch.einsum("bth,bthp,bhpn->btn", ecum, dyi, hc))
+        dbs.append(torch.einsum("buh,btuh,btn->bun", dti, mg, ci)
+                   + torch.einsum("buh,buhp,bhpn->bun", tail * dti, xi, g))
+        y = (torch.einsum("btuh,buh,buhp->bthp", att, dti, xi)
+             + torch.einsum("btn,bhpn,bth->bthp", ci, hc, ecum))
+        dcum = (dyi * y).sum(-1) - (xi * dx).sum(-1)            # (B, L, H)
+        dcum[:, -1] += (g * hn).sum((-2, -1))
+        r = torch.flip(torch.cumsum(torch.flip(dcum, (1,)), 1), (1,))
+        dxs.append(dx)
+        ddts.append((xi * dxh).sum(-1) + a * r)
+        da = da + (dti * r).sum((0, 1))
+        g = (torch.exp(cum[:, -1, :])[:, :, None, None] * g
+             + torch.einsum("bth,bthp,btn->bhpn", ecum, dyi, ci))
+
+    def join(parts, *tail_shape):
+        return torch.stack(parts[::-1], dim=1).reshape(
+            b, nchunks * L, *tail_shape)[:, :s]
+
+    return (join(dxs, nh, p).to(x.dtype), join(ddts, nh), da,
+            join(dbs, n), join(dcs, n), g)
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                 bmat: torch.Tensor, cmat: torch.Tensor, dy: torch.Tensor, *,
+                 chunk: int, h0: torch.Tensor | None = None,
+                 dh_last: torch.Tensor | None = None,
+                 y: torch.Tensor | None = None):
+    """(dx, ddt, da, dbmat, dcmat, dh0) of ``ssd_scan(x, dt, a, bmat, cmat,
+    chunk=chunk, h0=h0) = (y, h_last)`` at the gradients dy (B, S, H, P)
+    and dh_last (B, H, P, N; zeros when None), f32 and contiguous.  ``y``
+    is the forward's output; the CUDA kernels need it."""
+    if x.dim() != 4 or bmat.dim() != 3:
+        raise ValueError("x must be (B, S, H, P) and bmat (B, S, N)")
+    b, s, nh, p = x.shape
+    n = bmat.shape[-1]
+    if h0 is None:
+        h0 = torch.zeros((b, nh, p, n), dtype=torch.float32, device=x.device)
+    extra = tuple(t for t in (dh_last, y) if t is not None)
+    dev = _check(x, dt, a, bmat, cmat, h0, chunk)
+    check_same_device(x, dy, *extra)
+    if dy.shape != (b, s, nh, p) or (y is not None and y.shape != dy.shape) \
+            or (dh_last is not None and dh_last.shape != h0.shape):
+        raise ValueError("dy and y must be (B, S, H, P) and dh_last "
+                         "(B, H, P, N), as the forward's y and h_last")
+    if any(t.dtype != torch.float32 for t in (dy, *extra)):
+        raise TypeError("ssd_scan_bwd takes f32 dy, dh_last and y")
+    if dev.type == "cpu":
+        return ssd_scan_bwd_plain(x, dt, a, bmat, cmat, dy, chunk=chunk,
+                                  h0=h0, dh_last=dh_last)
+    if y is None:
+        raise ValueError("ssd_scan_bwd on CUDA tensors reads the forward's "
+                         "y; it does not recompute it")
+    dx = torch.empty_like(x)
+    ddt = torch.empty_like(dt)
+    da = torch.empty_like(a)
+    dbm, dcm = torch.empty_like(bmat), torch.empty_like(cmat)
+    dh0 = torch.empty_like(h0)
+    if b * nh == 0:
+        return dx, ddt, da.zero_(), dbm.zero_(), dcm.zero_(), dh0
+    lib = _build.lib()
+    ws = torch.empty(lib.ssd_scan_bwd_workspace(b, s, nh, p, n),
+                     dtype=torch.float32, device=dev)
+    index, stream = launch_args(dev)
+    err = lib.ssd_scan_bwd_launch(
+        x.data_ptr(), dy.data_ptr(), y.data_ptr(), dt.data_ptr(),
+        a.data_ptr(), bmat.data_ptr(), cmat.data_ptr(), h0.data_ptr(),
+        None if dh_last is None else dh_last.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), da.data_ptr(), dbm.data_ptr(), dcm.data_ptr(),
+        dh0.data_ptr(), ws.data_ptr(), b, s, nh, p, n, _DTYPES[x.dtype],
+        index, stream)
+    _build.check(err, "ssd_scan_bwd")
+    ssd_scan.backward_launches += 1
+    return dx, ddt, da, dbm, dcm, dh0

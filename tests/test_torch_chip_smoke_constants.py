@@ -468,6 +468,12 @@ def test_scale_table():
     for name in ("fit-quick", "web-mid"):
         assert held[name]["repair_moves"] > 0
         assert held[name]["boundary_edges"] > 0
+    # a run without a CPU twin is a fit whose member the reference pins,
+    # and a fit of the same code keeps its twin
+    assert chip_smoke.SCALE_NO_TWIN == ("fit-quick",)
+    for name in chip_smoke.SCALE_NO_TWIN:
+        assert name in chip_smoke.SCALE_FITS and "member_sha256" in held[name]
+    assert "web-mid" not in chip_smoke.SCALE_NO_TWIN
 
 
 @pytest.mark.parametrize("name", list(chip_smoke.SCALE_RUNS))
@@ -761,9 +767,9 @@ def test_phase_order_puts_the_moe_phases_before_health():
     assert phases.index("serve-moe") + 1 == phases.index("serve-moe-check")
     # then the MLA phases, then the training ones, then health
     i = phases.index("serve-moe-check")
-    assert phases[i:i + 6] == ("serve-moe-check", "serve-mla",
+    assert phases[i:i + 8] == ("serve-moe-check", "serve-mla",
                                "serve-mla-check", "train", "train-check",
-                               "health")
+                               "train-ssm", "train-ssm-check", "health")
     assert phases[-2:] == ("health", "scale")
 
 
@@ -1142,7 +1148,8 @@ def test_frontend_bounds():
 def test_phase_order_puts_the_training_phases_after_serving():
     phases = chip_smoke.PHASES
     i = phases.index("serve-mla-check")
-    assert phases[i + 1:] == ("train", "train-check", "health", "scale")
+    assert phases[i + 1:] == ("train", "train-check", "train-ssm",
+                              "train-ssm-check", "health", "scale")
 
 
 def test_train_phase_is_olmo_at_full_width_and_depth():

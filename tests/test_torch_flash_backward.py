@@ -310,12 +310,12 @@ def test_wgmma_rows_cover_the_tensor_core_head_dims():
 
 def test_refuse_grad_raises_only_when_a_gradient_is_asked_for():
     x = torch.zeros(3, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 9.7"):
-        refuse_grad("ssd_scan", "ROADMAP Queue 1 item 9.7 brings it", x)
+    item = "ROADMAP Queue 1 item 9.8 brings it, with mla_decomp"
+    with pytest.raises(NotImplementedError, match="item 9.8"):
+        refuse_grad("flash_attention_latent", item, x)
     with torch.no_grad():
-        refuse_grad("ssd_scan", "ROADMAP Queue 1 item 9.7 brings it", x)
-    refuse_grad("ssd_scan", "ROADMAP Queue 1 item 9.7 brings it",
-                x.detach())
+        refuse_grad("flash_attention_latent", item, x)
+    refuse_grad("flash_attention_latent", item, x.detach())
 
 
 def test_every_kernel_without_a_backward_refuses_on_the_card():
@@ -324,8 +324,7 @@ def test_every_kernel_without_a_backward_refuses_on_the_card():
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
-    for fn, item in ((ssd_ops.ssd_scan, "item 9.7"),
-                     (flash_ops.flash_attention_latent, "item 9.8"),
+    for fn, item in ((flash_ops.flash_attention_latent, "item 9.8"),
                      (decode_ops.decode_attention, "item 9.5"),
                      (decode_ops.decode_attention_latent, "item 9.5")):
         src = inspect.getsource(fn)
@@ -334,6 +333,10 @@ def test_every_kernel_without_a_backward_refuses_on_the_card():
         launch = src.index("_build.lib()")
         assert cpu < refuse < launch, fn.__name__
         assert item in src[refuse:launch], fn.__name__
-    # flash_attention is differentiable: its CUDA route is the Function
+    # flash_attention and ssd_scan are differentiable: their CUDA routes
+    # are the Functions
     src = inspect.getsource(flash_ops.flash_attention)
     assert "_FlashAttention.apply" in src and "refuse_grad" not in src
+    src = inspect.getsource(ssd_ops.ssd_scan)
+    assert "_SSDScan.apply" in src and "refuse_grad" not in src
+    assert "refuse_grad" not in inspect.getsource(ssd_ops)

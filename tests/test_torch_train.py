@@ -5,7 +5,8 @@ its gradients and whole train steps, on the reference's parameters
 * ``softmax_xent`` with and without a mask, within 1e-6;
 * ``train_loss`` and its gradient (``jax.value_and_grad`` against
   ``torch.autograd.grad``) for reduced f32 olmo-1b (dense), qwen3-moe
-  (the MoE aux terms) and deepseek-v3 (MLA and the MTP term): the loss
+  (the MoE aux terms), deepseek-v3 (MLA and the MTP term), mamba2-2.7b
+  (pure SSM) and hymba-1.5b (attention beside the SSM): the loss
   within 1e-5 relative, each gradient leaf within 1e-4 of its largest
   |value| (f32 sums taken in another order; attention in the reference is
   an online softmax over KV chunks, the port's plain version a direct
@@ -110,7 +111,8 @@ def test_softmax_xent_empty_mask_divides_by_one():
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-moe-30b-a3b",
-                                  "deepseek-v3-671b"])
+                                  "deepseek-v3-671b", "mamba2-2.7b",
+                                  "hymba-1.5b"])
 def test_train_loss_and_grads_match_reference(arch):
     ref_cfg, cfg = _configs(arch)
     ref_params = ref_init_params(ref_cfg, jax.random.PRNGKey(0))

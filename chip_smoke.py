@@ -414,11 +414,10 @@ Phases, each printed on a line of its own:
                  210, 4 shards), serial, with their avg_span on the span
                  engine; ``PlacementService.fit_sharded`` of web-mid with
                  a profile and the durability pass.  Each run is held
-                 against its CPU twin (run after the card runs; none for
-                 fit-quick, ``SCALE_NO_TWIN``) and the JAX package's values
-                 (``SCALE_HELD``), with launches as the twin's dispatch
-                 (fit-quick: every kernel it needs launched) and the
-                 peel's launches printed by
+                 against its CPU twin (run after the card runs; fit-quick's
+                 as recorded, ``SCALE_DISPATCH``) and the JAX package's
+                 values (``SCALE_HELD``), with launches as the twin's
+                 dispatch and the peel's launches printed by
                  (K, U) class; then fit-quick (on
                  min(8, cores), at least 2, workers) and web-mid (on 2)
                  once more with their shards on spawned card workers, each
@@ -816,10 +815,14 @@ SCALE_FITS = {
                 dict(num_shards=4, max_moves=150, boundary_repair=128)),
 }
 SCALE_POOLED = {"fit-quick": None, "web-mid": 2}
-# runs held against SCALE_HELD without a CPU twin: fit-quick's twin took
-# ~150 s of host time, and SCALE_HELD already pins its member bit for bit;
-# web-mid's twin checks the same dispatch at a smaller size
-SCALE_NO_TWIN = ("fit-quick",)
+# fit-quick's CPU twin as counted once, in place of running it (~150 s of
+# host time): its dispatch, which the card's launches must equal.  Its held
+# values are SCALE_HELD's, and its member is pinned there bit for bit, so
+# the calls it makes do not change from run to run
+SCALE_DISPATCH = {
+    "fit-quick": {"span_gain": 1004, "cover_rounds": 2,
+                  "lockstep_peel": 1479},
+}
 SCALE_STATS = ("shards", "components", "boundary_edges", "boundary_cost",
                "shard_moves", "repair_moves")
 SCALE_SECONDS = ("shard_seconds", "fit_seconds", "merge_seconds",
@@ -2176,18 +2179,22 @@ def _ssd_bwd_err(torch, got, want) -> float:
 
 def _ssd_bwd_work(B, S, NH, P, N, Lb) -> float:
     """fp32 operations of ssd_scan's backward at its chunk ``Lb`` (every
-    product on the CUDA cores): per chunk of one head the state pass's two
-    (P x N) sums over the chunk, the gradient pass's gated C B^T and dy
-    x^T (lower triangle), dxh, dC and dB (each a triangle over the chunk
-    and a rank-P or rank-N product), 2 flops a multiply-add; the chains'
-    two multiply-adds per state element and chunk."""
-    nch = B * NH * -(-S // Lb)
+    product on the CUDA cores), 2 flops a multiply-add.  Per chunk of one
+    head: the state pass's two (P x N) sums over the chunk, the gated dy
+    x^T (lower triangle), dxh (a triangle and a rank-N product) and the
+    rank-P parts of dC and dB.  Per chunk of one batch row, since B and C
+    are shared by every head: C B^T and the triangles of dC and dB, taken
+    once on the gated tiles summed over the heads.  The chains: two
+    multiply-adds per state element and chunk."""
+    chunks = B * -(-S // Lb)
+    nch = chunks * NH
     tri = Lb * (Lb + 1) / 2
-    per_chunk = (2 * Lb * P * N                 # the two chunk states
-                 + tri * (N + P)                # gated C B^T, dy x^T
-                 + tri * P + Lb * N * P         # dxh
-                 + 2 * (tri * N + Lb * P * N))  # dC, dB
-    return 2.0 * nch * per_chunk + 4.0 * nch * P * N
+    per_head = (2 * Lb * P * N                # the two chunk states
+                + tri * P                     # gated dy x^T
+                + tri * P + Lb * N * P        # dxh
+                + 2 * Lb * P * N)             # dC, dB rank-P parts
+    shared = 3 * tri * N                      # C B^T, dC and dB triangles
+    return 2.0 * (nch * per_head + chunks * shared) + 4.0 * nch * P * N
 
 
 def _ssd_bwd_rows(torch, dev):
@@ -5224,12 +5231,15 @@ def scale_run(np, name, inp, device):
 
 def scale_twins(np, inp) -> dict:
     """The CPU twins of the scale runs, each inside its own partition memo
-    under ``SCALE_VARIANT``, counting the dispatch."""
+    under ``SCALE_VARIANT``, counting the dispatch; those of
+    ``SCALE_DISPATCH`` as recorded (no wall)."""
     from repro_torch import core, flags
 
     out = {}
     for name in SCALE_RUNS:
-        if name in SCALE_NO_TWIN:
+        if name in SCALE_DISPATCH:
+            out[name] = dict(held=SCALE_HELD[name], wall=None,
+                             dispatch=SCALE_DISPATCH[name])
             continue
         flags.set_variant(SCALE_VARIANT)
         t0 = time.perf_counter()
@@ -5244,12 +5254,12 @@ def scale_twins(np, inp) -> dict:
 def phase_scale(np, torch, kernels, inp):
     """Every run of ``SCALE_RUNS`` on the card, each inside its own
     partition memo, held against its CPU twin (``scale_twins``, run after
-    the card runs so that these have the host to themselves; none for
-    ``SCALE_NO_TWIN``) and against ``SCALE_HELD``, with launches as the
-    twin's dispatch calls the wrappers.  ``stream`` is host numpy and launches nothing.  Then the
-    fits of ``SCALE_POOLED`` once more with their shards on spawned card
-    workers: the pool must have run and the member must equal the serial
-    run's.  The pooled runs' launches are the parent's (the repair); the
+    the card runs so that these have the host to themselves; recorded for
+    ``SCALE_DISPATCH``) and against ``SCALE_HELD``, with launches as the
+    twin's dispatch calls the wrappers.  ``stream`` is host numpy and
+    launches nothing.  Then the fits of ``SCALE_POOLED`` once more with
+    their shards on spawned card workers: the pool must have run and the
+    member must equal the serial run's.  The pooled runs' launches are the parent's (the repair); the
     workers' own are not counted."""
     import os
 
@@ -5273,16 +5283,15 @@ def phase_scale(np, torch, kernels, inp):
     for name, need in SCALE_RUNS.items():
         label = f"scale {name}"
         held, launches = card[name]["held"], card[name]["launches"]
-        twin = twins.get(name)
-        if twin is not None:
-            _require(held == twin["held"], f"{label}: {held} differs from "
-                     f"the CPU run's {twin['held']}")
-            _require(launches == twin["dispatch"],
-                     f"{label}: launches {launches} differ from the CPU "
-                     f"dispatch's {twin['dispatch']}")
+        twin = twins[name]
+        _require(held == twin["held"],
+                 f"{label}: {held} differs from the CPU run's {twin['held']}")
         _require(held == SCALE_HELD[name],
                  f"{label}: {held} is not the reference's "
                  f"{SCALE_HELD[name]}")
+        _require(launches == twin["dispatch"],
+                 f"{label}: launches {launches} differ from the CPU "
+                 f"dispatch's {twin['dispatch']}")
         for kernel in need:
             _require(launches[kernel] > 0,
                      f"{label}: kernel {kernel} never launched")
@@ -5290,17 +5299,17 @@ def phase_scale(np, torch, kernels, inp):
         seconds = {k: stats[k] for k in SCALE_SECONDS if k in stats}
         classes = ", ".join(f"K{k}.U{u}: {c}" for (k, u), c in sorted(
             card[name]["peel_classes"].items(), key=lambda kv: -kv[1]))
-        cpu = ("cpu_twin=not_run" if twin is None else
+        cpu = ("cpu_twin=recorded" if twin["wall"] is None else
                f"cpu_wall_s={twin['wall']:.3f} cpu_match=bitwise")
         print(f"{label}: {json.dumps(held)} wall_s={card[name]['wall']:.3f} "
               f"{cpu} reference_match=exact launches={launches} "
-              f"cpu_dispatch={None if twin is None else twin['dispatch']}"
+              f"cpu_dispatch={twin['dispatch']}"
               + (f" stage_s={json.dumps(seconds)}" if seconds else "")
               + (f" peel_launches_by_class={{{classes}}}" if classes
                  else ""), flush=True)
         runs.append(dict(name=name, launches=launches,
                          wall=card[name]["wall"],
-                         cpu_wall=None if twin is None else twin["wall"]))
+                         cpu_wall=twin["wall"]))
     for name, workers in SCALE_POOLED.items():
         if workers is None:
             workers = max(2, min(8, os.cpu_count() or 1))

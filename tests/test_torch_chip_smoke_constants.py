@@ -468,12 +468,16 @@ def test_scale_table():
     for name in ("fit-quick", "web-mid"):
         assert held[name]["repair_moves"] > 0
         assert held[name]["boundary_edges"] > 0
-    # a run without a CPU twin is a fit whose member the reference pins,
-    # and a fit of the same code keeps its twin
-    assert chip_smoke.SCALE_NO_TWIN == ("fit-quick",)
-    for name in chip_smoke.SCALE_NO_TWIN:
+    # a twin kept as its recorded dispatch is a fit whose member the
+    # reference pins, counted for every kernel, each it needs called; a
+    # fit of the same code keeps its twin
+    assert list(chip_smoke.SCALE_DISPATCH) == ["fit-quick"]
+    for name, dispatch in chip_smoke.SCALE_DISPATCH.items():
         assert name in chip_smoke.SCALE_FITS and "member_sha256" in held[name]
-    assert "web-mid" not in chip_smoke.SCALE_NO_TWIN
+        assert set(dispatch) == {"span_gain", "cover_rounds",
+                                 "lockstep_peel"}
+        assert all(dispatch[k] > 0 for k in chip_smoke.SCALE_RUNS[name])
+    assert "web-mid" not in chip_smoke.SCALE_DISPATCH
 
 
 @pytest.mark.parametrize("name", list(chip_smoke.SCALE_RUNS))

@@ -37,9 +37,10 @@ Phases, each printed on a line of its own:
                  no spill allowed; on the CUDA cores for f32 at D 32, 64,
                  80 and 128 and bf16 at D 32); and of ssd_scan's backward
                  (``SSD_BWD_INSTANCES``, each of which the build must make:
-                 the state and gradient passes for f32 and bf16 x at P 16,
-                 32 and 64, the chain and reduce passes), with the
-                 gradient pass's shared memory at P 64, N 128.
+                 the state pass (the chunk states and both chains) and the
+                 gradient pass for f32 and bf16 x at P 16, 32 and 64, the
+                 reduce pass; no spill allowed), with the gradient pass's
+                 shared memory at P 64, N 128.
 2. kernels     — hold each kernel against its plain PyTorch version on the
                  card and time kernel, plain version, library call (where
                  one PyTorch call computes the same function) and the
@@ -161,16 +162,19 @@ Phases, each printed on a line of its own:
                  and dh_last) against ssd_scan_bwd_plain at ``SSD_BWD``:
                  mamba2-2.7b's training shape (B 8, S 1024, H 80, P 64, N
                  128, chunk 256) and hymba-1.5b's (H 50, N 16), a ragged S
-                 at P 32, N 12, chunk 100, and P 16 at N 72 with no
-                 dh_last, x in bf16 and f32 (every instance the build
-                 makes); every f32 output within 1e-4 of its largest
-                 |value|, a bf16 dx each element within 2^-7 of itself
-                 plus 1e-4 of the largest; each check must reject the
-                 backward with h0 dropped and, where given, with dh_last
-                 dropped.  Its rows time the kernel (the training shapes
-                 also per pass: state, chain, grad, reduce) and the plain
-                 version beside the bound (fp32 operations at the fp32
-                 peak; no PyTorch call computes it).
+                 at P 32, N 12, chunk 100, P 16 at N 72 with no dh_last
+                 and N 13 (rows not a multiple of 16 bytes), x in bf16
+                 and f32 (every instance the build makes); every f32
+                 output within 1e-4 of its largest |value|, a bf16 dx
+                 each element within 2^-7 of itself plus 1e-4 of the
+                 largest; each check must reject the backward with h0
+                 dropped and, where given, with dh_last dropped; at the
+                 training shapes two calls must give the same outputs bit
+                 for bit.  Its rows time the kernel (the training shapes
+                 also per pass: state, grad, reduce) and the plain version
+                 beside the bound (the split products at the tensor-core
+                 peaks, ``_ssd_bwd_work``; no PyTorch call computes it)
+                 and the workspace's bytes.
 3. fit-stress  — ``Simulator(64, 50).run(lmbr_stress_workload(seed=0), lmbr,
                  seed=0, max_moves=1200)`` on the card with the dense peel
                  and the span_gain kernel pinned; the summary and member
@@ -1063,23 +1067,25 @@ def _ssd_instance(entry: str):
 
 def _ssd_bwd_instance(entry: str):
     """(pass, x dtype, P) of an ssd_scan backward kernel's mangled name;
-    the chain and reduce passes have neither dtype nor P."""
-    m = re.search(r"ssd_bwd_(state|chain|grad|reduce)_kernel", entry)
+    the reduce pass has neither dtype nor P."""
+    m = re.search(r"ssd_bwd_(state|grad|reduce)_kernel", entry)
     if not m:
         return None
-    if m.group(1) in ("chain", "reduce"):
-        return (m.group(1), None, None)
+    if m.group(1) == "reduce":
+        return ("reduce", None, None)
     p = re.search(r"Li(\d+)E", entry)
     return (m.group(1), "bf16" if "__nv_bfloat16" in entry else "f32",
             int(p.group(1)))
 
 
 # the backward's instances the build must make: the state and gradient
-# passes for each x dtype and P, one chain and one reduce pass
+# passes for each x dtype and P, one reduce pass
 SSD_BWD_INSTANCES = (
     tuple((p, dt, hd) for p in ("state", "grad") for dt in ("f32", "bf16")
           for hd in (16, 32, 64))
-    + (("chain", None, None), ("reduce", None, None)))
+    + (("reduce", None, None),))
+# the backward's passes, in launch order
+SSD_BWD_PASSES = ("state", "grad", "reduce")
 
 
 def _attention_instance(entry: str):
@@ -1243,6 +1249,10 @@ def phase_build(_build):
     _require(ssd_bwd_smem <= 232448, f"build: the ssd_scan_bwd gradient "
              f"pass needs {ssd_bwd_smem} bytes of shared memory at P 64, "
              "N 128")
+    for inst, e in ssd_bwd.items():
+        _require(e["spill_stores"] == 0 and e["spill_loads"] == 0,
+                 f"build: the ssd_scan_bwd instance {inst} spills "
+                 f"({e['spill_stores']} / {e['spill_loads']} bytes)")
     # flash_attention's backward: every instance built
     bwd = {_bwd_instance(e["entry"]): e for e in entries
            if _bwd_instance(e["entry"])}
@@ -2138,13 +2148,15 @@ def _ssd_domain_rows(torch, dev, dtype):
 
 # ssd_scan's backward: label, B, S, H, P, N, chunk, x dtypes, dh_last given.
 # mamba2-2.7b's and hymba-1.5b's training shapes (the TRAIN batch, their
-# SSM widths), then a ragged S with P 32 at an odd N and chunk, and P 16
-# at N 72 with no dh_last, so that every (x dtype, P) instance runs
+# SSM widths), then a ragged S with P 32 at an odd N and chunk, P 16 at N
+# 72 with no dh_last, so that every (x dtype, P) instance runs, and N 13,
+# whose rows the passes stage in 4-byte pieces and store one by one
 SSD_BWD = (
     ("mamba2-2.7b", 8, 1024, 80, 64, 128, 256, ("bf16", "f32"), True),
     ("hymba-1.5b", 8, 1024, 50, 64, 16, 256, ("bf16", "f32"), True),
     ("ragged.P32", 2, 1000, 8, 32, 12, 100, ("bf16", "f32"), True),
     ("P16.N72", 2, 777, 4, 16, 72, 256, ("bf16", "f32"), False),
+    ("N13", 1, 200, 3, 64, 13, 64, ("bf16", "f32"), True),
 )
 # the rows at training shapes, whose times add the profiler's device ms
 SSD_BWD_PROFILED = ("mamba2-2.7b", "hymba-1.5b")
@@ -2177,37 +2189,43 @@ def _ssd_bwd_err(torch, got, want) -> float:
     return worst
 
 
-def _ssd_bwd_work(B, S, NH, P, N, Lb) -> float:
-    """fp32 operations of ssd_scan's backward at its chunk ``Lb`` (every
-    product on the CUDA cores), 2 flops a multiply-add.  Per chunk of one
-    head: the state pass's two (P x N) sums over the chunk, the gated dy
-    x^T (lower triangle), dxh (a triangle and a rank-N product) and the
-    rank-P parts of dC and dB.  Per chunk of one batch row, since B and C
-    are shared by every head: C B^T and the triangles of dC and dB, taken
-    once on the gated tiles summed over the heads.  The chains: two
-    multiply-adds per state element and chunk."""
+def _ssd_bwd_work(bf16: bool, B, S, NH, P, N, Lb) -> tuple:
+    """(ops, peak) of ssd_scan's backward at its chunk ``Lb``, 2 flops a
+    multiply-add, each split product counted as its three products on the
+    tensor cores.  Per chunk of one head: the state pass's two (P x N)
+    sums over the chunk, the gated dy x^T (lower triangle), dxh (a
+    triangle and a rank-N product) and the rank-P parts of dC and dB.
+    Per chunk of one batch row, since B and C are shared by every head: C
+    B^T and the triangles of dC and dB, taken once on the gated tile
+    summed over the heads.  Against bf16 x, x^T (w B), dy x^T and x g are
+    three bf16 products; the rest (all of them for f32 x) split TF32.  The
+    chains: two fp32 multiply-adds per state element and chunk."""
     chunks = B * -(-S // Lb)
     nch = chunks * NH
     tri = Lb * (Lb + 1) / 2
-    per_head = (2 * Lb * P * N                # the two chunk states
-                + tri * P                     # gated dy x^T
-                + tri * P + Lb * N * P        # dxh
-                + 2 * Lb * P * N)             # dC, dB rank-P parts
-    shared = 3 * tri * N                      # C B^T, dC and dB triangles
-    return 2.0 * (nch * per_head + chunks * shared) + 4.0 * nch * P * N
+    vs_x = nch * (2 * Lb * P * N + tri * P)   # x^T (w B), x g, dy x^T
+    f32 = (nch * (2 * Lb * P * N              # dy^T (e C), dy h_c
+                  + tri * P + Lb * N * P)     # dxh
+           + chunks * 3 * tri * N)            # C B^T, dC and dB triangles
+    return ((6.0 * (f32 + (0 if bf16 else vs_x)), TF32_OPS_PER_S),
+            (6.0 * vs_x if bf16 else 0.0, BF16_OPS_PER_S),
+            (4.0 * nch * P * N, FP32_OPS_PER_S))
 
 
 def _ssd_bwd_rows(torch, dev):
-    """ssd_scan_bwd (four launches: state, chain, grad, reduce) against
+    """ssd_scan_bwd (three launches: state, grad, reduce) against
     ssd_scan_bwd_plain at ``SSD_BWD``, from a nonzero h0, on the y of the
     forward kernel and standard-normal dy (and dh_last, 0.1 of it): within
     the tolerance, and rejecting the wrong variants (``SSD_BWD_WRONG``).
-    Each row times the kernel (host and, at the training shapes, profiler
-    device ms in all and per pass), the plain version and the bound: the
-    fp32 operations at the fp32 peak against x, dy, y, dt, B, C, h0,
-    dh_last and the outputs moved once."""
+    At the training shapes a second call must give the same six outputs
+    bit for bit.  Each row times the kernel (host and, at the training
+    shapes, profiler device ms in all and per pass), the plain version and
+    the bound: the operations by type (``_ssd_bwd_work``) against x, dy,
+    y, dt, B, C, h0, dh_last and the outputs moved once; and the
+    workspace's bytes."""
     import torch.nn.functional as F
 
+    from repro_torch import _build
     from repro_torch.kernels.ssd_scan.ops import (
         BWD_CHUNK, ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain)
 
@@ -2248,6 +2266,15 @@ def _ssd_bwd_rows(torch, dev):
                              k: _max_abs([g], [w]) for k, g, w in zip(
                                  ("dx", "ddt", "da", "dB", "dC", "dh0"),
                                  got, want)})
+            profiled = label in SSD_BWD_PROFILED
+            if profiled:   # no atomics: a second call is bit-identical
+                again = ssd_scan_bwd(x, dt, a, bm, cm, dy, chunk=L, h0=h0,
+                                     dh_last=dh, y=y)
+                torch.cuda.synchronize()
+                _require(all(torch.equal(u, v) for u, v in zip(got, again)),
+                         f"{name}: two calls differ")
+                check["deterministic"] = True
+                del again
             del got
             wrongs = {"no_h0": ssd_scan_bwd_plain(
                 x, dt, a, bm, cm, dy, chunk=L, dh_last=dh)}
@@ -2263,25 +2290,26 @@ def _ssd_bwd_rows(torch, dev):
             nbytes = (B * S * H * P * (2 * esz + 8) + 2 * B * S * H * 4
                       + H * 8 + 4 * B * S * N * 4
                       + (3 if with_dh else 2) * B * H * P * N * 4)
-            bound, by = _bound_ms(nbytes, _ssd_bwd_work(B, S, H, P, N,
-                                                        BWD_CHUNK))
+            bound, by = _bound_ms_by_type(nbytes, _ssd_bwd_work(
+                tag == "bf16", B, S, H, P, N, BWD_CHUNK))
 
             def kern():
                 return ssd_scan_bwd(x, dt, a, bm, cm, dy, chunk=L, h0=h0,
                                     dh_last=dh, y=y)
 
-            profiled = label in SSD_BWD_PROFILED
             passes = _device_times(torch, kern, 3) if profiled else {}
             rows.append(dict(
                 shape=f"{label}.B{B}.S{S}.H{H}.P{P}.N{N}.L{L}.{tag}"
                 + ("" if with_dh else ".no_dh_last"),
                 instance=f"{tag}.P{P}", run_chunk=BWD_CHUNK, **check,
+                workspace_bytes=4 * _build.lib().ssd_scan_bwd_workspace(
+                    B, S, H, P, N),
                 ms=_cuda_ms(torch, kern, 3),
                 device_ms=sum(passes.values()) if passes else None,
                 device_ms_by_pass={p: sum(v for k, v in passes.items()
                                           if f"ssd_bwd_{p}_kernel" in k)
-                                   for p in ("state", "chain", "grad",
-                                             "reduce")} if passes else None,
+                                   for p in SSD_BWD_PASSES}
+                if passes else None,
                 plain_ms=_cuda_ms(torch, lambda: ssd_scan_bwd_plain(
                     x, dt, a, bm, cm, dy, chunk=L, h0=h0, dh_last=dh), 2),
                 library_ms=None, library_device_ms=None,
@@ -5681,14 +5709,14 @@ def main(argv=None) -> int:
                               device_ms_by_pass=row.get(
                                   "device_ms_by_pass"))
         if name == "ssd_scan_bwd":
-            # launches: backward calls on the train-ssm path, four kernel
-            # launches each (state, chain, grad, reduce); ms is the bf16
+            # launches: backward calls on the train-ssm path, three kernel
+            # launches each (state, grad, reduce); ms is the bf16
             # row's at mamba2-2.7b's training shape, which train-ssm runs
             report[-1].update(computes="jax.vjp of src/repro/models/"
                               "ssm.py:63 ssd_chunked, as train_loss "
                               "differentiates it (src/repro/models/"
                               "model.py:323)",
-                              launches_per_call=4,
+                              launches_per_call=len(SSD_BWD_PASSES),
                               instance=row.get("instance"),
                               device_ms_by_pass=row.get(
                                   "device_ms_by_pass"))

@@ -66,11 +66,16 @@ gradient and is cut off.
   time (not autograd through ``ssd_scan_plain``).
 * ``ssd_scan_bwd`` — the wrapper: plain version for CPU tensors (y, when
   given, is checked and not needed), the CUDA kernels
-  (``csrc/ssd_scan_bwd.cu``: a state pass, a chain pass, a gradient pass
-  and a reduction, run at their own chunk ``BWD_CHUNK``) for CUDA
-  tensors, which read the forward's y and raise without it; their
-  workspace comes from ``torch.empty``.  ``ssd_scan.backward_launches``
-  counts its calls (four kernel launches each).
+  (``csrc/ssd_scan_bwd.cu``, run at their own chunk ``BWD_CHUNK``: a state
+  pass per (direction, head) that walks the chunks, the chunk states and
+  both chains; a gradient pass per (chunk, batch row) that walks the
+  heads and writes dB and dC summed over them; a reduction of da; every
+  product on the tensor cores) for CUDA tensors, which read the forward's
+  y and raise without it; their workspace (the h and g slots and the
+  shares of da, B * H * chunks * (2 P N + 1) floats, 0.67 GB at
+  mamba2-2.7b's B 8 x S 1024) comes from ``torch.empty``.
+  ``ssd_scan.backward_launches`` counts its calls (three kernel launches
+  each).
 """
 
 from __future__ import annotations
@@ -92,8 +97,9 @@ MAX_STATE = 128
 # block's 227 KB of shared memory (the source's kMaxTile)
 MAX_TILE = 16384
 # the chunk the backward's passes run at (the source's kBwdChunk): its
-# gradient pass holds a chunk's x, dy, B and C, the two states and two
-# L x L products in shared memory, 200 256 bytes at P 64 and N 128
+# gradient pass holds a chunk's B and B C^T and two heads' x, dy and
+# g_{c+1} and one head's h_c in shared memory, 229 536 bytes at P 64 and
+# N 128 for f32 x
 BWD_CHUNK = 64
 
 
@@ -363,6 +369,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if y is None:
         raise ValueError("ssd_scan_bwd on CUDA tensors reads the forward's "
                          "y; it does not recompute it")
+    # the passes copy x, dy, y, bmat and cmat in 16-byte pieces
+    x, dy, y, bmat, cmat = (t if t.data_ptr() % 16 == 0 else t.clone()
+                            for t in (x, dy, y, bmat, cmat))
     dx = torch.empty_like(x)
     ddt = torch.empty_like(dt)
     da = torch.empty_like(a)

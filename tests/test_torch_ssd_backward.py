@@ -4,16 +4,18 @@ CUDA kernel to) against ``jax.vjp`` of the reference's ``ssd_chunked``
 (what the reference's training differentiates) and against
 ``torch.autograd.grad`` through ``ssd_scan_plain``, on the same seeded
 inputs, each of dx, ddt, da, dB, dC and dh0 within 1e-4 of its largest
-|value| in f32.  N 16 at chunk 32, N 128 at chunk 256, a ragged S, a
-nonzero h0 with and without dh_last.
+|value| in f32.  N 16 at chunk 32, N 128 at chunk 256, a ragged S, an
+odd N, a nonzero h0 with and without dh_last.
 
 The CUDA kernel (``csrc/ssd_scan_bwd.cu``) runs only on the card
 (``chip_smoke.py`` holds it against the plain version there); here a
-plain-PyTorch model of its four passes (state, chain, gradient,
-reduction) at its own chunk, reading the forward's y, is held against the
-same references, the CUDA route's autograd wiring is checked with the
-launches replaced by the plain versions, and the entry point's
-signature is parsed from the source."""
+plain-PyTorch model of its steps (the chunk states and their chains, the
+gradient pass over each batch row's heads, the reduction) at its own
+chunk, reading the forward's y, is held against the same references,
+as is that model with the card's split products emulated; the CUDA
+route's autograd wiring is checked with the launches replaced by the
+plain versions, and the entry point's signature is parsed from the
+source."""
 
 import inspect
 import re
@@ -44,6 +46,7 @@ CASES = {
     "N128.L256": (1, 512, 2, 16, 128, 256, 0.5, True),
     "ragged": (2, 100, 3, 32, 12, 32, 0.5, True),
     "no-dh_last": (1, 96, 2, 16, 16, 32, 0.5, False),
+    "N13.L64": (1, 200, 3, 64, 13, 64, 0.5, True),
 }
 
 
@@ -170,12 +173,20 @@ def test_the_wrapper_checks_its_inputs():
 
 
 # ---------------------------------------------------------------------------
-# The CUDA kernel's four passes (csrc/ssd_scan_bwd.cu), in plain PyTorch at
-# the kernel's chunk: the chunk states and their reverse counterparts, the
-# chains from h0 and dh_last, the gradient pass per (chunk, head) with dcum
-# from the forward's y, the sums over heads.
+# The CUDA kernel's steps (csrc/ssd_scan_bwd.cu), in plain PyTorch at the
+# kernel's chunk: the chunk states and their reverse counterparts and the
+# chains from h0 and dh_last (one pass on the card, which walks the chunks
+# of each head), the gradient pass per (chunk, batch row) over
+# its heads (B C^T once, the gated dy x^T summed over the heads into M, the
+# rank-P parts of dC and dB summed over the heads, the triangles M B and
+# M^T C once, dcum from the forward's y and <g, h> from h_c and B g^T),
+# then da over batch and chunks.  ``mm`` takes the products of two f32
+# operands, ``mm_x`` those against x, x the second operand (the card's
+# split products are emulated by passing them).
 
-def _four_passes(x, dt, a, bm, cm, dy, y, *, h0, dh_last):
+def _four_passes(x, dt, a, bm, cm, dy, y, *, h0, dh_last, mm=torch.matmul,
+                 mm_x=None):
+    mm_x = mm if mm_x is None else mm_x
     b, s, nh, p = x.shape
     n = bm.shape[-1]
     L = BWD_CHUNK
@@ -190,55 +201,61 @@ def _four_passes(x, dt, a, bm, cm, dy, y, *, h0, dh_last):
     def shared(t):     # (B, S, N) -> (B, 1, c, L, N)
         return F.pad(t, (0, 0, 0, pad)).reshape(b, 1, nc, L, n)
 
+    def tr(t):
+        return t.transpose(-1, -2)
+
     xc, dyc, yc = per_head(x.float()), per_head(dy), per_head(y)
     dtc = per_head(dt[..., None])[..., 0]
     bc, cc = shared(bm), shared(cm)
     cum = torch.cumsum(a[None, :, None, None] * dtc, dim=-1)
     tail = torch.exp(cum[..., -1:] - cum)
     ecum = torch.exp(cum)
-    # 1. state pass
-    s_own = (xc * (tail * dtc)[..., None]).transpose(-1, -2) @ bc
-    s_rev = (dyc * ecum[..., None]).transpose(-1, -2) @ cc
+    w = tail * dtc
+    # 1. state pass: x^T (w B) against x, dy^T (e C), ...
+    s_own = tr(mm_x(tr(w[..., None] * bc), xc))
+    s_rev = mm(tr(dyc), ecum[..., None] * cc)
     decay = torch.exp(cum[..., -1])
-    # 2. chain pass
+    # ... and the chains
     h, hs = h0, []
     for c in range(nc):
         hs.append(h)
         h = decay[:, :, c, None, None] * h + s_own[:, :, c]
-    hs.append(h)
     g = torch.zeros_like(h0) if dh_last is None else dh_last
     gs = [None] * nc
     for c in reversed(range(nc)):
         gs[c] = g
         g = decay[:, :, c, None, None] * g + s_rev[:, :, c]
     dh0 = g
-    hc, hn, gn = (torch.stack(v, dim=2) for v in (hs[:-1], hs[1:], gs))
-    # 3. gradient pass
+    hc, gn = (torch.stack(v, dim=2) for v in (hs, gs))
+    # 2. gradient pass: B C^T once a batch row; per head
     tril = torch.ones((L, L), dtype=torch.bool).tril()
     gate = torch.where(tril, torch.exp(cum[..., :, None] - cum[..., None, :]),
-                       torch.zeros(()))
-    att = (cc @ bc.transpose(-1, -2)) * gate                  # [t][u]
-    mg = (dyc @ xc.transpose(-1, -2)) * gate
-    dxh = att.transpose(-1, -2) @ dyc + tail[..., None] * (
-        bc @ gn.transpose(-1, -2))
+                       torch.zeros(()))                       # [t][u]
+    att_t = mm(bc, tr(cc)) * tr(gate)                         # [u][t]
+    mgate = mm_x(dyc, tr(xc)) * gate * dtc[..., None, :]      # [t][u]
+    m_sum = mgate.sum(1, keepdim=True)                        # M
+    bg = mm(bc, tr(gn))                                       # (B g^T)[u][p]
+    dxh = mm(att_t, dyc) + tail[..., None] * bg
     dxc = dxh * dtc[..., None]
-    dcc = (mg * dtc[..., None, :]) @ bc + ecum[..., None] * (dyc @ hc)
-    dbc = dtc[..., None] * (mg.transpose(-1, -2) @ cc
-                            + tail[..., None] * (xc @ gn))
+    dc_rank = mm(ecum[..., None] * dyc, hc).sum(1)
+    db_rank = (w[..., None] * tr(mm_x(tr(gn), tr(xc)))).sum(1)
+    dcc = mm(m_sum, bc)[:, 0] + dc_rank
+    dbc = mm(tr(m_sum), cc)[:, 0] + db_rank
     rdot = (xc * dxh).sum(-1)
+    ghn = decay * (gn * hc).sum((-2, -1)) + (w * (xc * bg).sum(-1)).sum(-1)
     dcum = (dyc * yc).sum(-1) - dtc * rdot
-    dcum[..., -1] += (gn * hn).sum((-2, -1))
+    dcum[..., -1] += ghn
     r = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
     ddtc = rdot + a[None, :, None, None] * r
-    # 4. reduction over heads (dB, dC) and over batch and chunks (da)
+    # 3. reduction: da over batch and chunks
     da = (dtc * r).sum((0, 2, 3))
 
     def back(t, *tail_shape):   # (B, H, c, L, ...) -> (B, S, H, ...)
         t = t.permute(0, 2, 3, 1, *range(4, t.dim()))
         return t.reshape(b, nc * L, nh, *tail_shape)[:, :s]
 
-    db = dbc.sum(1).reshape(b, nc * L, n)[:, :s]
-    dc = dcc.sum(1).reshape(b, nc * L, n)[:, :s]
+    db = dbc.reshape(b, nc * L, n)[:, :s]
+    dc = dcc.reshape(b, nc * L, n)[:, :s]
     return (back(dxc, p).to(x.dtype), back(ddtc), da, db, dc, dh0)
 
 
@@ -255,6 +272,76 @@ def test_four_passes_match_plain_and_reference(case):
                               dh_last=dht)
     _assert_close([g.numpy() for g in got], [w.numpy() for w in want])
     _assert_close([g.numpy() for g in got], _reference(arrs, dy, dh, chunk))
+
+
+def _tf32(v):
+    """Round to 10 mantissa bits, ties away from zero (the kernel's
+    ``split``: add half a TF32 ulp to the bits, clear the low 13)."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_read(v):
+    """What the tensor cores read of an fp32 operand: its top 19 bits."""
+    return (v.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _split_mm(a, b):
+    """The kernel's split-TF32 product: each operand split into hi =
+    TF32(v) and lo = v - hi, three TF32 products (lo.hi, hi.lo, hi.hi;
+    exact in fp32) summed in fp32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32_read(a - ah), _tf32_read(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _bf16x3_mm(a, x):
+    """The kernel's product against bf16 x (exact in bf16): the other
+    operand split into three bf16 pieces, each the rounding of what the
+    ones before leave, three bf16 products summed in fp32."""
+    pieces, rest = [], a
+    for _ in range(3):
+        pieces.append(rest.to(torch.bfloat16).float())
+        rest = rest - pieces[-1]
+    return sum(piece @ x for piece in reversed(pieces))
+
+
+def _one_rounding_mm(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_split_products_meet_the_card_check(dtype):
+    # chip_smoke.py holds the kernel against ssd_scan_bwd_plain by
+    # _ssd_bwd_err; at mamba2's widths (P 64, N 128, the passes at chunk
+    # 64) and its kernels rows' input scales, the passes with split-TF32
+    # products (and bf16 pieces against bf16 x) pass that check, and with
+    # one TF32 rounding of the same products they do not
+    cs = _chip_smoke()
+    rng = np.random.default_rng(38)
+    b, s, h, p, n = 1, 256, 2, 64, 128
+
+    def randn(*shape, scale=1.0):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                * np.float32(scale))
+
+    x = randn(b, s, h, p).to(dtype)
+    dt = torch.nn.functional.softplus(randn(b, s, h) - 2.0)
+    a = -torch.exp(randn(h, scale=0.3))
+    bm, cm = randn(b, s, n, scale=0.3), randn(b, s, n, scale=0.3)
+    h0, dy = randn(b, h, p, n, scale=0.1), randn(b, s, h, p)
+    dh = randn(b, h, p, n, scale=0.1)
+    y, _ = ssd_scan_plain(x, dt, a, bm, cm, chunk=256, h0=h0)
+    want = ssd_scan_bwd_plain(x, dt, a, bm, cm, dy, chunk=256, h0=h0,
+                              dh_last=dh)
+    mm_x = _bf16x3_mm if dtype == torch.bfloat16 else _split_mm
+    split = _four_passes(x, dt, a, bm, cm, dy, y, h0=h0, dh_last=dh,
+                         mm=_split_mm, mm_x=mm_x)
+    assert cs._ssd_bwd_err(torch, split, want) <= 1.0
+    one = _four_passes(x, dt, a, bm, cm, dy, y, h0=h0, dh_last=dh,
+                       mm=_one_rounding_mm)
+    assert cs._ssd_bwd_err(torch, one, want) > 1.0
 
 
 def test_the_cuda_route_runs_the_backward_through_the_function(monkeypatch):
@@ -372,12 +459,14 @@ def test_backward_rows_sit_at_the_training_shapes():
                    if dt is not None}
     assert any(not r[8] for r in cs.SSD_BWD)            # dh_last None
     assert any(r[2] % BWD_CHUNK for r in cs.SSD_BWD)    # a ragged last chunk
+    assert any(r[5] % 4 for r in cs.SSD_BWD)            # rows of 4-byte pieces
     assert set(cs.SSD_BWD_PROFILED) == {"mamba2-2.7b", "hymba-1.5b"}
 
 
 def test_backward_instances_parse_from_ptxas_names():
     cs = _chip_smoke()
-    assert len(cs.SSD_BWD_INSTANCES) == 14
+    assert len(cs.SSD_BWD_INSTANCES) == 13
+    assert cs.SSD_BWD_PASSES == ("state", "grad", "reduce")
     assert cs._ssd_bwd_instance(
         "_ZN12_GLOBAL__N_119ssd_bwd_grad_kernelI13__nv_bfloat16Li64EEEvPKT_"
     ) == ("grad", "bf16", 64)
@@ -385,11 +474,12 @@ def test_backward_instances_parse_from_ptxas_names():
         "_ZN12_GLOBAL__N_120ssd_bwd_state_kernelIfLi16EEEvPKT_PKfS5_") == (
         "state", "f32", 16)
     assert cs._ssd_bwd_instance(
-        "_ZN12_GLOBAL__N_120ssd_bwd_chain_kernelEPKfS1_PfS2_S1_S2_xii") == (
-        "chain", None, None)
+        "_ZN12_GLOBAL__N_121ssd_bwd_reduce_kernelEPKfPfiii") == (
+        "reduce", None, None)
+    # the chains run inside the state pass: no chain pass is built
     assert cs._ssd_bwd_instance(
-        "_ZN12_GLOBAL__N_121ssd_bwd_reduce_kernelEPKfS1_S1_PfS2_S2_iiiii"
-    ) == ("reduce", None, None)
+        "_ZN12_GLOBAL__N_120ssd_bwd_chain_kernelEPKfS1_PfS2_S1_S2_xii") \
+        is None
     # the forward's names are not the backward's, nor the reverse
     assert cs._ssd_bwd_instance(
         "_ZN12_GLOBAL__N_121ssd_scan_state_kernelIfLi16EEEvPKT_") is None
@@ -401,21 +491,37 @@ def test_backward_bound_and_tolerance():
     cs = _chip_smoke()
     B, S, H, P, N = 8, 1024, 80, 64, 128
     L = BWD_CHUNK
-    ops = cs._ssd_bwd_work(B, S, H, P, N, L)
     chunks = B * (S // L)
     nch = chunks * H
     tri = L * (L + 1) / 2
-    # per head: two chunk states and the rank parts of dxh, dC and dB
-    # (5 L P N), the gated dy x^T and dxh's triangle; per batch row, as B
-    # and C are shared by the heads: C B^T and the dC and dB triangles
-    macs = nch * (5 * L * P * N + 2 * tri * P) + chunks * 3 * tri * N
-    assert ops == pytest.approx(2 * macs + 4 * nch * P * N)
+    # each split product is three products on the tensor cores.  Against
+    # bf16 x, x^T (w B), x g and the gated dy x^T are bf16; split TF32 are,
+    # per head, dy^T (e C), dy h_c and dxh (a triangle and a rank-N
+    # product), and per batch row, as B and C are shared by the heads, C
+    # B^T and the dC and dB triangles; the chains on the CUDA cores
+    vs_x = 6 * nch * (2 * L * P * N + tri * P)
+    tf32 = 6 * (nch * (2 * L * P * N + tri * P + L * N * P)
+                + chunks * 3 * tri * N)
+    chain = 4 * nch * P * N
+    work = cs._ssd_bwd_work(True, B, S, H, P, N, L)
+    assert [peak for _, peak in work] == [
+        cs.TF32_OPS_PER_S, cs.BF16_OPS_PER_S, cs.FP32_OPS_PER_S]
+    assert [ops for ops, _ in work] == pytest.approx([tf32, vs_x, chain])
+    # f32 x: every product split TF32
+    work32 = cs._ssd_bwd_work(False, B, S, H, P, N, L)
+    assert [ops for ops, _ in work32] == pytest.approx(
+        [tf32 + vs_x, 0.0, chain])
     # the shared products are counted once a batch row, not once a head
-    assert cs._ssd_bwd_work(B, S, 2 * H, P, N, L) < 2 * ops
-    # ~60 GFLOP: 0.89 ms at the fp32 peak, above the bytes' time
-    assert ops == pytest.approx(59.7e9, rel=0.03)
-    ms, by = cs._bound_ms(0.5e9, ops)
-    assert by == "operations" and ms == pytest.approx(0.89, abs=0.02)
+    assert sum(o for o, _ in cs._ssd_bwd_work(True, B, S, 2 * H, P, N, L)) \
+        < 2 * sum(o for o, _ in work)
+    # ~105 GFLOP of TF32 and ~73 of bf16: 0.29 ms at the tensor-core
+    # peaks (0.36 for f32 x), above the bytes' time
+    assert tf32 == pytest.approx(105.4e9, rel=0.01)
+    assert vs_x == pytest.approx(72.6e9, rel=0.01)
+    ms, by = cs._bound_ms_by_type(0.5e9, work)
+    assert by == "operations" and ms == pytest.approx(0.29, abs=0.01)
+    ms, by = cs._bound_ms_by_type(0.5e9, work32)
+    assert by == "operations" and ms == pytest.approx(0.36, abs=0.01)
     assert cs.SSD_BWD_TOL32 == 1e-4
     assert cs.SSD_BWD_TOL_BF16 == (2.0 ** -7, 1e-4)
     want = torch.tensor([1.0, -0.5, 0.0])

@@ -4,15 +4,16 @@ the hymba-1.5b serving path, the dense-GQA serving path (glm4-9b,
 olmo-1b, h2o-danube-1.8b, nemotron-4-15b), the encoder-decoder and VLM
 serving paths (seamless-m4t-medium, internvl2-2b), the pure-SSM serving
 path (mamba2-2.7b), the MoE serving path (qwen3-moe-30b-a3b), the MLA
-serving path (deepseek-v3-671b) and the training paths (olmo-1b, and
-mamba2-2.7b with hymba-1.5b's SSM checked beside it).
+serving path (deepseek-v3-671b) and the training paths (olmo-1b,
+mamba2-2.7b with hymba-1.5b's SSM checked beside it, and deepseek-v3-671b's
+MLA).
 
     python3 chip_smoke.py                      # every phase, as CI runs it
     python3 chip_smoke.py --phases build,kernels
 
 Phases, each printed on a line of its own:
 
-1. build       — compile the nine CUDA sources from ``src/repro_torch/csrc``
+1. build       — compile the ten CUDA sources from ``src/repro_torch/csrc``
                  (with the header ``wgmma.cuh`` they share);
                  the line gives the registers, spills and blocks per SM of
                  the tensor-core (wgmma) instances of flash_attention (bf16
@@ -40,7 +41,11 @@ Phases, each printed on a line of its own:
                  the state pass (the chunk states and both chains) and the
                  gradient pass for f32 and bf16 x at P 16, 32 and 64, the
                  reduce pass; no spill allowed), with the gradient pass's
-                 shared memory at P 64, N 128.
+                 shared memory at P 64, N 128; and of flash_attention_latent's
+                 backward (``MLA_BWD_INSTANCES``, each of which the build
+                 must make: the delta, query-side, key-side and sum passes
+                 for bf16 and f32 storage), with the shared memory of its
+                 two row-walking passes.
 2. kernels     — hold each kernel against its plain PyTorch version on the
                  card and time kernel, plain version, library call (where
                  one PyTorch call computes the same function) and the
@@ -175,6 +180,27 @@ Phases, each printed on a line of its own:
                  beside the bound (the split products at the tensor-core
                  peaks, ``_ssd_bwd_work``; no PyTorch call computes it)
                  and the workspace's bytes.
+                 flash_attention_latent's backward (dq_lat, dq_rope, dc_kv,
+                 dk_rope from the latent kernel forward's output and lse,
+                 whose lse must match the plain version's within
+                 ``LSE_TOL`` and reject the lse of no causal mask, and a
+                 standard-normal output gradient) against
+                 flash_attention_latent_bwd_plain at ``MLA_BWD``:
+                 deepseek-v3-671b's training shape (train-mla's B 4, S = T
+                 1024, H 128, R 512, Dr 64, scale 192^-0.5) in bf16 and
+                 f32, B 8 in bf16, S = T 1528 at B 2, and H 3 at S 77
+                 (32-row blocks that span
+                 positions); f32 within 1e-4 of each gradient's largest
+                 |value|, bf16 by flash's backward rule; each check must
+                 reject dc_kv without its value part and the backward
+                 without the causal mask, each call run its dtype's
+                 instance, and two calls at the training shapes give the
+                 same bits.  Its rows time the kernel (the training shapes
+                 also per pass: delta, q, kv, reduce), the plain version and
+                 SDPA's backward (autograd, causal, the one latent key
+                 head shared by the H heads, key 576 / value 512, on the
+                 backend SDPA's dispatch picks, named by its graph)
+                 beside the bound.
 3. fit-stress  — ``Simulator(64, 50).run(lmbr_stress_workload(seed=0), lmbr,
                  seed=0, max_moves=1200)`` on the card with the dense peel
                  and the span_gain kernel pinned; the summary and member
@@ -345,7 +371,8 @@ Phases, each printed on a line of its own:
                  prefill 1528, held as serve-check holds hymba (the latent
                  kernels patched to their plain versions on the plain
                  route); the kernel route's latent prefill and decode
-                 launch all on their CUDA-core ``fma`` instances.
+                 launch all on their CUDA-core ``fma`` instances.  No
+                 serving phase's latent launch stores lse.
 22. train      — ``make_train_step`` on olmo-1b at full width and depth
                  (16 layers, d_model 2048, bf16, random weights from seed
                  0; AdamW lr 3e-4, accum 1; ``TRAIN``) fed by
@@ -365,8 +392,8 @@ Phases, each printed on a line of its own:
                  kernel route against the plain route on the card (loss
                  within 1e-5 relative, every gradient leaf within 1e-4 of
                  its largest |value|, every forward and backward call on
-                 the fma instance, no launch on the plain route); the
-                 latent kernels and decode refuse a gradient
+                 the fma instance, no launch on the plain route); the two
+                 decode kernels, which serve only, refuse a gradient
                  (NotImplementedError); (b) ``python -m
                  repro_torch.launch.train`` with the reference e2e test's
                  arguments (``TRAIN_CLI``: reduced olmo-1b, 60 steps, B 8,
@@ -395,7 +422,38 @@ Phases, each printed on a line of its own:
                  1e-5 relative, every gradient leaf within 1e-4 of its
                  largest |value|, 2 L forward launches and L backward calls
                  of each kernel on the kernel route, none on the plain.
-26. health     — ``Simulator(40, 50).run_online`` of fig6's paper default
+26. train-mla  — ``make_train_step`` on deepseek-v3-671b at its published
+                 widths (d_model 7168, 128 heads, MLA with q_lora 1536,
+                 kv_lora 512, rope 64, d_ff 18 432, vocab 129 280) cut to
+                 its three dense layers with its MTP group (``TRAIN_MLA``:
+                 4.29 B parameters; bf16, random weights from seed 0 made
+                 on the card after every earlier model is freed; AdamW lr
+                 3e-4, accum 1, the step donating its parameters and
+                 state) fed by ``PlacementAwarePipeline`` at B 4 (B 8 runs
+                 out of memory) and ``TRAIN``'s S 1024 for 8 steps: loss
+                 and grad norm a step, step
+                 ms after the first, tokens/s, peak memory, the device's
+                 idle share and device s by group (``mla_bwd``,
+                 ``mla_fwd``, GEMMs, the rest) over one more profiled
+                 step; exactly 2 x 3 + 1 latent forward launches (every
+                 layer twice under remat, the MTP block once; all on the
+                 ``wgmma`` instance, each backward reading the lse its
+                 forward stored) and 3 + 1 backward calls a step (all on
+                 the bf16 instance; ``train_launches``), no other model
+                 kernel, no plain version (each swapped for a function
+                 that raises); finite losses and grad norms; every
+                 layer's and the MTP block's wq_a, wq_b, wkv_a, wk_b, wv_b
+                 and wo gradient nonzero.
+27. train-mla-check — deepseek-v3-671b at full width, 2 dense layers and
+                 the MTP group in f32 with TF32 off (``TRAIN_MLA_CHECK``:
+                 B 2, S 1024): ``loss_and_grads`` on the kernel route (the
+                 latent forward's fma instance and the backward kernel's
+                 f32 instance) against the plain route
+                 (``flash_attention_latent_plain`` under autograd): loss
+                 within 1e-5 relative, every gradient leaf within 1e-4 of
+                 its largest |value|, 2 L + 1 forward launches and L + 1
+                 backward calls on the kernel route, none on the plain.
+28. health     — ``Simulator(40, 50).run_online`` of fig6's paper default
                  (lmbr ``max_moves=120``) under the flags-built
                  ``HealthMonitor`` (``HEALTH_VARIANT``: snapshots every 100
                  queries, window 4, skew SLO 3.0), with a storm (partitions
@@ -409,7 +467,7 @@ Phases, each printed on a line of its own:
                  The storm fires and resolves degraded_rate, and the same
                  storm unmonitored serves the same spans, access load and
                  member; the clean replay fires nothing.
-27. scale      — the cluster-scale pipeline at bench_scale's sizes:
+29. scale      — the cluster-scale pipeline at bench_scale's sizes:
                  ``web_scale_chunks(seed=0)`` (100 000 items, 1 000 000
                  queries) through ``StreamingHypergraphBuilder``, plain and
                  with duplicates merged (host only); the sharded lmbr fits
@@ -475,8 +533,8 @@ PHASES = ("build", "kernels", "fit-stress", "fit-paper", "paper-algos",
           "serve-dense-check", "serve-encdec", "serve-encdec-check",
           "serve-vlm", "serve-vlm-check", "serve-ssm", "serve-ssm-check",
           "serve-moe", "serve-moe-check", "serve-mla", "serve-mla-check",
-          "train", "train-check", "train-ssm", "train-ssm-check", "health",
-          "scale")
+          "train", "train-check", "train-ssm", "train-ssm-check",
+          "train-mla", "train-mla-check", "health", "scale")
 PAPER_NODES = 69429          # ibm10, the largest fig9 circuit
 # paper-algos: the workloads (generator, arguments) and the runs (workload,
 # partitions, capacity, algorithm, extra arguments, avg_span of the JAX
@@ -1179,6 +1237,22 @@ MLA_INSTANCES = (("bf16", "prefill", "wgmma"), ("f32", "prefill", "fma"),
 MLA_NO_SPILL = (("bf16", "prefill", "wgmma"), ("bf16", "decode", "wgmma"))
 
 
+def _latent_bwd_instance(entry: str):
+    """(pass, dtype) of a latent backward kernel's mangled name
+    (mla_bwd_{delta,q,kv,reduce}_kernel<T>); None for any other."""
+    m = re.search(r"mla_bwd_(delta|q|kv|reduce)_kernelI(13__nv_bfloat16|f)E",
+                  entry)
+    if not m:
+        return None
+    return (m.group(1), "bf16" if m.group(2) != "f" else "f32")
+
+
+# the latent backward's instances the build must make: its four passes
+# for each storage dtype (fp32 FMAs on the CUDA cores in both)
+MLA_BWD_INSTANCES = tuple((p, dt) for dt in ("bf16", "f32")
+                          for p in ("delta", "q", "kv", "reduce"))
+
+
 def phase_build(_build):
     so = _build.build(force=True)
     # read now: _build.lib() below finds the library built and resets them
@@ -1253,6 +1327,21 @@ def phase_build(_build):
         _require(e["spill_stores"] == 0 and e["spill_loads"] == 0,
                  f"build: the ssd_scan_bwd instance {inst} spills "
                  f"({e['spill_stores']} / {e['spill_loads']} bytes)")
+    # flash_attention_latent's backward: every instance built, and the
+    # shared memory of its two row-walking passes
+    mla_bwd = {_latent_bwd_instance(e["entry"]): e for e in entries
+               if _latent_bwd_instance(e["entry"])}
+    _require(set(mla_bwd) == set(MLA_BWD_INSTANCES),
+             f"build: ptxas reports mla_attention_bwd instances "
+             f"{sorted(mla_bwd)}, want {MLA_BWD_INSTANCES}")
+    mla_bwd_smem = [_build.lib().flash_attention_latent_bwd_smem_bytes(p)
+                    for p in (0, 1)]
+    _require(max(mla_bwd_smem) <= 232448, f"build: the latent backward "
+             f"needs {mla_bwd_smem} bytes of shared memory a block")
+    mla_bwd_line = ", ".join(
+        f"{p} {dt} registers={mla_bwd[p, dt]['registers']} spills="
+        f"{mla_bwd[p, dt]['spill_stores']}/{mla_bwd[p, dt]['spill_loads']}"
+        for p, dt in MLA_BWD_INSTANCES)
     # flash_attention's backward: every instance built
     bwd = {_bwd_instance(e["entry"]): e for e in entries
            if _bwd_instance(e["entry"])}
@@ -1291,7 +1380,9 @@ def phase_build(_build):
           f"flash_attention_bwd instances (spill stores/loads bytes): "
           f"{bwd_line}; ssd_scan_bwd instances (spill stores/loads "
           f"bytes): {ssd_bwd_line}, grad smem_bytes={ssd_bwd_smem} at P 64 "
-          f"N 128", flush=True)
+          f"N 128; mla_attention_bwd instances (spill stores/loads bytes): "
+          f"{mla_bwd_line}, smem_bytes q={mla_bwd_smem[0]} "
+          f"kv={mla_bwd_smem[1]}", flush=True)
     for e in entries:
         print(f"  {e['source']} {e['entry'][:60]} registers={e['registers']} "
               f"spill_stores={e['spill_stores']} "
@@ -1310,7 +1401,7 @@ def phase_build(_build):
                  f"fits no block on an SM ({n})")
     # the instances the kernels phase must run: the tensor-core flash ones
     # under the same (kernel, dtype, D) keys as the CUDA-core ones
-    return set(ssd), set(ssd_bwd), set(att) | set(tc)
+    return set(ssd), set(ssd_bwd), set(att) | set(tc), set(mla_bwd)
 
 
 def phase_kernels(np, torch, dev):
@@ -2688,6 +2779,199 @@ def _flash_bwd_rows(torch, dev):
     return rows
 
 
+# flash_attention_latent's backward on the card: (label, B, S = T, H,
+# dtypes) at deepseek-v3's widths (R 512, Dr 64, scale 192^-0.5): its
+# training shape (train-mla's B 4, TRAIN's S 1024, H 128), TRAIN's B 8 in
+# bf16, a ragged S 1528 (B 2, a multiple of no tile) and H 3 at S 77 (B 1:
+# 32-row blocks that span positions, so the mask is per row)
+MLA_BWD = (
+    ("train", 4, 1024, MLA_HEADS, ("bf16", "f32")),
+    ("B8", 8, 1024, MLA_HEADS, ("bf16",)),
+    ("ragged", 2, 1528, MLA_HEADS, ("bf16", "f32")),
+    ("small-H", 1, 77, 3, ("bf16", "f32")),
+)
+# the rows at the training shapes: two calls must give the same bits, and
+# their times add the profiler's device ms, in all and per pass
+MLA_BWD_PROFILED = ("train", "B8")
+MLA_BWD_PASSES = ("delta", "q", "kv", "reduce")
+# The tolerance: f32 within 1e-4 of each gradient's largest |value| (fp32
+# sums in another order than the plain version's); bf16, each gradient
+# rounded once from such sums, by flash's backward rule (``BWD_TOL_BF16``)
+MLA_BWD_TOL32 = 1e-4
+# the wrong variants the check must reject
+MLA_BWD_WRONG = {"no_value_part": "dc_kv without its value part p^T dO",
+                 "no_causal": "the backward without the causal mask"}
+
+
+def _latent_bwd_err(torch, got, want) -> float:
+    """The largest |got - want| over its allowance, over dq_lat, dq_rope,
+    dc_kv and dk_rope (at most 1 passes)."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        bf16 = g.dtype == torch.bfloat16
+        g, w = g.double(), w.double()
+        big = float(w.abs().max()) if w.numel() else 0.0
+        if bf16:
+            allow = BWD_TOL_BF16[0] * w.abs() + BWD_TOL_BF16[1] * big
+        else:
+            allow = torch.full_like(w, MLA_BWD_TOL32 * big)
+        if w.numel():
+            worst = max(worst, float(((g - w).abs()
+                                      / allow.clamp_min(1e-30)).max()))
+    return worst
+
+
+def _latent_bwd_bound(B, S, H, esz, peak):
+    """Causal latent backward at S = T: five products of 2 (576, 512, 512,
+    576, 576) flops a visible (row, key) pair at the dtype's peak; q_lat,
+    q_rope, c_kv, k_rope, o, dO and lse read once, the four gradients
+    written once."""
+    R, Dr = MLA_RANK, MLA_ROPE
+    ops = 2.0 * (3 * (R + Dr) + 2 * R) * B * H * (S * (S + 1) / 2)
+    nbytes = (esz * (B * S * H * (3 * R + Dr) + B * S * (R + Dr))
+              + 4 * B * S * H
+              + esz * (B * S * H * (R + Dr) + B * S * (R + Dr)))
+    return _bound_ms(nbytes, ops, peak)
+
+
+def _latent_bwd_rows(torch, dev, labels=None):
+    """flash_attention_latent_bwd (four launches: delta, the query side,
+    the key side's partial sums, their sum) against
+    flash_attention_latent_bwd_plain at ``MLA_BWD`` (the rows of
+    ``labels`` only, when given), on the output and lse
+    of the kernel forward (``flash_attention_latent_lse``; its lse against
+    the plain version's within ``LSE_TOL``, rejecting the lse of no causal
+    mask) and a standard-normal output gradient: within
+    ``_latent_bwd_err``'s tolerance, rejecting the wrong variants
+    (``MLA_BWD_WRONG``), each call on its dtype's instance; at the
+    training shapes two calls bit for bit; the gradient through
+    ``flash_attention_latent`` under autograd equals the direct call's.
+    Each row times the kernel
+    (host ms and, at the training shapes, the profiler's device ms in all
+    and per pass), the plain version and SDPA's backward (autograd through
+    ``scaled_dot_product_attention``, causal, the one latent key head
+    shared by the H query heads, key 576 / value 512, on the backend its
+    dispatch picks: ``library_backend`` is the graph's backward node)
+    beside the bound (``_latent_bwd_bound``)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops
+
+    fal = ops.flash_attention_latent
+    gen = torch.Generator(device=dev).manual_seed(39)
+    rows = []
+    for label, B, S, H, tags in MLA_BWD:
+        if labels is not None and label not in labels:
+            continue
+        for tag in tags:
+            t_row = time.perf_counter()
+            dtype = torch.bfloat16 if tag == "bf16" else torch.float32
+            peak = BF16_OPS_PER_S if tag == "bf16" else FP32_OPS_PER_S
+            esz = torch.finfo(dtype).bits // 8
+
+            def randn(*shape):
+                return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+            x = (randn(B, S, H, MLA_RANK), randn(B, S, H, MLA_ROPE),
+                 randn(B, S, MLA_RANK), randn(B, S, MLA_ROPE))
+            do = randn(B, S, H, MLA_RANK)
+            kw = dict(scale=MLA_SCALE)
+            name = f"flash_attention_latent_bwd {label} {tag} B={B} S={S} H={H}"
+            o, lse = ops.flash_attention_latent_lse(*x, **kw)
+            no_causal = torch.stack([torch.logsumexp(ops._latent_scores(
+                *x[:2], x[2][i].float(), x[3][i].float(), i, MLA_SCALE,
+                causal=False), dim=-1) for i in range(B)])
+            lse_check = _lse_check(
+                torch, name, lse,
+                ops.flash_attention_latent_lse_plain(*x, **kw)[1], no_causal)
+            del no_causal
+            inst = ops.latent_bwd_instance(dtype)
+            before = dict(fal.backward_instance_launches)
+            got = ops.flash_attention_latent_bwd(*x, o, do, lse, **kw)
+            ran = {i: n - before[i]
+                   for i, n in fal.backward_instance_launches.items()}
+            _require(ran == {"bf16": 0, "f32": 0} | {inst: 1},
+                     f"{name}: backward instances {ran}, want one {inst}")
+            want = ops.flash_attention_latent_bwd_plain(*x, o, do, **kw)
+            torch.cuda.synchronize()
+            _require(all(g.dtype == dtype for g in got),
+                     f"{name}: gradients in {[g.dtype for g in got]}")
+            err = _latent_bwd_err(torch, got, want)
+            _require(err <= 1.0, f"{name}: max error {err:.3g} of the "
+                     "tolerance")
+            check = dict(max_abs_err=_max_abs(got, want), tol_ratio=err,
+                         max_abs_err_by_output={
+                             k: _max_abs([g], [w]) for k, g, w in zip(
+                                 ("dq_lat", "dq_rope", "dc_kv", "dk_rope"),
+                                 got, want)}, **lse_check)
+            profiled = label in MLA_BWD_PROFILED
+            if profiled:   # no atomics: a second call is bit-identical
+                again = ops.flash_attention_latent_bwd(*x, o, do, lse, **kw)
+                torch.cuda.synchronize()
+                _require(all(torch.equal(u, v) for u, v in zip(got, again)),
+                         f"{name}: two calls differ")
+                check["deterministic"] = True
+                del again
+            # the autograd route: the Function's backward is the same call
+            leaves = [t.detach().requires_grad_(True) for t in x]
+            auto = torch.autograd.grad(fal(*leaves, **kw), leaves, do)
+            _require(all(torch.equal(u, v) for u, v in zip(auto, got)),
+                     f"{name}: the gradient under autograd differs from "
+                     "the direct call's")
+            check["autograd_equal"] = True
+            del got, leaves, auto
+            for wname, wkw in (("no_value_part", dict(value_part=False)),
+                               ("no_causal", dict(causal=False))):
+                wrong = ops._latent_bwd(*x, o, do, MLA_SCALE, **wkw)
+                werr = _latent_bwd_err(torch, wrong, want)
+                _require(werr > 1.0, f"{name}: the check cannot see "
+                         f"{MLA_BWD_WRONG[wname]} ({werr:.3g})")
+                check[f"{wname}_ratio"] = werr
+                del wrong
+            del want
+            bound, by = _latent_bwd_bound(B, S, H, esz, peak)
+
+            def kern():
+                return ops.flash_attention_latent_bwd(*x, o, do, lse, **kw)
+
+            passes = _device_times(torch, kern, 2) if profiled else {}
+            timed = dict(
+                ms=_cuda_ms(torch, kern, 2),
+                device_ms=sum(passes.values()) if passes else None,
+                device_ms_by_pass={p: sum(v for k, v in passes.items()
+                                          if f"mla_bwd_{p}_kernel" in k)
+                                   for p in MLA_BWD_PASSES}
+                if passes else None,
+                plain_ms=_cuda_ms(torch, lambda: (
+                    ops.flash_attention_latent_bwd_plain(*x, o, do, **kw)),
+                    1))
+            qT = torch.cat(x[:2], -1).transpose(1, 2).contiguous() \
+                .requires_grad_(True)
+            kT = torch.cat(x[2:], -1)[:, None].requires_grad_(True)
+            vT = x[2][:, None].contiguous().requires_grad_(True)
+            doT = do.transpose(1, 2).contiguous()
+            outT = F.scaled_dot_product_attention(
+                qT, kT.expand(B, H, S, MLA_RANK + MLA_ROPE),
+                vT.expand(B, H, S, MLA_RANK), is_causal=True,
+                scale=MLA_SCALE)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(outT, (qT, kT, vT), doT,
+                                           retain_graph=True)
+
+            rows.append(dict(
+                shape=f"{label}.B{B}.S{S}.H{H}.R{MLA_RANK}.Dr{MLA_ROPE}.{tag}",
+                instance=inst, **check, **timed,
+                library_ms=_cuda_ms(torch, sdpa_bwd, 2),
+                library_device_ms=_device_ms(torch, sdpa_bwd, 2),
+                library_backend=type(outT.grad_fn).__name__,
+                bound_ms=bound, bound_by=by,
+                row_s=time.perf_counter() - t_row))
+            del x, o, lse, do, qT, kT, vT, doT, outT
+            torch.cuda.empty_cache()
+    return rows
+
+
 def phase_model_kernels(np, torch, dev):
     """flash_attention, decode_attention, ssd_scan and the latent (MLA)
     kernels against their plain versions at the serving paths' shapes, in
@@ -2838,6 +3122,8 @@ def phase_model_kernels(np, torch, dev):
     rows["flash_attention_bwd"] = _flash_bwd_rows(torch, dev)
     # ssd_scan's backward, mamba2-2.7b's training shape in bf16 first
     rows["ssd_scan_bwd"] = _ssd_bwd_rows(torch, dev)
+    # the latent backward, deepseek-v3's training shape in bf16 first
+    rows["flash_attention_latent_bwd"] = _latent_bwd_rows(torch, dev)
 
     out = {}
     for name, shapes in rows.items():
@@ -2887,8 +3173,9 @@ def _measured_serve(torch, kernels, label, cfg, params, requests,
     res = serve(cfg, params, requests=requests, batch=SERVE["batch"],
                 prefill_len=SERVE["prefill_len"], decode_len=decode_len)
     res["launches"] = _counts(kernels)
-    _require(kernels["flash_attention"].lse_launches == 0,
-             f"{label}: a serving flash launch stored lse")
+    for name in ("flash_attention", "flash_attention_latent"):
+        _require(kernels[name].lse_launches == 0,
+                 f"{label}: a serving {name} launch stored lse")
     res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     res["prefill_tok_per_s"] = res["prefill_tokens"] / res["prefill_s"]
     res["decode_ms_per_step"] = (res["decode_s"] * 1e3
@@ -3076,8 +3363,9 @@ def _hold_routes(torch, kernels, label, cfg, params, tokens, n_prefill,
     _zero_counts(kernels)
     kern = _route_run(torch, cfg, params, tokens, n_prefill, frontend)
     launches = _counts(kernels)
-    _require(kernels["flash_attention"].lse_launches == 0,
-             f"{label}: a serving flash launch stored lse")
+    for name in ("flash_attention", "flash_attention_latent"):
+        _require(kernels[name].lse_launches == 0,
+                 f"{label}: a serving {name} launch stored lse")
     chunks = dict(kernels["ssd_scan"].chunk_launches)
     instances = {name: dict(fn.instance_launches)
                  for name, fn in kernels.items()
@@ -3796,12 +4084,39 @@ TRAIN_CLI = ("--arch", "olmo-1b", "--reduced", "--steps", "60", "--batch",
              "8", "--seq", "64", "--lr", "3e-3", "--ckpt-every", "25",
              "--inject-failures")
 
+# train-mla: deepseek-v3-671b at its published widths (d_model 7168, 128
+# heads, MLA with q_lora 1536, kv_lora 512, rope 64, dense d_ff 18432,
+# vocab 129 280) cut to its three dense layers (first_k_dense) with its
+# MTP group (a dense block and a 2 d x d projection): 4.29 B parameters.
+# Under AdamW that is 8.6 GB of bf16 weights, 8.6 GB of gradients and
+# 34.3 GB of fp32 moments; the step donates its parameters and state
+# (``make_train_step(donate=True)``, as the reference's jit donates them),
+# since a second copy of the moments would not fit beside them.  Its
+# first MoE layer would add 10.8 B parameters (~130 GB under AdamW): the
+# MoE layers train with the mesh (ROADMAP Queue 1 item 9.6).  TRAIN's
+# sequence, lr and steps at batch 4: at TRAIN's B 8 the backward ran out
+# of the card's 79.18 GiB (73.6 GiB allocated when the main head's fp32
+# logit gradient, 3.94 GiB, was asked for: the two heads' fp32 logits are
+# 4.2 GB each at B 8 x S 1024 x vocab 129 280), so only the batch is cut.
+# A remat step runs each layer's latent forward twice and the MTP block's
+# once, and each backward once (``train_launches``).
+TRAIN_MLA = dict(arch=MLA_ARCH, layers=3, batch=4, seq=TRAIN["seq"])
+# train-mla-check: the same widths at 2 dense layers and the MTP group in
+# f32 (3.7 B parameters, 14.8 GB; two routes' gradients beside them), the
+# kernel route against the plain route
+TRAIN_MLA_CHECK = dict(layers=2, batch=2, seq=1024)
+
 
 def train_launches(cfg, steps: int) -> dict:
-    """flash_attention's forward launches and backward calls in ``steps``
-    remat train steps of ``cfg`` (one attention a layer)."""
-    return dict(forward=2 * cfg.num_layers * steps,
-                backward=cfg.num_layers * steps)
+    """The attention (or scan) kernel's forward launches and backward calls
+    in ``steps`` train steps of ``cfg``, one a block: ``train_loss`` runs
+    each decoder block under ``torch.utils.checkpoint`` (its forward twice,
+    its backward once) and, with an ``mtp`` group (deepseek-v3), applies
+    the MTP block once more without it (``models/model.py``
+    ``train_loss``): one forward and one backward."""
+    mtp = 1 if cfg.mtp_depth else 0
+    return dict(forward=(2 * cfg.num_layers + mtp) * steps,
+                backward=(cfg.num_layers + mtp) * steps)
 
 
 def _no_plain(mod, names):
@@ -3817,11 +4132,16 @@ def _no_plain(mod, names):
     return saved
 
 
-def _train_setup(torch, arch, dev):
-    """``arch`` as published, bf16, random weights from seed 0, AdamW at
-    ``TRAIN``'s lr through ``make_train_step``, batches of the
-    placement-aware pipeline at ``TRAIN``'s batch and sequence: a dict of
-    cfg, params, opt_state, step, next_batch, init_s and nparams."""
+def _train_setup(torch, arch, dev, layers=None, batch=None, donate=False):
+    """``arch`` as published (cut to ``layers`` layers when given), bf16,
+    random weights from seed 0, AdamW at ``TRAIN``'s lr through
+    ``make_train_step`` (donating its parameters and optimizer state when
+    ``donate``), batches of the placement-aware pipeline at ``batch``
+    (``TRAIN``'s by default) and ``TRAIN``'s sequence: a dict of cfg,
+    params, opt_state, step, next_batch, init_s, nparams, batch and
+    seq."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.data import PlacementAwarePipeline
     from repro_torch.launch.steps import make_train_step
@@ -3829,15 +4149,18 @@ def _train_setup(torch, arch, dev):
     from repro_torch.optim import adamw
 
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    batch = batch or TRAIN["batch"]
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     opt = adamw(TRAIN["lr"])
-    step, _ = make_train_step(cfg, optimizer=opt)
+    step, _ = make_train_step(cfg, optimizer=opt, donate=donate)
     pipe = PlacementAwarePipeline(
         num_shards=TRAIN["num_shards"], num_hosts=TRAIN["num_hosts"],
-        vocab_size=cfg.vocab_size, batch_size=TRAIN["batch"],
+        vocab_size=cfg.vocab_size, batch_size=batch,
         seq_len=TRAIN["seq"], device=dev)
 
     def next_batch():
@@ -3847,7 +4170,8 @@ def _train_setup(torch, arch, dev):
 
     return dict(cfg=cfg, params=params, opt_state=opt.init(params),
                 step=step, next_batch=next_batch, init_s=init_s,
-                nparams=sum(t.numel() for t in _leaves(params)))
+                nparams=sum(t.numel() for t in _leaves(params)),
+                batch=batch, seq=TRAIN["seq"], donate=donate)
 
 
 def _train_steps(torch, kernels, run, n):
@@ -3901,10 +4225,10 @@ def _train_line(run, losses, gnorms, walls, peak_gb, prof_wall, busy,
     """The step, memory and device figures shared by the train lines."""
     steady = walls[1:]
     step_ms = 1e3 * sum(steady) / len(steady)
-    tokens = TRAIN["batch"] * TRAIN["seq"]
+    tokens = run["batch"] * run["seq"]
     return (f"params={run['nparams']} bf16 init_s={run['init_s']:.2f} "
-            f"adamw lr={TRAIN['lr']} accum=1 batch={TRAIN['batch']} "
-            f"seq={TRAIN['seq']} steps={len(walls)} "
+            f"adamw lr={TRAIN['lr']} accum=1 donate={run['donate']} "
+            f"batch={run['batch']} seq={run['seq']} steps={len(walls)} "
             f"losses={[round(x, 4) for x in losses]} "
             f"grad_norms={[round(x, 4) for x in gnorms]} "
             f"first_step_ms={1e3 * walls[0]:.1f} step_ms={step_ms:.1f} "
@@ -4160,20 +4484,230 @@ def phase_train_ssm_check(np, torch, kernels, dev):
           + f" phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
 
 
+# the weights of an MLA block whose gradients must be nonzero
+MLA_WEIGHTS = ("wq_a", "wq_b", "wkv_a", "wk_b", "wv_b", "wo")
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def phase_train_mla(np, torch, kernels, dev, bwd_rows=None):
+    """``make_train_step`` on deepseek-v3-671b at its published widths,
+    ``TRAIN_MLA``: bf16, random weights from seed 0 made on the card after
+    every earlier model is freed, batches of the placement-aware pipeline
+    at B 4 and ``TRAIN``'s sequence, lr and steps, the step donating its
+    parameters and state.  Finite losses and grad norms; exactly
+    ``train_launches`` latent forward launches (all on the tensor-core
+    ``wgmma`` instance, each backward reading the lse its forward stored)
+    and backward calls (all on the bf16 instance), no other model kernel;
+    the plain versions swapped for functions that raise.  Then one step
+    under torch.profiler (device idle share, device s by group) and, on
+    the last batch, every layer's and the MTP block's MLA weight gradients
+    nonzero.  The line gives the backward's device ms a call beside its
+    bound at the step's shape and, when the kernels phase ran
+    (``bwd_rows``), SDPA's backward at that shape, with the card."""
+    import gc
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.steps import loss_and_grads
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    run = _train_setup(torch, TRAIN_MLA["arch"], dev,
+                       layers=TRAIN_MLA["layers"], batch=TRAIN_MLA["batch"],
+                       donate=True)
+    cfg, n = run["cfg"], TRAIN["steps"]
+    fal = kernels["flash_attention_latent"]
+    saved = _no_plain(flash_ops, ("flash_attention_latent_plain",
+                                  "flash_attention_latent_lse_plain",
+                                  "flash_attention_latent_bwd_plain"))
+    try:
+        losses, gnorms, walls, peak_gb = _train_steps(torch, kernels, run,
+                                                      n)
+        launches = _counts(kernels)
+        backward = fal.backward_launches
+        instances = dict(fal.instance_launches)
+        bwd_instances = dict(fal.backward_instance_launches)
+        lse_launches = fal.lse_launches
+        want = train_launches(cfg, n)
+        _require_launches("train-mla", launches, {
+            "flash_attention_latent": want["forward"], "flash_attention": 0,
+            "decode_attention": 0, "ssd_scan": 0,
+            "decode_attention_latent": 0})
+        _require(backward == want["backward"],
+                 f"train-mla: {backward} latent backward calls, want "
+                 f"{want['backward']}")
+        _require(kernels["flash_attention"].backward_launches == 0
+                 and kernels["ssd_scan"].backward_launches == 0,
+                 "train-mla: flash_attention's or ssd_scan's backward "
+                 "launched")
+        _require(instances == {"wgmma": want["forward"], "fma": 0},
+                 f"train-mla: flash_attention_latent instances {instances}, "
+                 "want every forward on the tensor-core (wgmma) instance")
+        _require(bwd_instances == {"bf16": want["backward"], "f32": 0},
+                 f"train-mla: backward instances {bwd_instances}, want "
+                 "every call on the bf16 instance")
+        # every backward reads the lse of its (recomputed) forward
+        _require(want["backward"] <= lse_launches <= want["forward"],
+                 f"train-mla: {lse_launches} forward launches stored lse, "
+                 f"want {want['backward']} to {want['forward']}")
+        _require(all(math.isfinite(x) for x in losses + gnorms),
+                 f"train-mla: non-finite losses {losses} or grad norms "
+                 f"{gnorms}")
+        batch, prof_wall, busy, by_group = _profiled_step(
+            torch, run, (("mla_bwd", ("mla_bwd_",)),
+                         ("mla_fwd", ("mla_attention",))))
+        # every layer's and the MTP block's MLA weights get a gradient
+        _, _, grads = loss_and_grads(cfg, run["params"], batch)
+        blocks = [*enumerate(grads["blocks"]), ("mtp", grads["mtp"]["block"])]
+        zero = [(i, w) for i, g in blocks for w in MLA_WEIGHTS
+                if not bool(g["attn"][w].abs().amax() > 0)]
+        _require(not zero, f"train-mla: zero gradients at (layer, weight) "
+                 f"{zero}")
+        del grads
+    finally:
+        for name, fn in saved.items():
+            setattr(flash_ops, name, fn)
+    a = cfg.mla
+    per_call = by_group["mla_bwd"] * 1e3 / (backward // n)
+    bound, _ = _latent_bwd_bound(run["batch"], run["seq"], cfg.num_heads, 2,
+                                 BF16_OPS_PER_S)
+    shape = f"train.B{run['batch']}.S{run['seq']}.H{cfg.num_heads}"
+    sdpa = next((r["library_device_ms"] for r in bwd_rows or ()
+                 if r["shape"].startswith(shape) and r["instance"] == "bf16"),
+                None)
+    print(f"train-mla: {MLA_ARCH} layers={cfg.num_layers} (dense; "
+          f"first_k_dense={cfg.moe.first_k_dense}) + mtp block "
+          f"d_model={cfg.d_model} heads={cfg.num_heads} "
+          f"q_lora={a.q_lora_rank} kv_lora={a.kv_lora_rank} "
+          f"rope={a.qk_rope_head_dim} d_ff={cfg.d_ff} "
+          f"vocab={cfg.vocab_size} held_before_gb={held_gb:.3f} "
+          + _train_line(run, losses, gnorms, walls, peak_gb, prof_wall,
+                        busy, by_group)
+          + f" latent_per_step={launches['flash_attention_latent'] // n} "
+          f"backward_per_step={backward // n} "
+          f"lse_launches_per_step={lse_launches / n:g} "
+          f"flash_attention_latent_instances={instances} "
+          f"backward_instances={bwd_instances} "
+          f"mla_bwd_device_ms_per_call={per_call:.4f} "
+          f"mla_bwd_bound_ms={bound:.4f} "
+          f"sdpa_bwd_device_ms={_fmt_ms(sdpa)} card={_card()!r} "
+          f"mla_weight_grads=nonzero "
+          f"phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches={**launches, "flash_attention_latent_bwd": backward},
+                backward=backward, backward_instances=bwd_instances)
+
+
+def phase_train_mla_check(np, torch, kernels, dev):
+    """``TRAIN_MLA_CHECK``: deepseek-v3-671b at full width, 2 dense layers
+    and the MTP group in f32 (TF32 off), ``loss_and_grads`` on the kernel
+    route (the latent forward on its CUDA-core ``fma`` instance, the
+    backward kernel's f32 instance) against the plain route
+    (``flash_attention_latent_plain`` under autograd) on the same batch:
+    loss within 1e-5 relative, every gradient leaf within 1e-4 of its
+    largest |value|, exact launches on the kernel route, none on the plain
+    route."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention_latent_plain)
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import attention, init_params
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(MLA_ARCH),
+                              num_layers=TRAIN_MLA_CHECK["layers"],
+                              dtype="float32")
+    params = init_params(cfg, seed=1, device=dev)
+    _require("mtp" in params and all("moe" not in b
+                                     for b in params["blocks"]),
+             "train-mla-check: want the dense MLA layers and the MTP group")
+    rng = np.random.default_rng(17)
+    B, S = TRAIN_MLA_CHECK["batch"], TRAIN_MLA_CHECK["seq"]
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 1))).to(
+        dev)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "targets": toks[:, 1:].contiguous()}
+    fal = kernels["flash_attention_latent"]
+    _zero_counts(kernels)
+    loss, _, grads = loss_and_grads(cfg, params, batch)
+    launches = _counts(kernels)
+    backward = fal.backward_launches
+    instances = dict(fal.instance_launches)
+    bwd_instances = dict(fal.backward_instance_launches)
+    want = train_launches(cfg, 1)
+    _require(launches == {**{k: 0 for k in kernels},
+                          "flash_attention_latent": want["forward"]}
+             and backward == want["backward"]
+             and instances == {"wgmma": 0, "fma": want["forward"]}
+             and bwd_instances == {"bf16": 0, "f32": want["backward"]},
+             f"train-mla-check: kernel route launches {launches}, backward "
+             f"{backward}, instances {instances}, backward instances "
+             f"{bwd_instances}, want {want}")
+    _zero_counts(kernels)
+    saved = attention.flash_attention_latent
+    try:
+        attention.flash_attention_latent = flash_attention_latent_plain
+        plain_loss, _, plain_grads = loss_and_grads(cfg, params, batch)
+    finally:
+        attention.flash_attention_latent = saved
+    _require(all(v == 0 for v in _counts(kernels).values())
+             and fal.backward_launches == 0,
+             "train-mla-check: the plain route launched a kernel")
+    loss_rel = abs(float(loss) - float(plain_loss)) / abs(float(plain_loss))
+    _require(loss_rel <= 1e-5, f"train-mla-check: loss {float(loss)} "
+             f"against {float(plain_loss)} ({loss_rel:.3g} relative)")
+    worst, worst_at = 0.0, None
+    for (path, g), pg in zip(tree_flatten_with_path(grads),
+                             tree_leaves(plain_grads)):
+        big = float(pg.abs().max())
+        ratio = float((g - pg).abs().max()) / max(big, 1e-30)
+        if ratio > worst:
+            worst, worst_at = ratio, path
+    _require(worst <= 1e-4, f"train-mla-check: gradient {worst_at} off by "
+             f"{worst:.3g} of its largest |value|")
+    print(f"train-mla-check: {MLA_ARCH} full width, layers={cfg.num_layers} "
+          f"(dense) + mtp block f32 tf32=off batch={B} seq={S} "
+          f"loss={float(loss):.6f} loss_rel_diff={loss_rel:.3e} (tol 1e-5) "
+          f"grad_max_rel_diff={worst:.3e} at {worst_at} (tol 1e-4) "
+          f"launches={launches} backward={backward} "
+          f"flash_attention_latent_instances={instances} "
+          f"backward_instances={bwd_instances} "
+          f"phase_s={time.perf_counter() - t_phase:.1f}", flush=True)
+    del params, grads, plain_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _refusals(torch, dev):
-    """Each model kernel without a backward raises NotImplementedError on
-    CUDA inputs that require grad."""
+    """Each model kernel without a backward (the two decode kernels, which
+    serve only) raises NotImplementedError on CUDA inputs that require
+    grad."""
     from repro_torch.kernels.decode_attention.ops import (
         decode_attention, decode_attention_latent)
-    from repro_torch.kernels.flash_attention.ops import flash_attention_latent
 
     def t(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     i32 = torch.int32
     calls = {
-        "flash_attention_latent": lambda x: flash_attention_latent(
-            x, t(1, 4, 2, 64), t(1, 4, 512), t(1, 4, 64), scale=0.1),
         "decode_attention": lambda x: decode_attention(
             x, t(1, 8, 1, 32), t(1, 8, 1, 32), t(1, 8, dtype=i32),
             t(1, dtype=i32)),
@@ -4181,8 +4715,7 @@ def _refusals(torch, dev):
             x, t(1, 2, 64), t(1, 8, 512), t(1, 8, 64), t(1, 8, dtype=i32),
             t(1, dtype=i32), scale=0.1),
     }
-    first = {"flash_attention_latent": (1, 4, 2, 512),
-             "decode_attention": (1, 2, 32),
+    first = {"decode_attention": (1, 2, 32),
              "decode_attention_latent": (1, 2, 512)}
     for name, call in calls.items():
         x = t(*first[name]).requires_grad_(True)
@@ -5468,10 +6001,11 @@ def main(argv=None) -> int:
     path_launches = {}   # phase -> kernel -> launches on that path
     ssd_chunks = {}      # phase -> ssd_scan launches by the chunk run
     flash_instances = latent_instances = decode_instances = None
-    bwd_instances = None
-    ssd_built = ssd_bwd_built = att_built = None
+    bwd_instances = latent_bwd_instances = None
+    ssd_built = ssd_bwd_built = att_built = mla_bwd_built = None
     if "build" in phases:
-        ssd_built, ssd_bwd_built, att_built = phase_build(_build)
+        ssd_built, ssd_bwd_built, att_built, mla_bwd_built = phase_build(
+            _build)
     if "kernels" in phases:
         rows = phase_kernels(np, torch, dev)
         rows.update(phase_model_kernels(np, torch, dev))
@@ -5493,6 +6027,12 @@ def main(argv=None) -> int:
                      for kind, d, n in att_built}
             missed = sorted(built - ran)
             _require(not missed, f"kernels: no row ran {missed}")
+            # ... and both instances of the latent backward
+            ran = {r["instance"]
+                   for r in rows["flash_attention_latent_bwd"]["shapes"]}
+            missed = sorted({dt for _, dt in mla_bwd_built} - ran)
+            _require(not missed, f"kernels: no flash_attention_latent_bwd "
+                     f"row ran {missed}")
             # the wrapper's head groups are the C side's
             from repro_torch.kernels.decode_attention.ops import (
                 MAX_GROUP, head_groups)
@@ -5620,6 +6160,15 @@ def main(argv=None) -> int:
         path_launches["train-ssm"] = trained["launches"]
     if "train-ssm-check" in phases:
         phase_train_ssm_check(np, torch, kernels, dev)
+    if "train-mla" in phases:
+        trained = phase_train_mla(
+            np, torch, kernels, dev,
+            rows.get("flash_attention_latent_bwd", {}).get("shapes"))
+        launches["flash_attention_latent_bwd"] = trained["backward"]
+        latent_bwd_instances = trained["backward_instances"]
+        path_launches["train-mla"] = trained["launches"]
+    if "train-mla-check" in phases:
+        phase_train_mla_check(np, torch, kernels, dev)
     if "health" in phases:
         health_runs = phase_health(np, torch, fit_kernels, health_inputs(np))
         path_launches["health"] = {
@@ -5668,6 +6217,11 @@ def main(argv=None) -> int:
         "decode_attention_latent": (
             "src/repro_torch/csrc/mla_attention.cu",
             "src/repro/kernels/decode_attention/kernel.py:77"),
+        # the gradient of the latent prefill; the reference differentiates
+        # chunked_attention in jnp at these shapes (its train_loss)
+        "flash_attention_latent_bwd": (
+            "src/repro_torch/csrc/mla_attention_bwd.cu",
+            "src/repro/kernels/flash_attention/kernel.py:94"),
     }
     report = []
     for name, (source, tpu) in replaces.items():
@@ -5725,6 +6279,23 @@ def main(argv=None) -> int:
                               "chunked_attention, as mla_attention calls it "
                               "(:273-286)",
                               library_backend=row.get("library_backend"))
+        if name == "flash_attention_latent_bwd":
+            # launches: backward calls on the train-mla path, four kernel
+            # launches each (delta, the query side, the key side's partial
+            # sums, their sum); ms is
+            # the bf16 row's at deepseek-v3's training shape, which
+            # train-mla runs
+            report[-1].update(computes="jax.vjp of src/repro/models/"
+                              "attention.py:27 chunked_attention, as "
+                              "mla_attention calls it (:273-286) and "
+                              "train_loss differentiates it "
+                              "(src/repro/models/model.py:323)",
+                              launches_per_call=len(MLA_BWD_PASSES),
+                              instance=row.get("instance"),
+                              instance_launches=latent_bwd_instances,
+                              library_backend=row.get("library_backend"),
+                              device_ms_by_pass=row.get(
+                                  "device_ms_by_pass"))
     print(json.dumps({"kernels": report}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,7 @@ __all__ = ["build", "lib", "check", "BUILD_INFO"]
 SOURCES = ("span_gain.cu", "cover_rounds.cu", "lockstep_peel.cu",
            "flash_attention.cu", "flash_attention_bwd.cu",
            "decode_attention.cu", "ssd_scan.cu", "ssd_scan_bwd.cu",
-           "mla_attention.cu")
+           "mla_attention.cu", "mla_attention_bwd.cu")
 HEADERS = ("wgmma.cuh",)   # included by the sources: part of the hash
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -64,8 +64,12 @@ _SIGNATURES = {
     "ssd_scan_bwd_launch": ([_P] * 16 + [_I] * 7 + [_P], _I),
     "ssd_scan_bwd_workspace": ([_I] * 5, _LL),
     "ssd_scan_bwd_grad_smem_bytes": ([_I, _I], _I),
-    "flash_attention_latent_launch": ([_P] * 5 + [_I] * 6 + [_F, _I, _I, _P],
+    "flash_attention_latent_launch": ([_P] * 6 + [_I] * 6 + [_F, _I, _I, _P],
                                       _I),
+    "flash_attention_latent_bwd_launch": ([_P] * 13 + [_I] * 6
+                                          + [_F, _I, _I, _P], _I),
+    "flash_attention_latent_bwd_workspace": ([_I] * 4, _LL),
+    "flash_attention_latent_bwd_smem_bytes": ([_I], _I),
     "decode_attention_latent_launch": ([_P] * 8 + [_I] * 7
                                        + [_F, _I, _I, _P], _I),
     "repro_torch_error_string": ([_I], ctypes.c_char_p),

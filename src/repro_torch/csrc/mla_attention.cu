@@ -21,7 +21,10 @@
 //   p[t]  = exp(s[t] - M),  M = max(-1e4, max of the visible s)
 //
 // which is the reference's online softmax (masked scores -1e30, running
-// max clamped at -1e4, divisor clamped at 1e-30).  R = 512 (kv_lora_rank)
+// max clamped at -1e4, divisor clamped at 1e-30).  Given an lse buffer,
+// prefill also stores each row's lse = max(M, -1e4) + log(max(sum_t p[t],
+// 1e-30)) in fp32 (B, S, H), which the backward (mla_attention_bwd.cu)
+// reads to form p again; serving passes none.  R = 512 (kv_lora_rank)
 // and Dr = 64 (qk_rope_head_dim), deepseek-v3's widths.  q_lat (B, S, H, R)
 // and q_rope (B, S, H, Dr), or (B, H, R) and (B, H, Dr) in decode; c_kv
 // (B, T, R) and k_rope (B, T, Dr); out like q_lat.  f32 or bf16 storage,
@@ -185,6 +188,7 @@ constexpr int kLaneDims = kR / 32;    // accumulator dims per row and lane
 constexpr int kPart = kR + 4;         // floats per split row of `part`
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kFloor2 = -1e4f * kLog2e;  // the max clamp, base 2
 constexpr float kNegInf = -1e30f;
 
@@ -261,6 +265,7 @@ struct Args {
   int Tk;
   int split_len;       // keys per split (decode), whole tiles
   float sc2;           // scale * log2(e)
+  float* lse;          // (B, rows) fp32, prefill when training; else null
 };
 
 // grid: prefill (row tiles, 1, B), walked heaviest first; decode (row
@@ -473,6 +478,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     } else {
       const float den = fmaxf(sum, 1e-30f);
+      // m is the base-2 max, clamped: lse = max(M, -1e4) + log(den)
+      if (!kDecode && a.lse != nullptr && lane == 0)
+        a.lse[r] = m[i] * kLn2 + logf(den);
       T* orow = static_cast<T*>(a.out) + r * kR + 4 * lane;
 #pragma unroll
       for (int c = 0; c < kLaneDims / 4; ++c)
@@ -850,6 +858,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
   const float den0 = fmaxf(l0, 1e-30f);
   const float den1 = fmaxf(l1, 1e-30f);
+  // both warpgroups hold the whole sums and the same base-2 maxima
+  if (!kDecode && a.lse != nullptr && wg == 0 && (lane & 3) == 0) {
+    float* lr = a.lse + (long long)b * rows + r0;
+    if (ok0) lr[row0] = m0 * kLn2 + logf(den0);
+    if (ok1) lr[row1] = m1 * kLn2 + logf(den1);
+  }
   __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(a.out) +
                       ((long long)b * rows + r0) * kR + 256 * wg + col;
 #pragma unroll
@@ -956,11 +970,11 @@ bool misaligned(const void* p) { return (uintptr_t)p % 16 != 0; }
 // tensor-core kernel).  q_lat (B, S, H, R), q_rope (B, S, H, Dr), c_kv
 // (B, Tk, R), k_rope (B, Tk, Dr), out (B, S, H, R), all contiguous and
 // 16-byte aligned; R must be 512 and Dr 64.  Causal over positions
-// 0..S-1 and 0..Tk-1.
+// 0..S-1 and 0..Tk-1.  lse: null, or fp32 (B, S, H), each row's lse.
 extern "C" int flash_attention_latent_launch(
     const void* q_lat, const void* q_rope, const void* c_kv,
-    const void* k_rope, void* out, int B, int S, int Tk, int H, int R,
-    int Dr, float scale, int dtype, int device, void* stream) {
+    const void* k_rope, void* out, void* lse, int B, int S, int Tk, int H,
+    int R, int Dr, float scale, int dtype, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (bad_widths(R, Dr) || B <= 0 || B > 65535 || S <= 0 || Tk <= 0 ||
@@ -970,7 +984,7 @@ extern "C" int flash_attention_latent_launch(
       misaligned(k_rope) || misaligned(out))
     return (int)cudaErrorMisalignedAddress;
   Args a{q_lat, q_rope, c_kv, k_rope, nullptr, nullptr, out, nullptr,
-         S * H, H, Tk, 0, scale * kLog2e};
+         S * H, H, Tk, 0, scale * kLog2e, static_cast<float*>(lse)};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) return (int)prefill_f32(a, B, device, st);
   if (dtype == 1) return (int)prefill_bf16(a, B, device, st);

@@ -15,10 +15,10 @@ and the model stack's (the serving paths):
 
 A wrapper runs the plain version for CPU tensors and launches the kernel
 for CUDA tensors (or raises); it never falls back from one to the other.
-On CUDA tensors flash_attention and ssd_scan are differentiable (each
-backward is a kernel too); the other model kernels have no backward yet
-and raise rather than return a result cut from the autograd graph
-(``refuse_grad``).
+On CUDA tensors flash_attention, its latent form and ssd_scan are
+differentiable (each backward is a kernel too); the two decode kernels
+serve only, have no backward and raise rather than return a result cut
+from the autograd graph (``refuse_grad``).
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ def launch_args(dev: torch.device) -> tuple[int, int]:
 def refuse_grad(kernel: str, item: str, *tensors: torch.Tensor) -> None:
     """Raise NotImplementedError when autograd would need a gradient of
     ``kernel``, which has no backward on the card: grad mode is on and an
-    input requires grad.  ``item`` says what brings the backward."""
+    input requires grad.  ``item`` says why the kernel has none."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
             f"{kernel} has no backward on the card ({item}); run it under "

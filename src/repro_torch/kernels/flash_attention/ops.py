@@ -69,7 +69,9 @@ positions 0..S-1 and 0..T-1, the same clamped fp32 softmax, output
 (B, S, H, R) in q's dtype: the reference's ``chunked_attention`` on the
 concatenated inputs with ``softmax_scale``.
 
-* ``flash_attention_latent_plain`` — its plain PyTorch version.
+* ``flash_attention_latent_plain`` — its plain PyTorch version;
+  ``flash_attention_latent_lse_plain`` returns (output, lse), lse fp32
+  (B, S, H) with the same clamps as flash's.
 * ``flash_attention_latent`` — the wrapper: plain version for CPU tensors,
   the CUDA kernels (``csrc/mla_attention.cu``, R 512 and Dr 64) for CUDA
   tensors.  ``flash_attention_latent.launches`` counts its launches and
@@ -79,7 +81,42 @@ concatenated inputs with ``softmax_scale``.
   two warpgroups, the keys of S and the value columns of O split between
   them, P passed between them in two bf16 halves, 64-key latent tiles
   staged once through a ring of 17 pieces), ``"fma"`` for f32, on the CUDA
-  cores (``mla_attention_kernel``).
+  cores (``mla_attention_kernel``).  On CUDA tensors the call is a
+  ``torch.autograd.Function``, as flash's: when grad mode is on and an
+  input needs a gradient, the kernel stores each row's lse into a buffer
+  from ``torch.empty`` (``flash_attention_latent.lse_launches`` counts
+  those launches; serving's must be 0) and the Function saves the inputs,
+  the output and lse; its backward runs ``flash_attention_latent_bwd``.
+  The forward stores lse rather than the backward forming it again,
+  because the forward has the row's max and sum at hand (one fp32 store
+  a row), where a pass of its own would form every score once more: a
+  fifth of the backward's products.  On CPU tensors autograd
+  differentiates the plain version as it is.
+* ``flash_attention_latent_lse`` — (output, lse) of one forward launch
+  that stores lse, no gradient; plain version for CPU tensors.
+
+The latent backward: given the inputs, the output o, its gradient do
+(B, S, H, R) and the forward's lse, (dq_lat, dq_rope, dc_kv, dk_rope) in
+q_lat's dtype, fp32 inside: with p the softmax weights, delta = rowsum(do
+* o) and ds = p (do . c_kv - delta), dq = scale ds [c_kv ; k_rope], and
+c_kv, the value and the key's first R columns, takes both parts: dc_kv =
+p^T do + scale ds^T q_lat, dk_rope = scale ds^T q_rope, summed over every
+(position, head) row.
+
+* ``flash_attention_latent_bwd_plain`` — its closed form in PyTorch ops,
+  one batch row at a time; it forms the softmax from the scores itself.
+* ``flash_attention_latent_bwd`` — the wrapper: plain version for CPU
+  tensors (lse, when given, is checked and not needed), the CUDA kernels
+  (``csrc/mla_attention_bwd.cu``: delta, then the query side, then the
+  key side's partial sums over chunks of the rows, then their sum; every
+  product as fp32 FMAs on the CUDA cores in both storage types) for CUDA
+  tensors, which read lse and raise without it; delta's and the partial
+  sums' fp32 workspaces come from ``torch.empty``, the latter's size
+  from the C side (``flash_attention_latent_bwd_workspace``, 0.16 GB at
+  B 4, S 1024, H 128).  ``flash_attention_latent.backward_launches``
+  counts its calls (four kernel launches each) and
+  ``backward_instance_launches`` the same calls by storage dtype
+  (``latent_bwd_instance``).
 """
 
 from __future__ import annotations
@@ -87,13 +124,16 @@ from __future__ import annotations
 import torch
 
 from ... import _build
-from .. import check_same_device, launch_args, refuse_grad
+from .. import check_same_device, launch_args
 
 __all__ = ["flash_attention", "flash_attention_plain", "instance",
            "flash_attention_lse", "flash_attention_lse_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_latent", "flash_attention_latent_plain",
-           "latent_instance", "LATENT_WIDTHS", "NEG_INF"]
+           "flash_attention_latent_lse", "flash_attention_latent_lse_plain",
+           "flash_attention_latent_bwd", "flash_attention_latent_bwd_plain",
+           "latent_instance", "latent_bwd_instance", "LATENT_WIDTHS",
+           "NEG_INF"]
 
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -338,24 +378,46 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ---------------------------------------------------------------- latent
-def flash_attention_latent_plain(q_lat, q_rope, c_kv, k_rope, *,
-                                 scale: float):
-    b, s, h, r = q_lat.shape
-    t = c_kv.shape[1]
+def _latent_scores(q_lat, q_rope, ckv, krope, i, scale, causal=True):
+    """Batch row i's masked scores (S, H, T), fp32, from ckv / krope (T, R)
+    / (T, Dr) in fp32."""
+    s, h, r = q_lat.shape[1:]
+    t = ckv.shape[0]
+    sc = (q_lat[i].float().reshape(s * h, r) @ ckv.T
+          + q_rope[i].float().reshape(s * h, -1) @ krope.T)
+    sc = sc.reshape(s, h, t) * scale
+    if not causal:
+        return sc
     mask = _mask(s, t, True, None, q_lat.device)[:, None, :]   # (S, 1, T)
+    return torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+
+
+def _latent_plain(q_lat, q_rope, c_kv, k_rope, scale, with_lse: bool):
+    b, s, h, r = q_lat.shape
     out = torch.empty_like(q_lat)
+    lse = (torch.empty((b, s, h), dtype=torch.float32, device=q_lat.device)
+           if with_lse else None)
     for i in range(b):
         ckv = c_kv[i].float()                                    # (T, R)
-        sc = (q_lat[i].float().reshape(s * h, r) @ ckv.T
-              + q_rope[i].float().reshape(s * h, -1) @ k_rope[i].float().T)
-        sc = sc.reshape(s, h, t) * scale
-        sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+        sc = _latent_scores(q_lat, q_rope, ckv, k_rope[i].float(), i, scale)
         m = sc.amax(dim=-1, keepdim=True).clamp_min(-1e4)
         p = torch.exp(sc - m)
-        o = (p.reshape(s * h, t) @ ckv).reshape(s, h, r)
-        out[i] = (o / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).to(
-            q_lat.dtype)
-    return out
+        o = (p.reshape(s * h, -1) @ ckv).reshape(s, h, r)
+        den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+        out[i] = (o / den).to(q_lat.dtype)
+        if with_lse:
+            lse[i] = (m + torch.log(den))[..., 0]
+    return out, lse
+
+
+def flash_attention_latent_plain(q_lat, q_rope, c_kv, k_rope, *,
+                                 scale: float):
+    return _latent_plain(q_lat, q_rope, c_kv, k_rope, scale, False)[0]
+
+
+def flash_attention_latent_lse_plain(q_lat, q_rope, c_kv, k_rope, *,
+                                     scale: float):
+    return _latent_plain(q_lat, q_rope, c_kv, k_rope, scale, True)
 
 
 def _check_latent(q_lat, q_rope, c_kv, k_rope, qdims: int) -> None:
@@ -385,33 +447,88 @@ def _check_latent_widths(q_lat, q_rope) -> None:
                          f"got {widths}")
 
 
+def _check_latent_forward(q_lat, q_rope, c_kv, k_rope) -> torch.device:
+    dev = check_same_device(q_lat, q_rope, c_kv, k_rope)
+    _check_latent(q_lat, q_rope, c_kv, k_rope, 3)
+    if dev.type != "cpu":
+        _check_latent_widths(q_lat, q_rope)
+    return dev
+
+
 def flash_attention_latent(q_lat: torch.Tensor, q_rope: torch.Tensor,
                            c_kv: torch.Tensor, k_rope: torch.Tensor, *,
                            scale: float) -> torch.Tensor:
     """Causal latent attention of q_lat (B, S, H, R) / q_rope (B, S, H, Dr)
     over c_kv (B, T, R) / k_rope (B, T, Dr); returns (B, S, H, R)."""
-    dev = check_same_device(q_lat, q_rope, c_kv, k_rope)
-    _check_latent(q_lat, q_rope, c_kv, k_rope, 3)
-    if dev.type == "cpu":
+    if _check_latent_forward(q_lat, q_rope, c_kv, k_rope).type == "cpu":
         return flash_attention_latent_plain(q_lat, q_rope, c_kv, k_rope,
                                             scale=scale)
-    refuse_grad("flash_attention_latent", "ROADMAP Queue 1 item 9.8 brings "
-                "it, with mla_decomp", q_lat, q_rope, c_kv, k_rope)
-    _check_latent_widths(q_lat, q_rope)
+    # Function.forward runs with grad mode off: decide here, as flash's
+    keep_lse = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (q_lat, q_rope, c_kv, k_rope))
+    return _FlashAttentionLatent.apply(q_lat, q_rope, c_kv, k_rope,
+                                       float(scale), keep_lse)
+
+
+def flash_attention_latent_lse(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                               c_kv: torch.Tensor, k_rope: torch.Tensor, *,
+                               scale: float):
+    """(output, lse (B, S, H) fp32) of ``flash_attention_latent``'s
+    forward; no gradient flows through it."""
+    if _check_latent_forward(q_lat, q_rope, c_kv, k_rope).type == "cpu":
+        return flash_attention_latent_lse_plain(q_lat, q_rope, c_kv, k_rope,
+                                                scale=scale)
+    lse = _latent_lse_buffer(q_lat)
+    return _latent_launch(q_lat, q_rope, c_kv, k_rope, scale, lse), lse
+
+
+def _latent_lse_buffer(q_lat) -> torch.Tensor:
+    return torch.empty(q_lat.shape[:3], dtype=torch.float32,
+                       device=q_lat.device)
+
+
+def _latent_launch(q_lat, q_rope, c_kv, k_rope, scale, lse=None):
+    """The forward kernel on CUDA tensors that ``_check_latent_forward``
+    has checked; it stores each row's lse into ``lse`` when one is
+    given."""
     out = torch.empty_like(q_lat)
     if out.numel() == 0:
         return out
     b, s, h, r = q_lat.shape
-    index, stream = launch_args(dev)
+    index, stream = launch_args(q_lat.device)
     err = _build.lib().flash_attention_latent_launch(
         q_lat.data_ptr(), q_rope.data_ptr(), c_kv.data_ptr(),
-        k_rope.data_ptr(), out.data_ptr(), b, s, c_kv.shape[1], h, r,
+        k_rope.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b, s, c_kv.shape[1], h, r,
         q_rope.shape[-1], float(scale), _DTYPES[q_lat.dtype], index, stream)
     _build.check(err, "flash_attention_latent")
     flash_attention_latent.launches += 1
     inst = latent_instance(q_lat.dtype)
     flash_attention_latent.instance_launches[inst] += 1
+    if lse is not None:
+        flash_attention_latent.lse_launches += 1
     return out
+
+
+class _FlashAttentionLatent(torch.autograd.Function):
+    """The CUDA route of ``flash_attention_latent``: the forward kernel,
+    and ``flash_attention_latent_bwd`` for the gradient."""
+
+    @staticmethod
+    def forward(ctx, q_lat, q_rope, c_kv, k_rope, scale, keep_lse):
+        lse = _latent_lse_buffer(q_lat) if keep_lse else None
+        out = _latent_launch(q_lat, q_rope, c_kv, k_rope, scale, lse)
+        ctx.save_for_backward(q_lat, q_rope, c_kv, k_rope, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q_lat, q_rope, c_kv, k_rope, out, lse = ctx.saved_tensors
+        grads = flash_attention_latent_bwd(q_lat, q_rope, c_kv, k_rope, out,
+                                           dout.contiguous(), lse,
+                                           scale=ctx.scale)
+        return (*grads, None, None)
 
 
 def latent_instance(dtype: torch.dtype) -> str:
@@ -420,5 +537,108 @@ def latent_instance(dtype: torch.dtype) -> str:
     return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
+def latent_bwd_instance(dtype: torch.dtype) -> str:
+    """The instance of the latent backward's passes that a call on inputs
+    of ``dtype`` runs: one a storage dtype, fp32 FMAs in both."""
+    return "bf16" if dtype == torch.bfloat16 else "f32"
+
+
 flash_attention_latent.launches = 0
 flash_attention_latent.instance_launches = {"wgmma": 0, "fma": 0}
+flash_attention_latent.lse_launches = 0
+flash_attention_latent.backward_launches = 0
+flash_attention_latent.backward_instance_launches = {"bf16": 0, "f32": 0}
+
+
+# --------------------------------------------------------- latent backward
+def _latent_bwd(q_lat, q_rope, c_kv, k_rope, o, do, scale, causal=True,
+                value_part=True):
+    """The closed form; ``causal=False`` drops the mask and
+    ``value_part=False`` dc_kv's p^T do term (the card check's wrong
+    variants)."""
+    b, s, h, r = q_lat.shape
+    dr = q_rope.shape[-1]
+    dq_lat, dq_rope = torch.empty_like(q_lat), torch.empty_like(q_rope)
+    dc_kv, dk_rope = torch.empty_like(c_kv), torch.empty_like(k_rope)
+    for i in range(b):
+        ckv, krope = c_kv[i].float(), k_rope[i].float()
+        sc = _latent_scores(q_lat, q_rope, ckv, krope, i, scale, causal)
+        m = sc.amax(dim=-1, keepdim=True).clamp_min(-1e4)
+        e = torch.exp(sc - m)
+        p = (e / e.sum(dim=-1, keepdim=True).clamp_min(1e-30)).reshape(
+            s * h, -1)
+        del sc, e
+        dof = do[i].float().reshape(s * h, r)
+        delta = (dof * o[i].float().reshape(s * h, r)).sum(-1, keepdim=True)
+        ds = p * (dof @ ckv.T - delta)
+        dq_lat[i] = (scale * (ds @ ckv)).reshape(s, h, r).to(q_lat.dtype)
+        dq_rope[i] = (scale * (ds @ krope)).reshape(s, h, dr).to(
+            q_rope.dtype)
+        dck = scale * (ds.T @ q_lat[i].float().reshape(s * h, r))
+        if value_part:
+            dck = dck + p.T @ dof
+        dc_kv[i] = dck.to(c_kv.dtype)
+        dk_rope[i] = (scale * (ds.T @ q_rope[i].float().reshape(s * h, dr))
+                      ).to(k_rope.dtype)
+    return dq_lat, dq_rope, dc_kv, dk_rope
+
+
+def flash_attention_latent_bwd_plain(q_lat, q_rope, c_kv, k_rope, o, do, *,
+                                     scale: float):
+    return _latent_bwd(q_lat, q_rope, c_kv, k_rope, o, do, scale)
+
+
+def flash_attention_latent_bwd(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                               c_kv: torch.Tensor, k_rope: torch.Tensor,
+                               o: torch.Tensor, do: torch.Tensor,
+                               lse: torch.Tensor | None = None, *,
+                               scale: float):
+    """(dq_lat, dq_rope, dc_kv, dk_rope) of ``flash_attention_latent(q_lat,
+    q_rope, c_kv, k_rope, scale) = o`` at the output gradient ``do``
+    (B, S, H, R); all six contiguous, of one dtype.  ``lse`` is the
+    forward's (``flash_attention_latent_lse``), fp32 (B, S, H); the CUDA
+    kernels need it."""
+    dev = check_same_device(q_lat, q_rope, c_kv, k_rope, o, do,
+                            *(() if lse is None else (lse,)))
+    _check_latent(q_lat, q_rope, c_kv, k_rope, 3)
+    if o.shape != q_lat.shape or do.shape != q_lat.shape:
+        raise ValueError(f"o and do must be (B, S, H, R) = "
+                         f"{tuple(q_lat.shape)}, got {tuple(o.shape)} and "
+                         f"{tuple(do.shape)}")
+    if o.dtype != q_lat.dtype or do.dtype != q_lat.dtype:
+        raise TypeError("flash_attention_latent_bwd takes f32 or bf16 "
+                        "inputs of one dtype")
+    b, s, h, _ = q_lat.shape
+    if lse is not None and (lse.shape != (b, s, h)
+                            or lse.dtype != torch.float32):
+        raise ValueError(f"lse must be a contiguous float32 (B, S, H) = "
+                         f"{(b, s, h)} tensor, got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    if dev.type == "cpu":
+        return flash_attention_latent_bwd_plain(q_lat, q_rope, c_kv, k_rope,
+                                                o, do, scale=scale)
+    _check_latent_widths(q_lat, q_rope)
+    if lse is None:
+        raise ValueError("flash_attention_latent_bwd on CUDA tensors reads "
+                         "the forward's lse (flash_attention_latent_lse); "
+                         "it does not recompute it")
+    grads = tuple(torch.empty_like(x) for x in (q_lat, q_rope, c_kv, k_rope))
+    if q_lat.numel() == 0 or c_kv.numel() == 0:
+        return tuple(g.zero_() for g in grads)
+    t = c_kv.shape[1]
+    lib = _build.lib()
+    delta = torch.empty_like(lse)
+    part = torch.empty(lib.flash_attention_latent_bwd_workspace(b, s, t, h),
+                       dtype=torch.float32, device=dev)
+    index, stream = launch_args(dev)
+    err = lib.flash_attention_latent_bwd_launch(
+        q_lat.data_ptr(), q_rope.data_ptr(), c_kv.data_ptr(),
+        k_rope.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), part.data_ptr(), *(g.data_ptr() for g in grads), b,
+        s, t, h, q_lat.shape[-1], q_rope.shape[-1], float(scale),
+        _DTYPES[q_lat.dtype], index, stream)
+    _build.check(err, "flash_attention_latent_bwd")
+    flash_attention_latent.backward_launches += 1
+    flash_attention_latent.backward_instance_launches[
+        latent_bwd_instance(q_lat.dtype)] += 1
+    return grads

@@ -10,7 +10,16 @@ reference's ``launch/steps.py``).
   clipped to global norm 1, the optimizer's update (already in the
   parameter dtype) is added as ``(p.f32 + u.f32).to(p.dtype)``: two
   roundings in bf16, as in the reference.  Nothing is updated in place,
-  so the old parameters and state stay valid.
+  so the old parameters and state stay valid, unless ``donate=True``:
+  then, as the reference's ``jax.jit(step, donate_argnums=(0, 1))`` lets
+  XLA reuse the buffers of the parameters and optimizer state it is
+  given, the step writes the new moments over the old ones
+  (``update(..., inplace=True)``, AdamW only; another optimizer is
+  refused) and each new parameter over the old one, with the same
+  numbers, and returns those tensors; the caller must not read the old
+  ones.  At deepseek-v3's three dense layers and MTP
+  group (4.3 B parameters) the fp32 moments are 34 GB, and a second copy
+  of them would not fit one 80 GB card beside the weights and gradients.
 * ``make_prefill_step``, ``make_serve_step``: prefill and one decode step.
 * ``pick_optimizer``: Adafactor for the 100B+ class, AdamW otherwise.
 * ``shape_skip_reason``: the documented skips of the shape grid.
@@ -57,8 +66,12 @@ def loss_and_grads(cfg, params, batch, *, moe_dispatch=None):
     return loss.detach(), metrics, tree_unflatten(params, grads)
 
 
-def make_train_step(cfg, optimizer=None, moe_dispatch=None):
+def make_train_step(cfg, optimizer=None, moe_dispatch=None, donate=False):
     opt = optimizer or make_optimizer(pick_optimizer(cfg), 3e-4)
+    if donate and not opt.inplace:
+        raise ValueError("make_train_step(donate=True) needs an optimizer "
+                         "whose update writes in place (AdamW)")
+    inplace = {"inplace": True} if donate else {}
     accum = int(FLAGS["accum_steps"])
 
     def train_step(params, opt_state, batch):
@@ -82,11 +95,16 @@ def make_train_step(cfg, optimizer=None, moe_dispatch=None):
             loss = lsum / accum
             metrics = {"loss": loss, "xent": loss}
         grads, gnorm = clip_by_global_norm(grads, 1.0)
-        updates, new_opt_state = opt.update(grads, opt_state, params)
-        new_params = tree_map(
-            lambda p, u: (p.to(torch.float32) + u.to(torch.float32))
-            .to(p.dtype), params, updates)
         metrics = dict(metrics, grad_norm=gnorm)
+        updates, new_opt_state = opt.update(grads, opt_state, params,
+                                            **inplace)
+        del grads
+
+        def apply(p, u):
+            new = (p.to(torch.float32) + u.to(torch.float32)).to(p.dtype)
+            return p.copy_(new) if donate else new
+
+        new_params = tree_map(apply, params, updates)
         return new_params, new_opt_state, metrics
 
     return train_step, opt

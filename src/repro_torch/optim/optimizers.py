@@ -11,6 +11,12 @@ As in the reference, ``update(grads, state, params)`` returns the update
 in each parameter's dtype (computed in fp32, then cast) and the new state;
 the caller adds it.  Nothing is updated in place: the old state stays
 valid (a checkpoint being written from it in the background reads it).
+AdamW's ``update(..., inplace=True)`` is the exception, for a caller that
+donates the state as the reference's ``jax.jit(step, donate_argnums=(0,
+1))`` does: the same arithmetic writes the new moments over the old
+tensors instead of fresh ones, and the returned state holds those
+tensors, so the update needs no second copy of the moments
+(``Optimizer.inplace`` says whether ``update`` takes the argument).
 The step counter is an int32 0-d tensor on the parameters' device, and
 the bias corrections take ``b ** step`` in fp32.
 """
@@ -33,6 +39,7 @@ __all__ = ["Optimizer", "AdamWState", "AdafactorState", "cosine_schedule",
 class Optimizer:
     init: Callable
     update: Callable  # (grads, state, params) -> (updates, new_state)
+    inplace: bool = False  # update also takes inplace=True
 
 
 def cosine_schedule(peak_lr: float, warmup_steps: int, total_steps: int,
@@ -97,7 +104,7 @@ def adamw(lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
         return AdamWState(_step0(params), tree_map(zeros, params),
                           tree_map(zeros, params))
 
-    def update(grads, state, params):
+    def update(grads, state, params, inplace=False):
         step = state.step + 1
         lr_t = lr_fn(step)
         t = step.to(torch.float32)
@@ -106,21 +113,26 @@ def adamw(lr, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
         new = []
 
         def upd(g, m, v, p):
+            # the new moments go to m / v themselves when inplace, else to
+            # fresh tensors; at most two fp32 temporaries of the leaf's size
+            m_new = m if inplace else torch.empty_like(m)
+            v_new = v if inplace else torch.empty_like(v)
             g = g.to(torch.float32)
-            m_new = b1 * m + (1 - b1) * g
-            v_new = b2 * v + (1 - b2) * g * g
-            mhat = m_new / c1
-            vhat = v_new / c2
-            delta = mhat / (torch.sqrt(vhat) + eps) + weight_decay * p.to(
-                torch.float32)
+            torch.mul(m, b1, out=m_new).add_(g * (1 - b1))
+            torch.mul(v, b2, out=v_new).add_((g * (1 - b2)).mul_(g))
+            del g
+            denom = (v_new / c2).sqrt_().add_(eps)
+            delta = (m_new / c1).div_(denom)
+            del denom
+            delta.add_(weight_decay * p.to(torch.float32))
             new.append((m_new, v_new))
-            return (-lr_t * delta).to(p.dtype)
+            return delta.mul_(-lr_t).to(p.dtype)
 
         updates = tree_map(upd, grads, state.m, state.v, params)
         return updates, AdamWState(step, _pick(new, 0, grads),
                                    _pick(new, 1, grads))
 
-    return Optimizer(init, update)
+    return Optimizer(init, update, inplace=True)
 
 
 # ---------------------------------------------------------------- Adafactor

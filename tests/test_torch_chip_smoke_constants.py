@@ -771,9 +771,10 @@ def test_phase_order_puts_the_moe_phases_before_health():
     assert phases.index("serve-moe") + 1 == phases.index("serve-moe-check")
     # then the MLA phases, then the training ones, then health
     i = phases.index("serve-moe-check")
-    assert phases[i:i + 8] == ("serve-moe-check", "serve-mla",
-                               "serve-mla-check", "train", "train-check",
-                               "train-ssm", "train-ssm-check", "health")
+    assert phases[i:i + 10] == ("serve-moe-check", "serve-mla",
+                                "serve-mla-check", "train", "train-check",
+                                "train-ssm", "train-ssm-check", "train-mla",
+                                "train-mla-check", "health")
     assert phases[-2:] == ("health", "scale")
 
 
@@ -1153,7 +1154,8 @@ def test_phase_order_puts_the_training_phases_after_serving():
     phases = chip_smoke.PHASES
     i = phases.index("serve-mla-check")
     assert phases[i + 1:] == ("train", "train-check", "train-ssm",
-                              "train-ssm-check", "health", "scale")
+                              "train-ssm-check", "train-mla",
+                              "train-mla-check", "health", "scale")
 
 
 def test_train_phase_is_olmo_at_full_width_and_depth():

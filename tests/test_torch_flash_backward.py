@@ -310,22 +310,23 @@ def test_wgmma_rows_cover_the_tensor_core_head_dims():
 
 def test_refuse_grad_raises_only_when_a_gradient_is_asked_for():
     x = torch.zeros(3, requires_grad=True)
-    item = "ROADMAP Queue 1 item 9.8 brings it, with mla_decomp"
-    with pytest.raises(NotImplementedError, match="item 9.8"):
-        refuse_grad("flash_attention_latent", item, x)
+    item = ("decode serves only: training (ROADMAP Queue 1 item 9.5) runs "
+            "cache-free forwards, and no item brings a decode backward")
+    with pytest.raises(NotImplementedError, match="item 9.5"):
+        refuse_grad("decode_attention_latent", item, x)
     with torch.no_grad():
-        refuse_grad("flash_attention_latent", item, x)
-    refuse_grad("flash_attention_latent", item, x.detach())
+        refuse_grad("decode_attention_latent", item, x)
+    refuse_grad("decode_attention_latent", item, x.detach())
 
 
 def test_every_kernel_without_a_backward_refuses_on_the_card():
-    # the CUDA branch of each wrapper calls refuse_grad before its launch
+    # the CUDA branch of each decode wrapper calls refuse_grad before its
+    # launch: decode serves only
     from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
-    for fn, item in ((flash_ops.flash_attention_latent, "item 9.8"),
-                     (decode_ops.decode_attention, "item 9.5"),
+    for fn, item in ((decode_ops.decode_attention, "item 9.5"),
                      (decode_ops.decode_attention_latent, "item 9.5")):
         src = inspect.getsource(fn)
         cpu = src.index('if dev.type == "cpu":')
@@ -333,10 +334,13 @@ def test_every_kernel_without_a_backward_refuses_on_the_card():
         launch = src.index("_build.lib()")
         assert cpu < refuse < launch, fn.__name__
         assert item in src[refuse:launch], fn.__name__
-    # flash_attention and ssd_scan are differentiable: their CUDA routes
-    # are the Functions
+    # flash_attention, its latent form and ssd_scan are differentiable:
+    # their CUDA routes are the Functions
     src = inspect.getsource(flash_ops.flash_attention)
     assert "_FlashAttention.apply" in src and "refuse_grad" not in src
+    src = inspect.getsource(flash_ops.flash_attention_latent)
+    assert "_FlashAttentionLatent.apply" in src and "refuse_grad" not in src
+    assert "refuse_grad" not in inspect.getsource(flash_ops)
     src = inspect.getsource(ssd_ops.ssd_scan)
     assert "_SSDScan.apply" in src and "refuse_grad" not in src
     assert "refuse_grad" not in inspect.getsource(ssd_ops)

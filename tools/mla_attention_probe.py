@@ -274,6 +274,13 @@ def time_variants(names: list[str], others: list[Path]) -> int:
                           "decode_attention_latent_launch"):
                 getattr(lib, entry).argtypes, getattr(lib, entry).restype = \
                     _build._SIGNATURES[entry]
+            # a source from before the forward could store lse takes no
+            # lse pointer
+            lib.takes_lse = "void* lse, int B" in sources[name]
+            if not lib.takes_lse:
+                lib.flash_attention_latent_launch.argtypes = \
+                    lib.flash_attention_latent_launch.argtypes[:5] + \
+                    lib.flash_attention_latent_launch.argtypes[6:]
             libs[name] = lib
         gen = torch.Generator(device=dev).manual_seed(0)
         stream = torch.cuda.current_stream().cuda_stream
@@ -290,9 +297,10 @@ def time_variants(names: list[str], others: list[Path]) -> int:
         part = torch.empty((b, h, ns, 516), dtype=torch.float32, device=dev)
 
         def prefill(lib):
+            lse = (None,) if lib.takes_lse else ()
             err = lib.flash_attention_latent_launch(
-                *(a.data_ptr() for a in pre), pre_out.data_ptr(), b, s, s, h,
-                512, 64, SCALE, 1, index, stream)
+                *(a.data_ptr() for a in pre), pre_out.data_ptr(), *lse, b, s,
+                s, h, 512, 64, SCALE, 1, index, stream)
             if err:
                 raise RuntimeError(f"CUDA error {err}")
 

@@ -43,9 +43,11 @@ Phases, each printed on a line of its own:
                  reduce pass; no spill allowed), with the gradient pass's
                  shared memory at P 64, N 128; and of flash_attention_latent's
                  backward (``MLA_BWD_INSTANCES``, each of which the build
-                 must make: the delta, query-side, key-side and sum passes
-                 for bf16 and f32 storage), with the shared memory of its
-                 two row-walking passes.
+                 must make: the delta and sum passes for bf16 and f32
+                 storage, the bf16 query and key sides on the tensor cores
+                 (no spill allowed, ``MLA_BWD_NO_SPILL``) and the f32 ones
+                 on the CUDA cores), with the shared memory of its four
+                 row-walking passes.
 2. kernels     — hold each kernel against its plain PyTorch version on the
                  card and time kernel, plain version, library call (where
                  one PyTorch call computes the same function) and the
@@ -189,14 +191,15 @@ Phases, each printed on a line of its own:
                  deepseek-v3-671b's training shape (train-mla's B 4, S = T
                  1024, H 128, R 512, Dr 64, scale 192^-0.5) in bf16 and
                  f32, B 8 in bf16, S = T 1528 at B 2, and H 3 at S 77
-                 (32-row blocks that span
-                 positions); f32 within 1e-4 of each gradient's largest
-                 |value|, bf16 by flash's backward rule; each check must
-                 reject dc_kv without its value part and the backward
-                 without the causal mask, each call run its dtype's
-                 instance, and two calls at the training shapes give the
-                 same bits.  Its rows time the kernel (the training shapes
-                 also per pass: delta, q, kv, reduce), the plain version and
+                 (blocks that span positions); f32 within 1e-4 of each
+                 gradient's largest |value|, bf16 by flash's backward
+                 rule; each check must reject dc_kv without its value part
+                 and the backward without the causal mask, each call run
+                 its dtype's instance (bf16 ``wgmma``, f32 ``fma``), and
+                 two calls at the training shapes give the same bits.  Its
+                 rows time the kernel (the training shapes also per pass,
+                 ``MLA_BWD_PASSES``: delta, q_wgmma, kv_wgmma, reduce in
+                 bf16; delta, q, kv, reduce in f32), the plain version and
                  SDPA's backward (autograd, causal, the one latent key
                  head shared by the H heads, key 576 / value 512, on the
                  backend SDPA's dispatch picks, named by its graph)
@@ -439,7 +442,8 @@ Phases, each printed on a line of its own:
                  layer twice under remat, the MTP block once; all on the
                  ``wgmma`` instance, each backward reading the lse its
                  forward stored) and 3 + 1 backward calls a step (all on
-                 the bf16 instance; ``train_launches``), no other model
+                 the tensor-core ``wgmma`` instance; ``train_launches``),
+                 no other model
                  kernel, no plain version (each swapped for a function
                  that raises); finite losses and grad norms; every
                  layer's and the MTP block's wq_a, wq_b, wkv_a, wk_b, wv_b
@@ -448,7 +452,7 @@ Phases, each printed on a line of its own:
                  the MTP group in f32 with TF32 off (``TRAIN_MLA_CHECK``:
                  B 2, S 1024): ``loss_and_grads`` on the kernel route (the
                  latent forward's fma instance and the backward kernel's
-                 f32 instance) against the plain route
+                 CUDA-core fma instance) against the plain route
                  (``flash_attention_latent_plain`` under autograd): loss
                  within 1e-5 relative, every gradient leaf within 1e-4 of
                  its largest |value|, 2 L + 1 forward launches and L + 1
@@ -1238,8 +1242,11 @@ MLA_NO_SPILL = (("bf16", "prefill", "wgmma"), ("bf16", "decode", "wgmma"))
 
 
 def _latent_bwd_instance(entry: str):
-    """(pass, dtype) of a latent backward kernel's mangled name
-    (mla_bwd_{delta,q,kv,reduce}_kernel<T>); None for any other."""
+    """(pass, dtype) of a latent backward kernel's mangled name: the pass
+    is the name's middle (mla_bwd_{delta,q,kv,reduce}_kernel<T>, or the
+    bf16 tensor-core mla_bwd_{q,kv}_wgmma_kernel); None for any other."""
+    if m := re.search(r"mla_bwd_(q|kv)_wgmma_kernel", entry):
+        return (f"{m.group(1)}_wgmma", "bf16")
     m = re.search(r"mla_bwd_(delta|q|kv|reduce)_kernelI(13__nv_bfloat16|f)E",
                   entry)
     if not m:
@@ -1247,10 +1254,20 @@ def _latent_bwd_instance(entry: str):
     return (m.group(1), "bf16" if m.group(2) != "f" else "f32")
 
 
-# the latent backward's instances the build must make: its four passes
-# for each storage dtype (fp32 FMAs on the CUDA cores in both)
-MLA_BWD_INSTANCES = tuple((p, dt) for dt in ("bf16", "f32")
-                          for p in ("delta", "q", "kv", "reduce"))
+# the latent backward's passes by instance: bf16 ("wgmma") runs its query
+# and key sides on the tensor cores, f32 ("fma") on the CUDA cores; both
+# share the delta pass and the sum of the key side's chunks
+MLA_BWD_PASSES = {"wgmma": ("delta", "q_wgmma", "kv_wgmma", "reduce"),
+                  "fma": ("delta", "q", "kv", "reduce")}
+MLA_BWD_DTYPES = {"wgmma": "bf16", "fma": "f32"}
+# the instances the build must make, and those that must not spill
+MLA_BWD_INSTANCES = tuple((p, MLA_BWD_DTYPES[inst])
+                          for inst, passes in MLA_BWD_PASSES.items()
+                          for p in passes)
+MLA_BWD_NO_SPILL = (("q_wgmma", "bf16"), ("kv_wgmma", "bf16"))
+# flash_attention_latent_bwd_smem_bytes's passes: the f32 query and key
+# sides, then the tensor-core ones
+MLA_BWD_SMEM_PASSES = ("q", "kv", "q_wgmma", "kv_wgmma")
 
 
 def phase_build(_build):
@@ -1334,13 +1351,17 @@ def phase_build(_build):
     _require(set(mla_bwd) == set(MLA_BWD_INSTANCES),
              f"build: ptxas reports mla_attention_bwd instances "
              f"{sorted(mla_bwd)}, want {MLA_BWD_INSTANCES}")
-    mla_bwd_smem = [_build.lib().flash_attention_latent_bwd_smem_bytes(p)
-                    for p in (0, 1)]
-    _require(max(mla_bwd_smem) <= 232448, f"build: the latent backward "
-             f"needs {mla_bwd_smem} bytes of shared memory a block")
+    mla_bwd_smem = {
+        p: _build.lib().flash_attention_latent_bwd_smem_bytes(i)
+        for i, p in enumerate(MLA_BWD_SMEM_PASSES)}
+    _require(0 < min(mla_bwd_smem.values())
+             and max(mla_bwd_smem.values()) <= 232448,
+             f"build: the latent backward needs {mla_bwd_smem} bytes of "
+             "shared memory a block")
     mla_bwd_line = ", ".join(
         f"{p} {dt} registers={mla_bwd[p, dt]['registers']} spills="
         f"{mla_bwd[p, dt]['spill_stores']}/{mla_bwd[p, dt]['spill_loads']}"
+        + (f" smem_bytes={mla_bwd_smem[p]}" if p in mla_bwd_smem else "")
         for p, dt in MLA_BWD_INSTANCES)
     # flash_attention's backward: every instance built
     bwd = {_bwd_instance(e["entry"]): e for e in entries
@@ -1381,14 +1402,14 @@ def phase_build(_build):
           f"{bwd_line}; ssd_scan_bwd instances (spill stores/loads "
           f"bytes): {ssd_bwd_line}, grad smem_bytes={ssd_bwd_smem} at P 64 "
           f"N 128; mla_attention_bwd instances (spill stores/loads bytes): "
-          f"{mla_bwd_line}, smem_bytes q={mla_bwd_smem[0]} "
-          f"kv={mla_bwd_smem[1]}", flush=True)
+          f"{mla_bwd_line}", flush=True)
     for e in entries:
         print(f"  {e['source']} {e['entry'][:60]} registers={e['registers']} "
               f"spill_stores={e['spill_stores']} "
               f"spill_loads={e['spill_loads']}")
     for inst, e in [*tc.items(), *((i, att[i]) for i in DENSE_NO_SPILL),
                     *((i, mla[i]) for i in MLA_NO_SPILL),
+                    *((i, mla_bwd[i]) for i in MLA_BWD_NO_SPILL),
                     *((i, e) for i, e in bwd.items() if i[3] == "wgmma")]:
         _require(e["spill_stores"] == 0 and e["spill_loads"] == 0,
                  f"build: the instance {inst} spills "
@@ -1401,7 +1422,7 @@ def phase_build(_build):
                  f"fits no block on an SM ({n})")
     # the instances the kernels phase must run: the tensor-core flash ones
     # under the same (kernel, dtype, D) keys as the CUDA-core ones
-    return set(ssd), set(ssd_bwd), set(att) | set(tc), set(mla_bwd)
+    return set(ssd), set(ssd_bwd), set(att) | set(tc)
 
 
 def phase_kernels(np, torch, dev):
@@ -2793,7 +2814,6 @@ MLA_BWD = (
 # the rows at the training shapes: two calls must give the same bits, and
 # their times add the profiler's device ms, in all and per pass
 MLA_BWD_PROFILED = ("train", "B8")
-MLA_BWD_PASSES = ("delta", "q", "kv", "reduce")
 # The tolerance: f32 within 1e-4 of each gradient's largest |value| (fp32
 # sums in another order than the plain version's); bf16, each gradient
 # rounded once from such sums, by flash's backward rule (``BWD_TOL_BF16``)
@@ -2890,7 +2910,7 @@ def _latent_bwd_rows(torch, dev, labels=None):
             got = ops.flash_attention_latent_bwd(*x, o, do, lse, **kw)
             ran = {i: n - before[i]
                    for i, n in fal.backward_instance_launches.items()}
-            _require(ran == {"bf16": 0, "f32": 0} | {inst: 1},
+            _require(ran == {"wgmma": 0, "fma": 0} | {inst: 1},
                      f"{name}: backward instances {ran}, want one {inst}")
             want = ops.flash_attention_latent_bwd_plain(*x, o, do, **kw)
             torch.cuda.synchronize()
@@ -2940,7 +2960,7 @@ def _latent_bwd_rows(torch, dev, labels=None):
                 device_ms=sum(passes.values()) if passes else None,
                 device_ms_by_pass={p: sum(v for k, v in passes.items()
                                           if f"mla_bwd_{p}_kernel" in k)
-                                   for p in MLA_BWD_PASSES}
+                                   for p in MLA_BWD_PASSES[inst]}
                 if passes else None,
                 plain_ms=_cuda_ms(torch, lambda: (
                     ops.flash_attention_latent_bwd_plain(*x, o, do, **kw)),
@@ -4504,7 +4524,8 @@ def phase_train_mla(np, torch, kernels, dev, bwd_rows=None):
     parameters and state.  Finite losses and grad norms; exactly
     ``train_launches`` latent forward launches (all on the tensor-core
     ``wgmma`` instance, each backward reading the lse its forward stored)
-    and backward calls (all on the bf16 instance), no other model kernel;
+    and backward calls (all on the tensor-core ``wgmma`` instance), no
+    other model kernel;
     the plain versions swapped for functions that raise.  Then one step
     under torch.profiler (device idle share, device s by group) and, on
     the last batch, every layer's and the MTP block's MLA weight gradients
@@ -4551,9 +4572,9 @@ def phase_train_mla(np, torch, kernels, dev, bwd_rows=None):
         _require(instances == {"wgmma": want["forward"], "fma": 0},
                  f"train-mla: flash_attention_latent instances {instances}, "
                  "want every forward on the tensor-core (wgmma) instance")
-        _require(bwd_instances == {"bf16": want["backward"], "f32": 0},
+        _require(bwd_instances == {"wgmma": want["backward"], "fma": 0},
                  f"train-mla: backward instances {bwd_instances}, want "
-                 "every call on the bf16 instance")
+                 "every call on the tensor-core (wgmma) instance")
         # every backward reads the lse of its (recomputed) forward
         _require(want["backward"] <= lse_launches <= want["forward"],
                  f"train-mla: {lse_launches} forward launches stored lse, "
@@ -4581,7 +4602,7 @@ def phase_train_mla(np, torch, kernels, dev, bwd_rows=None):
                                  BF16_OPS_PER_S)
     shape = f"train.B{run['batch']}.S{run['seq']}.H{cfg.num_heads}"
     sdpa = next((r["library_device_ms"] for r in bwd_rows or ()
-                 if r["shape"].startswith(shape) and r["instance"] == "bf16"),
+                 if r["shape"].startswith(shape) and r["instance"] == "wgmma"),
                 None)
     print(f"train-mla: {MLA_ARCH} layers={cfg.num_layers} (dense; "
           f"first_k_dense={cfg.moe.first_k_dense}) + mtp block "
@@ -4612,7 +4633,7 @@ def phase_train_mla_check(np, torch, kernels, dev):
     """``TRAIN_MLA_CHECK``: deepseek-v3-671b at full width, 2 dense layers
     and the MTP group in f32 (TF32 off), ``loss_and_grads`` on the kernel
     route (the latent forward on its CUDA-core ``fma`` instance, the
-    backward kernel's f32 instance) against the plain route
+    backward kernel's CUDA-core ``fma`` instance) against the plain route
     (``flash_attention_latent_plain`` under autograd) on the same batch:
     loss within 1e-5 relative, every gradient leaf within 1e-4 of its
     largest |value|, exact launches on the kernel route, none on the plain
@@ -4657,7 +4678,7 @@ def phase_train_mla_check(np, torch, kernels, dev):
                           "flash_attention_latent": want["forward"]}
              and backward == want["backward"]
              and instances == {"wgmma": 0, "fma": want["forward"]}
-             and bwd_instances == {"bf16": 0, "f32": want["backward"]},
+             and bwd_instances == {"wgmma": 0, "fma": want["backward"]},
              f"train-mla-check: kernel route launches {launches}, backward "
              f"{backward}, instances {instances}, backward instances "
              f"{bwd_instances}, want {want}")
@@ -6002,10 +6023,9 @@ def main(argv=None) -> int:
     ssd_chunks = {}      # phase -> ssd_scan launches by the chunk run
     flash_instances = latent_instances = decode_instances = None
     bwd_instances = latent_bwd_instances = None
-    ssd_built = ssd_bwd_built = att_built = mla_bwd_built = None
+    ssd_built = ssd_bwd_built = att_built = None
     if "build" in phases:
-        ssd_built, ssd_bwd_built, att_built, mla_bwd_built = phase_build(
-            _build)
+        ssd_built, ssd_bwd_built, att_built = phase_build(_build)
     if "kernels" in phases:
         rows = phase_kernels(np, torch, dev)
         rows.update(phase_model_kernels(np, torch, dev))
@@ -6027,10 +6047,11 @@ def main(argv=None) -> int:
                      for kind, d, n in att_built}
             missed = sorted(built - ran)
             _require(not missed, f"kernels: no row ran {missed}")
-            # ... and both instances of the latent backward
+            # ... and both instances of the latent backward (the build
+            # made every pass of each)
             ran = {r["instance"]
                    for r in rows["flash_attention_latent_bwd"]["shapes"]}
-            missed = sorted({dt for _, dt in mla_bwd_built} - ran)
+            missed = sorted(set(MLA_BWD_PASSES) - ran)
             _require(not missed, f"kernels: no flash_attention_latent_bwd "
                      f"row ran {missed}")
             # the wrapper's head groups are the C side's
@@ -6290,7 +6311,8 @@ def main(argv=None) -> int:
                               "mla_attention calls it (:273-286) and "
                               "train_loss differentiates it "
                               "(src/repro/models/model.py:323)",
-                              launches_per_call=len(MLA_BWD_PASSES),
+                              launches_per_call=len(
+                                  MLA_BWD_PASSES["wgmma"]),
                               instance=row.get("instance"),
                               instance_launches=latent_bwd_instances,
                               library_backend=row.get("library_backend"),

@@ -518,32 +518,13 @@ __global__ void __launch_bounds__(kR / 4)
 
 // ------------------------------------ tensor-core prefill, decode (bf16)
 constexpr int kTcThreads = 256;              // two warpgroups
-constexpr int kPiece = 64 * 128;             // 64 rows x 64 bf16, swizzled
-constexpr int kPieces = kDk / 64;            // 9: k_rope, then c_kv 0..7
+// a tile is wgmma.cuh's kPieces (9) pieces of kPiece bytes: k_rope, then
+// c_kv 0..7
 constexpr int kSlots = 2 * kPieces - 1;      // the ring's piece slots
 constexpr int kXWords = 16;                  // p words a thread passes on
 // dynamic shared memory: room to align the base to 1024 bytes (the
 // swizzle's period), Q's 9 pieces, the ring's 17 slots: 214 016 bytes
 constexpr int kTcSmem = 1024 + kPieces * kPiece + kSlots * kPiece;
-
-// 16 x 4 fp32 accumulator registers of an m64n32k16 product
-#define WGMMA_D16                                                         \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
-
-// d (64 x 32, fp32) (+)= A (64 x 16, K-major in shared memory) .
-// B (16 x 32, K-major in shared memory)
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " WGMMA_D16
-      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
 
 // the ring slot of piece j of key tile n
 __device__ __forceinline__ int ring_slot(int n, int j) {
@@ -600,27 +581,13 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   const __nv_bfloat16* kr =
       static_cast<const __nv_bfloat16*>(a.k_rope) + (long long)b * Tk * kDr;
 
-  // Q: 16-byte chunk c of row i; chunks 0..7 are q_rope's (piece 0), the
-  // rest q_lat's (pieces 1..8); rows past the last are zero-filled
-  for (int e = tid; e < 64 * kPieces * 8; e += kTcThreads) {
-    const int i = e / (kPieces * 8), c = e - i * (kPieces * 8);
-    const bool ok = r0 + i < rows;
-    const long long r = ok ? r0 + i : 0;
-    const __nv_bfloat16* src =
-        c < 8 ? qr + r * kDr + 8 * c : ql + r * kR + 8 * (c - 8);
-    cp_async16(swizzled(sq + (c >> 3) * kPiece, i, c & 7), src, ok);
-  }
+  // Q: piece 0 q_rope's, pieces 1..8 q_lat's; rows past the last are
+  // zero-filled
+  stage_latent_rows<kTcThreads>(sq, qr, ql, r0, rows, tid);
   // piece j of key tile n: 64 keys x 8 chunks, 2 copies a thread
   auto load_piece = [&](int n, int j) {
-    const uint32_t dst = ring + ring_slot(n, j) * kPiece;
-    for (int e = tid; e < 64 * 8; e += kTcThreads) {
-      const int k = e >> 3, c = e & 7;
-      const bool ok = t_begin + n * 64 + k < t_end;
-      const long long t = ok ? t_begin + n * 64 + k : 0;
-      const __nv_bfloat16* src =
-          j == 0 ? kr + t * kDr + 8 * c : ck + t * kR + 64 * (j - 1) + 8 * c;
-      cp_async16(swizzled(dst, k, c), src, ok);
-    }
+    stage_latent_piece<kTcThreads>(ring + ring_slot(n, j) * kPiece, kr, ck,
+                                   t_begin + n * 64, t_end, j, tid);
   };
   // decode: key tile n's 64 slot positions, in the cp.async group of its
   // pieces 0..7 (so they have landed by the barrier at the top of tile n);
@@ -779,11 +746,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
             bf16x2_bits(__floats2bfloat162_rn(s[i] - hf.x, s[i + 1] - hf.y));
       }
     }
-#pragma unroll
-    for (int w = 0; w < kXWords; ++w) xw[wg][w][lt] = own[w];
-    __syncthreads();
-#pragma unroll
-    for (int w = 0; w < kXWords; ++w) other[w] = xw[wg ^ 1][w][lt];
+    exchange(xw, own, other, wg, lt);
 
     // O's columns 256 wg + 64 u .. from value piece 1 + 4 wg + u; 16 keys
     // are 2048 bytes of a piece, 128 descriptor units

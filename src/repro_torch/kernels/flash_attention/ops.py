@@ -108,15 +108,22 @@ p^T do + scale ds^T q_lat, dk_rope = scale ds^T q_rope, summed over every
 * ``flash_attention_latent_bwd`` — the wrapper: plain version for CPU
   tensors (lse, when given, is checked and not needed), the CUDA kernels
   (``csrc/mla_attention_bwd.cu``: delta, then the query side, then the
-  key side's partial sums over chunks of the rows, then their sum; every
-  product as fp32 FMAs on the CUDA cores in both storage types) for CUDA
-  tensors, which read lse and raise without it; delta's and the partial
-  sums' fp32 workspaces come from ``torch.empty``, the latter's size
-  from the C side (``flash_attention_latent_bwd_workspace``, 0.16 GB at
-  B 4, S 1024, H 128).  ``flash_attention_latent.backward_launches``
-  counts its calls (four kernel launches each) and
-  ``backward_instance_launches`` the same calls by storage dtype
-  (``latent_bwd_instance``).
+  key side's partial sums over chunks of the rows, then their sum) for
+  CUDA tensors, which read lse and raise without it.  bf16 runs the
+  query and key sides on the tensor cores (``"wgmma"``:
+  ``mla_bwd_q_wgmma_kernel``, 64 query rows a block in two warpgroups
+  walking 64-key latent tiles, S and dO c_kv^T split over the keys, dS
+  passed between the warpgroups, dq's 576 columns split between them;
+  ``mla_bwd_kv_wgmma_kernel``, 64 keys a block over a chunk of 8 192
+  rows in 64-row tiles, P^T and dS^T passed on, dc_kv and dk_rope in one
+  accumulator split by columns; P and dS rounded once to bf16 as A
+  operands), f32 on the CUDA cores (``"fma"``: fp32 FMAs, 32 rows or
+  keys a block).  Delta's and the partial sums' fp32 workspaces come
+  from ``torch.empty``, the latter's size from the C side
+  (``flash_attention_latent_bwd_workspace``, 80 MB at B 4, S 1024, H
+  128).  ``flash_attention_latent.backward_launches`` counts its calls
+  (four kernel launches each) and ``backward_instance_launches`` the
+  same calls by instance (``latent_bwd_instance``).
 """
 
 from __future__ import annotations
@@ -539,15 +546,17 @@ def latent_instance(dtype: torch.dtype) -> str:
 
 def latent_bwd_instance(dtype: torch.dtype) -> str:
     """The instance of the latent backward's passes that a call on inputs
-    of ``dtype`` runs: one a storage dtype, fp32 FMAs in both."""
-    return "bf16" if dtype == torch.bfloat16 else "f32"
+    of ``dtype`` runs (the dispatch of ``flash_attention_latent_bwd_launch``):
+    ``"wgmma"`` for bf16, its query and key sides on the tensor cores;
+    ``"fma"`` for f32, on the CUDA cores."""
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
 flash_attention_latent.launches = 0
 flash_attention_latent.instance_launches = {"wgmma": 0, "fma": 0}
 flash_attention_latent.lse_launches = 0
 flash_attention_latent.backward_launches = 0
-flash_attention_latent.backward_instance_launches = {"bf16": 0, "f32": 0}
+flash_attention_latent.backward_instance_launches = {"wgmma": 0, "fma": 0}
 
 
 # --------------------------------------------------------- latent backward

@@ -14,15 +14,22 @@ the CPU route and through ``_FlashAttentionLatent`` (the CUDA route, with
 its launches replaced by the plain versions).
 
 The CUDA kernel (``csrc/mla_attention_bwd.cu``) runs only on the card
-(``chip_smoke.py`` holds it against the plain version there); here a
-plain-PyTorch model of its passes (delta; the query side by 32-row blocks
-walking 32-key tiles; the key side by 32-key blocks walking the 32-row
-tiles from position t0 on; p from the forward's lse in base 2) is held
-against the plain version, with a key side that starts one position late
-as the negative control.  Its passes hold bf16 values exactly in fp32 on
-the CUDA cores, so the only rounding to model is the outputs'.  The
-wrapper's checks, its ctypes binding parsed from the source, and
-chip_smoke.py's rows, bound and phases for the latent backward."""
+(``chip_smoke.py`` holds it against the plain version there); here
+plain-PyTorch models of its passes are held against the plain version,
+with a key side that starts one position late as the negative control.
+The f32 instance's (``_kernel_passes``: delta; the query side by 32-row
+blocks walking 32-key tiles; the key side by 32-key blocks walking the
+32-row tiles from position t0 on; p from the forward's lse in base 2)
+holds its values exactly in fp32 on the CUDA cores.  The bf16 tensor-core
+instance's (``_wgmma_passes``: 64-row query tiles walking 64-key tiles;
+64-key blocks over chunks of rows in 64-row tiles; dS, P^T and scale dS^T
+rounded once to bf16 as the kernel rounds its A operands; fp32 sums, the
+chunks summed in chunk order) at ``CASES`` and at chip_smoke.py's bf16
+``MLA_BWD`` rows cut in B and H but at their full S: within 1e-5 of the
+plain version without the rounding, and by the card's bf16 rule with it,
+which the wrong variants miss.  The wrapper's checks, its ctypes binding
+parsed from the source, and chip_smoke.py's rows, bound and phases for
+the latent backward."""
 
 import dataclasses
 import inspect
@@ -279,6 +286,19 @@ KERNEL_CHUNK_ROWS = 8192
 LOG2E = 1.4426950408889634
 
 
+@pytest.fixture
+def one_thread():
+    """The pass models issue thousands of small products; on one intra-op
+    thread each, so that the workers of a parallel test run do not
+    oversubscribe the cores (a product's thread team waits on threads the
+    other workers keep descheduled: one case took 473 s under ``-n 6``
+    against 1-2 s alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _kernel_passes(q_lat, q_rope, c_kv, k_rope, o, do, lse, scale,
                    late_start=0, chunk_rows=KERNEL_CHUNK_ROWS):
     b, s, h, r = q_lat.shape
@@ -336,6 +356,7 @@ def _kernel_passes(q_lat, q_rope, c_kv, k_rope, o, do, lse, scale,
             dk[..., :r].to(c_kv.dtype), dk[..., r:].to(k_rope.dtype))
 
 
+@pytest.mark.usefixtures("one_thread")
 @pytest.mark.parametrize("case", list(CASES))
 @pytest.mark.parametrize("chunk_rows", [KERNEL_CHUNK_ROWS, 64])
 def test_kernel_passes_match_plain(case, chunk_rows):
@@ -357,6 +378,141 @@ def test_kernel_passes_match_plain(case, chunk_rows):
     assert chip_smoke._latent_bwd_err(torch, late, want) > 1.0
 
 
+# ---------------------------------------------------------------------------
+# The bf16 instance's tensor-core passes (mla_bwd_q_wgmma_kernel,
+# mla_bwd_kv_wgmma_kernel) in plain PyTorch: the query side by 64-row
+# blocks walking the 64-key tiles up to its last row's position; the key
+# side by 64-key blocks and chunks of the rows from row t0 H, walking
+# 64-row tiles into a partial sum; the chunks summed in chunk order.  The
+# products of bf16 inputs are exact in fp32 and every sum is fp32; with
+# ``rounded`` the A operands go to bf16 where the kernel rounds them: dS
+# on the query side (scaled at the end), P^T and scale dS^T on the key
+# side.
+
+WGMMA_TILE = 64
+
+
+def _bf16(x):
+    return x.bfloat16().float()
+
+
+def _wgmma_passes(q_lat, q_rope, c_kv, k_rope, o, do, lse, scale,
+                  rounded=True, late_start=0, chunk_rows=KERNEL_CHUNK_ROWS):
+    b, s, h, r = q_lat.shape
+    t = c_kv.shape[1]
+    rows = s * h
+    f = torch.float32
+    rnd = _bf16 if rounded else (lambda x: x)
+    ql = q_lat.to(f).reshape(b, rows, r)
+    dof = do.to(f).reshape(b, rows, r)
+    kk = torch.cat([c_kv.to(f), k_rope.to(f)], -1)           # (B, T, R + Dr)
+    qq = torch.cat([ql, q_rope.to(f).reshape(b, rows, -1)], -1)
+    l2 = lse.reshape(b, rows) * LOG2E
+    delta = (dof * o.to(f).reshape(b, rows, r)).sum(-1)
+    pos = torch.arange(rows) // h
+    sc2 = scale * LOG2E
+    dq = torch.zeros_like(qq)
+    dk = torch.zeros_like(kk)
+    for bi in range(b):
+        # the query side
+        for r0 in range(0, rows, WGMMA_TILE):
+            rr = torch.arange(r0, min(r0 + WGMMA_TILE, rows))
+            t_end = min(t, int(rr[-1]) // h + 1)
+            for t0 in range(0, t_end, WGMMA_TILE):
+                tt = torch.arange(t0, min(t0 + WGMMA_TILE, t_end))
+                vis = tt[None, :] <= pos[rr][:, None]
+                p = torch.where(vis, torch.exp2(
+                    (qq[bi, rr] @ kk[bi, tt].T) * sc2
+                    - l2[bi, rr][:, None]), 0.0)
+                ds = p * (dof[bi, rr] @ kk[bi, tt, :r].T
+                          - delta[bi, rr][:, None])
+                dq[bi, rr] += rnd(ds) @ kk[bi, tt]
+        # the key side's partial sums, a chunk of rows each, then their sum
+        # in chunk order
+        for t0 in range(0, t, WGMMA_TILE):
+            tt = torch.arange(t0, min(t0 + WGMMA_TILE, t))
+            first = (t0 + late_start) * h
+            parts = []
+            for c0 in range(first, max(rows, first + 1), chunk_rows):
+                part = torch.zeros((len(tt), kk.shape[-1]))
+                end = min(rows, c0 + chunk_rows)
+                for rr0 in range(c0, end, WGMMA_TILE):
+                    rr = torch.arange(rr0, min(rr0 + WGMMA_TILE, end))
+                    vis = tt[:, None] <= pos[rr][None, :]
+                    pt = torch.where(vis, torch.exp2(
+                        (kk[bi, tt] @ qq[bi, rr].T) * sc2
+                        - l2[bi, rr][None, :]), 0.0)
+                    dst = pt * (kk[bi, tt, :r] @ dof[bi, rr].T
+                                - delta[bi, rr][None, :])
+                    pb, db = rnd(pt), rnd(scale * dst)
+                    part[:, :r] += pb @ dof[bi, rr] + db @ ql[bi, rr]
+                    part[:, r:] += db @ qq[bi, rr, r:]
+                parts.append(part)
+            for part in parts:
+                dk[bi, tt] += part
+    dq = (dq * scale).reshape(b, s, h, -1)
+    return (dq[..., :r].to(q_lat.dtype), dq[..., r:].to(q_rope.dtype),
+            dk[..., :r].to(c_kv.dtype), dk[..., r:].to(k_rope.dtype))
+
+
+def _wgmma_cases():
+    """CASES, and chip_smoke.py's bf16 MLA_BWD rows cut to B 1 and H 2 at
+    their full S (a small H, such as the small-H row's 3, kept; 64-row
+    tiles then span positions), one case a shape."""
+    cases = dict(CASES)
+    for label, _, s, h, tags in chip_smoke.MLA_BWD:
+        cut = (1, s, s, h if h < 8 else 2, chip_smoke.MLA_RANK,
+               chip_smoke.MLA_ROPE)
+        if "bf16" in tags and cut not in cases.values():
+            cases[f"MLA_BWD.{label}"] = cut
+    return cases
+
+
+WGMMA_CASES = _wgmma_cases()
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("case", list(WGMMA_CASES))
+@pytest.mark.parametrize("chunk_rows", [KERNEL_CHUNK_ROWS, 64])
+def test_wgmma_passes_match_plain(case, chunk_rows):
+    # f32 inputs, no operand rounding: the tiles, chunks and mask are the
+    # plain version's function
+    arrs, do = _inputs(*WGMMA_CASES[case], seed=len(case) + 2)
+    t = [torch.from_numpy(a) for a in arrs]
+    dot = torch.from_numpy(do)
+    o, lse = ops.flash_attention_latent_lse_plain(*t, scale=SCALE)
+    want = ops.flash_attention_latent_bwd_plain(*t, o, dot, scale=SCALE)
+    got = _wgmma_passes(*t, o, dot, lse, SCALE, rounded=False,
+                        chunk_rows=chunk_rows)
+    for name, g, w in zip(NAMES, got, want):
+        assert _ratio(g.numpy(), w.numpy()) <= 1e-5, name
+    late = _wgmma_passes(*t, o, dot, lse, SCALE, rounded=False,
+                         late_start=1, chunk_rows=chunk_rows)
+    assert chip_smoke._latent_bwd_err(torch, late, want) > 1.0
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("case", list(WGMMA_CASES))
+def test_bf16_wgmma_passes_meet_the_card_rule(case):
+    # bf16 inputs, dS, P^T and scale dS^T rounded once to bf16, several
+    # chunks a key tile: inside the card's bf16 rule, which the wrong
+    # variants and a key side that starts one position late miss
+    arrs, do = _inputs(*WGMMA_CASES[case], seed=len(case) + 3)
+    t = [torch.from_numpy(a).bfloat16() for a in arrs]
+    dob = torch.from_numpy(do).bfloat16()
+    o, lse = ops.flash_attention_latent_lse_plain(*t, scale=SCALE)
+    want = ops.flash_attention_latent_bwd_plain(*t, o, dob, scale=SCALE)
+    got = _wgmma_passes(*t, o, dob, lse, SCALE, chunk_rows=64)
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    assert chip_smoke._latent_bwd_err(torch, got, want) <= 1.0
+    for kw in (dict(value_part=False), dict(causal=False)):
+        wrong = ops._latent_bwd(*t, o, dob, SCALE, **kw)
+        assert chip_smoke._latent_bwd_err(torch, wrong, want) > 1.0, kw
+    late = _wgmma_passes(*t, o, dob, lse, SCALE, late_start=1, chunk_rows=64)
+    assert chip_smoke._latent_bwd_err(torch, late, want) > 1.0
+
+
+@pytest.mark.usefixtures("one_thread")
 def test_bf16_kernel_passes_meet_the_card_rule():
     # bf16 inputs are exact in fp32, every sum is fp32 and each gradient is
     # rounded once: the card's bf16 rule holds against the plain version,
@@ -463,14 +619,44 @@ def test_the_backward_source_is_built_and_bound():
     # the widths are the forward's, the shared memory fits a block
     assert "constexpr int kR = 512;" in src and "constexpr int kDr = 64;" in src
     assert ops.LATENT_WIDTHS == (512, 64)
-    tile = int(re.search(r"constexpr int kTile = (\d+);", src).group(1))
-    assert tile == KERNEL_TILE
-    chunk = int(re.search(r"constexpr int kChunkRows = (\d+);", src).group(1))
-    assert chunk == KERNEL_CHUNK_ROWS and chunk % tile == 0
+
+    def const(name, text=src):
+        return int(re.search(rf"constexpr int {name} = (\d+)", text).group(1))
+
+    tile, tc_tile = const("kTile"), const("kTcTile")
+    assert (tile, tc_tile) == (KERNEL_TILE, WGMMA_TILE)
+    chunk = const("kChunkRows")
+    assert chunk == KERNEL_CHUNK_ROWS and chunk % tc_tile == chunk % tile == 0
     q_smem = (tile * 576 + tile * 512 + tile * 580) * 4
     kv_smem = (2 * tile * 580 + tile * 516) * 4
-    assert max(q_smem, kv_smem) <= 232448
+    # the tensor-core passes: the latent tiles of wgmma.cuh (9 pieces of
+    # 64 x 64 bf16), 1 KB of alignment; the query side's Q, dO and a key
+    # tile and dS's exchange (8 words a thread); the key side's keys, a Q
+    # tile, a dO tile, the exchange of P^T and dS^T and 64 lse and delta
+    cuh = (_build.CSRC / "wgmma.cuh").read_text()
+    assert "constexpr int kPiece = 64 * 128;" in cuh
+    piece, pieces = 64 * 128, const("kPieces", cuh)
+    assert (pieces, const("kXWords")) == (9, 8)
+    q_tc = 1024 + (3 * pieces - 1) * piece + 2 * 8 * 128 * 4
+    kv_tc = 1024 + (3 * pieces - 1) * piece + 2 * 2 * 8 * 128 * 4 + 2 * 64 * 4
+    assert (q_tc, kv_tc) == (222208, 230912)
+    assert max(q_smem, kv_smem, q_tc, kv_tc) <= 232448
     assert "atomic" not in src.split("#include")[-1]
+    # bf16 reaches the tensor-core query and key sides, f32 the CUDA-core
+    # ones, and no bf16 instance of the CUDA-core ones is built
+    body = src.split("#include")[-1]
+    for k in ("q", "kv"):
+        assert f"mla_bwd_{k}_wgmma_kernel<<<" in body
+        assert f"mla_bwd_{k}_kernel<float><<<" in body
+        assert f"mla_bwd_{k}_kernel<__nv_bfloat16>" not in body
+    # the forward and the backward share wgmma.cuh's m64n32 product, latent
+    # staging and fragment exchange
+    fwd_src = (_build.CSRC / "mla_attention.cu").read_text()
+    for helper in ("wgmma_ss_n32", "stage_latent_piece", "stage_latent_rows",
+                   "exchange"):
+        assert f"void {helper}(" in cuh, helper
+        assert f"void {helper}(" not in fwd_src + src, helper
+        assert helper in fwd_src and helper in src, helper
     # the forward's launch takes the lse buffer
     fwd = _c_params((_build.CSRC / "mla_attention.cu").read_text(),
                     "flash_attention_latent_launch")
@@ -478,24 +664,43 @@ def test_the_backward_source_is_built_and_bound():
 
 
 def test_backward_instances_and_counters():
-    assert ops.latent_bwd_instance(torch.bfloat16) == "bf16"
-    assert ops.latent_bwd_instance(torch.float32) == "f32"
+    cs = chip_smoke
+    assert ops.latent_bwd_instance(torch.bfloat16) == "wgmma"
+    assert ops.latent_bwd_instance(torch.float32) == "fma"
     fal = ops.flash_attention_latent
-    assert set(fal.backward_instance_launches) == {"bf16", "f32"}
+    assert set(fal.backward_instance_launches) == {"wgmma", "fma"}
     assert hasattr(fal, "lse_launches") and hasattr(fal, "backward_launches")
-    assert chip_smoke._latent_bwd_instance(
-        "_ZN53_GLOBAL__N__7c351eb7_20_mla_attention_bwd_cu_be7d309616mla_"
-        "bwd_q_kernelI13__nv_bfloat16EEvNS_7BwdArgsE") == ("q", "bf16")
-    assert chip_smoke._latent_bwd_instance(
-        "_ZN53_GLOBAL__N__7c351eb7_20_mla_attention_bwd_cu_be7d309620mla_"
-        "bwd_delta_kernelIfEEvPKT_S3_Pfx") == ("delta", "f32")
-    assert chip_smoke._latent_bwd_instance("mla_attention_kernel") is None
-    assert chip_smoke._latent_bwd_instance(
-        "_ZN53_GLOBAL__N__7c351eb7_20_mla_attention_bwd_cu_be7d309621mla_"
-        "bwd_reduce_kernelIfEEvNS_7BwdArgsE") == ("reduce", "f32")
-    assert set(chip_smoke.MLA_BWD_INSTANCES) == {
-        (p, dt) for p in ("delta", "q", "kv", "reduce")
-        for dt in ("f32", "bf16")}
+    ns = "_ZN53_GLOBAL__N__7c351eb7_20_mla_attention_bwd_cu_be7d3096"
+    assert cs._latent_bwd_instance(
+        ns + "22mla_bwd_q_wgmma_kernelENS_7BwdArgsE") == ("q_wgmma", "bf16")
+    assert cs._latent_bwd_instance(
+        ns + "23mla_bwd_kv_wgmma_kernelENS_7BwdArgsE") == ("kv_wgmma", "bf16")
+    assert cs._latent_bwd_instance(
+        ns + "16mla_bwd_q_kernelIfEEvNS_7BwdArgsE") == ("q", "f32")
+    assert cs._latent_bwd_instance(
+        ns + "20mla_bwd_delta_kernelIfEEvPKT_S3_Pfx") == ("delta", "f32")
+    assert cs._latent_bwd_instance("mla_attention_kernel") is None
+    assert cs._latent_bwd_instance(
+        ns + "21mla_bwd_reduce_kernelI13__nv_bfloat16EEvNS_7BwdArgsE") == (
+            "reduce", "bf16")
+    # a CUDA-core bf16 query side is no instance the build may make
+    bf16_q = cs._latent_bwd_instance(
+        ns + "16mla_bwd_q_kernelI13__nv_bfloat16EEvNS_7BwdArgsE")
+    assert bf16_q == ("q", "bf16") and bf16_q not in cs.MLA_BWD_INSTANCES
+    assert cs.MLA_BWD_PASSES == {
+        "wgmma": ("delta", "q_wgmma", "kv_wgmma", "reduce"),
+        "fma": ("delta", "q", "kv", "reduce")}
+    assert cs.MLA_BWD_DTYPES == {
+        ops.latent_bwd_instance(torch.bfloat16): "bf16",
+        ops.latent_bwd_instance(torch.float32): "f32"}
+    assert set(cs.MLA_BWD_INSTANCES) == {
+        *((p, "bf16") for p in ("delta", "q_wgmma", "kv_wgmma", "reduce")),
+        *((p, "f32") for p in ("delta", "q", "kv", "reduce"))}
+    assert cs.MLA_BWD_NO_SPILL == (("q_wgmma", "bf16"), ("kv_wgmma", "bf16"))
+    # flash_attention_latent_bwd_smem_bytes's passes, in the source's order
+    src = (_build.CSRC / "mla_attention_bwd.cu").read_text()
+    assert "{kQSmem, kKvSmem, kQTcSmem, kKvTcSmem}" in src
+    assert cs.MLA_BWD_SMEM_PASSES == ("q", "kv", "q_wgmma", "kv_wgmma")
 
 
 # --------------------------------------------------------- chip_smoke.py
@@ -513,7 +718,8 @@ def test_backward_rows_sit_at_the_training_shape():
     assert cs.MLA_BWD_PROFILED == ("train", "B8")
     assert (cs.MLA_RANK, cs.MLA_ROPE) == (cfg.mla.kv_lora_rank,
                                           cfg.mla.qk_rope_head_dim)
-    assert cs.MLA_BWD_PASSES == ("delta", "q", "kv", "reduce")
+    assert set(cs.MLA_BWD_PASSES) == set(cs.MLA_BWD_DTYPES) == {"wgmma",
+                                                                "fma"}
 
 
 def test_backward_bound_and_tolerance():

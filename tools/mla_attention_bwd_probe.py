@@ -9,7 +9,9 @@ registers and spills of the latent kernels, then runs chip_smoke.py's
 kernels rows of the backward (``_latent_bwd_rows`` at ``MLA_BWD``'s
 labels: checks against the plain version, lse, wrong variants, bit
 identity, autograd route; kernel, per-pass device, plain and SDPA times)
-and prints each row as JSON.  Needs a CUDA card and ``nvcc``.
+and prints each row as JSON, with the instance that ran (bf16 ``wgmma``,
+its passes delta, q_wgmma, kv_wgmma, reduce; f32 ``fma``, delta, q, kv,
+reduce).  Needs a CUDA card and ``nvcc``.
 """
 
 from __future__ import annotations

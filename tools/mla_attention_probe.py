@@ -35,7 +35,8 @@ what a cut saves is roughly what that part costs.  Prefill and decode
 share the kernel's body, so each cut acts on both.  The cut variants
 compute wrong outputs; they are timed, never used.  ``--other`` adds
 another source (say the parent commit's, copied into the git-ignored
-``benchmarks/results/``), checked and timed beside them.
+``benchmarks/results/``), checked, compared with "base" bit for bit
+(``bits_equal_base``) and timed beside them.
 """
 
 from __future__ import annotations
@@ -108,27 +109,58 @@ VARIANTS["copies-under-products"] = [
 #pragma unroll
     for (int u = 0; u < 4; ++u) fence_regs(o[u]);""")]
 # L2 hints on the copies: a 256-byte L2 prefetch on the key copies; or the
-# keys kept in L2 (evict-last) while q, read once, goes first (evict-first)
-_KEY_COPY = "      cp_async16(swizzled(dst, k, c), src, ok);"
-_Q_COPY = "    cp_async16(swizzled(sq + (c >> 3) * kPiece, i, c & 7), src, ok);"
-VARIANTS["l2-prefetch"] = [(_KEY_COPY, """      asm volatile(
+# keys kept in L2 (evict-last) while q, read once, goes first (evict-first).
+# The copies sit in wgmma.cuh's staging helpers, so a variant puts their
+# loops in place of the calls, with its own copy instruction
+_KEY_STAGE = """    stage_latent_piece(ring + ring_slot(n, j) * kPiece, kr, ck,
+                       t_begin + n * 64, t_end, j, tid, kTcThreads);"""
+_Q_STAGE = "  stage_latent_rows(sq, qr, ql, r0, rows, tid, kTcThreads);"
+
+
+def _key_loop(copy: str) -> str:
+    """The key tile's piece copies (stage_latent_piece) with ``copy``
+    (of dst, src and ok) in place of cp_async16."""
+    return """    const uint32_t dst = ring + ring_slot(n, j) * kPiece;
+    for (int e = tid; e < 64 * 8; e += kTcThreads) {
+      const int k = e >> 3, c = e & 7;
+      const bool ok = t_begin + n * 64 + k < t_end;
+      const long long t = ok ? t_begin + n * 64 + k : 0;
+      const __nv_bfloat16* src =
+          j == 0 ? kr + t * kDr + 8 * c : ck + t * kR + 64 * (j - 1) + 8 * c;
+      const uint32_t at = swizzled(dst, k, c);
+""" + copy + """
+    }"""
+
+
+def _q_loop(copy: str) -> str:
+    """Q's copies (stage_latent_rows) with ``copy`` in place of
+    cp_async16."""
+    return """  for (int e = tid; e < 64 * kPieces * 8; e += kTcThreads) {
+    const int i = e / (kPieces * 8), c = e - i * (kPieces * 8);
+    const bool ok = r0 + i < rows;
+    const long long r = ok ? r0 + i : 0;
+    const __nv_bfloat16* src =
+        c < 8 ? qr + r * kDr + 8 * c : ql + r * kR + 8 * (c - 8);
+    const uint32_t at = swizzled(sq + (c >> 3) * kPiece, i, c & 7);
+""" + copy + """
+  }"""
+
+
+VARIANTS["l2-prefetch"] = [(_KEY_STAGE, _key_loop("""      asm volatile(
           "cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\\n"
-          ::"r"(swizzled(dst, k, c)), "l"(src), "r"(ok ? 16 : 0));""")]
+          ::"r"(at), "l"(src), "r"(ok ? 16 : 0));"""))]
 VARIANTS["l2-policy"] = [
-    ("  // Q: 16-byte chunk c of row i;", """  uint64_t keep, drop;
+    (_Q_STAGE, """  uint64_t keep, drop;
   asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
                : "=l"(keep));
   asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
                : "=l"(drop));
-  // Q: 16-byte chunk c of row i;"""),
-    (_KEY_COPY, """      asm volatile(
-          "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, "
-          "%3;\\n" ::"r"(swizzled(dst, k, c)), "l"(src), "r"(ok ? 16 : 0),
-          "l"(keep));"""),
-    (_Q_COPY, """    asm volatile(
+""" + _q_loop("""    asm volatile(
         "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\\n"
-        ::"r"(swizzled(sq + (c >> 3) * kPiece, i, c & 7)), "l"(src),
-        "r"(ok ? 16 : 0), "l"(drop));""")]
+        ::"r"(at), "l"(src), "r"(ok ? 16 : 0), "l"(drop));""")),
+    (_KEY_STAGE, _key_loop("""      asm volatile(
+          "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, "
+          "%3;\\n" ::"r"(at), "l"(src), "r"(ok ? 16 : 0), "l"(keep));"""))]
 PREFILL = ((2, 200, 128), (1, 77, 3), (8, 2048, 128), (2, 1528, 128))
 DECODE = ((8, 2112, 128), (2, 300, 5), (8, 18, 128), (3, 1536, 128),
           (2, 777, 3))
@@ -320,7 +352,12 @@ def time_variants(names: list[str], others: list[Path]) -> int:
             for name in ["base", *(n for n in libs if n not in VARIANTS)]:
                 call(libs[name])
                 torch.cuda.synchronize()
-                print(f"{kind} {name} {_diff(out, want)}", flush=True)
+                # another source: are its outputs base's, bit for bit?
+                same = ("" if name == "base" else
+                        f" bits_equal_base={torch.equal(out, base_out)}")
+                print(f"{kind} {name} {_diff(out, want)}{same}", flush=True)
+                if name == "base":
+                    base_out = out.clone()
         for kind, (call, _, n, _) in runs.items():
             times = {name: [] for name in libs}
             for name in [*libs, *reversed(libs)]:
